@@ -2,12 +2,19 @@
 """Smoke run of the PyTorch / CUDA port on one GPU.
 
 Builds the hand-written CUDA kernels from hmvec_tpu_torch/csrc, checks each
-against its plain PyTorch version on the card, drives the port's main path
--- hmvec_tpu_torch.pipeline.make_pmm_fn at bench config 1's full width,
-20 z x 200 m x 1001 k -- through all four NFW paths for the three
-cosmologies of the golden file that the JAX package wrote
-(tools/gen_torch_golden.py), differentiates it, and times the kernels and
-the end-to-end calls.  Every gate that fails raises, so the script exits
+against its plain PyTorch version on the card, and drives the port's two
+paths at bench width, 20 z x 200 m x 1001 k, for the three cosmologies of
+the golden files that the JAX package wrote (tools/gen_torch_golden.py):
+
+* config 1, hmvec_tpu_torch.pipeline.make_pmm_fn, through its four NFW
+  paths (plain, exact, fast, fused);
+* config 2, make_electron_fn (Pee, Pme; nxs 4096, xmax 20), through both
+  tiers (float64 sampling; fast=True: float32 sampling and the fast NFW
+  kernel).
+
+It differentiates both, and times the kernels and the end-to-end calls.
+Each path is driven with every kernel's launch count set to 0 just before
+it and read just after.  Every gate that fails raises, so the script exits
 nonzero and prints no result.
 
 Run from the repository root, on a machine with a CUDA card:
@@ -16,8 +23,10 @@ Run from the repository root, on a machine with a CUDA card:
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
-the line before it lists each kernel with its launches on the main path,
-its error against the plain version and both times.
+the line before it lists each kernel with its launches on the paths, its
+error against the plain version, its time, the plain version's time, and
+the least time the card could take for the same work (bound_ms, set by
+bytes or operations).
 """
 
 from __future__ import annotations
@@ -34,22 +43,46 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-GOLDEN = ROOT / "hmvec_tpu_torch" / "data" / "pmm_config1_golden.npz"
+DATA = ROOT / "hmvec_tpu_torch" / "data"
+GOLDEN = DATA / "pmm_config1_golden.npz"
+GOLDEN_E = DATA / "electron_config2_golden.npz"
 
-# kernel vs plain version on the card (absolute on u; relative on S1, S2)
+# kernel vs plain version on the card (absolute on u; relative on S1, S2;
+# the resample kernel repeats the plain version's float64 operations in
+# the same order, so it must agree bit for bit)
 GATE_UK = {"exact": 2e-7, "fast": 5e-6}
 GATE_CONTRACT_REL = 1e-10
-# end to end, max relative error against the golden Pmm
+GATE_LERP = 0.0
+# end to end, max relative error against the golden spectra
 GATE_PMM = {"plain": 1e-10, "exact": 1e-7, "fast": 1e-5, "fused": 1e-5}
+GATE_E = {"electron_plain": 1e-10, "electron_fast": 1e-5}
 GATE_JAC_REL = 1e-6
 PATHS = {"plain": {"fast": False}, "exact": {"fast": "exact"},
          "fast": {"fast": True}, "fused": {"fused_serving": True}}
-KERNEL_ROWS = (  # wrapper, tier, the TPU kernel it replaces
-    ("nfw_uk_fast", "fast", "hmvec_tpu/ops/pallas_kernels.py:321"),
-    ("nfw_uk_exact", "exact", "hmvec_tpu/ops/pallas_kernels.py:800"),
-    ("nfw_contract", None, "hmvec_tpu/ops/pallas_kernels.py:388"),
+E_PATHS = {"electron_plain": {"fast": False}, "electron_fast": {"fast": True}}
+# wrapper, module, source, the TPU kernel it replaces, the paths that must
+# launch it
+KERNEL_ROWS = (
+    ("nfw_uk_fast", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:321",
+     ("fast", "electron_fast")),
+    ("nfw_uk_exact", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:800",
+     ("exact",)),
+    ("nfw_contract", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:388",
+     ("fused",)),
+    ("pair_lerp_f64", "resample_kernels",
+     "hmvec_tpu/ops/pallas_resample.py:110", ("electron_plain",)),
+    ("pair_lerp_f32", "resample_kernels",
+     "hmvec_tpu/ops/pallas_resample.py:110", ("electron_fast",)),
 )
-SOURCE = "hmvec_tpu_torch/csrc/nfw_kernels.cu"
+SOURCE = {"nfw_kernels": "hmvec_tpu_torch/csrc/nfw_kernels.cu",
+          "resample_kernels": "hmvec_tpu_torch/csrc/resample_kernels.cu"}
+
+# the card's data-sheet peaks (H100 SXM, dense, outside the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"f64": 34e12, "f32": 67e12}
+# operations counted for one call of a math-library function: an estimate
+# of its range reduction and polynomial, since its source is not ours
+LIB_OPS = {"sincos": {"f64": 40, "f32": 20}, "log": {"f64": 30, "f32": 15}}
 
 
 def check(ok: bool, what: str):
@@ -82,6 +115,35 @@ def event_ms(fn, n=25, warmup=3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls=5, replays=5, warmup=3) -> float:
+    """Device time of one call of fn without the host's launch gaps: the
+    calls are captured in a CUDA graph, which is replayed back to back
+    between two CUDA events; the mean over calls x replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    ms = start.elapsed_time(stop) / (calls * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def host_ms(fn, n=10, warmup=2) -> float:
     """Median host time of one call of fn that ends in a synchronize."""
     for _ in range(warmup):
@@ -94,6 +156,66 @@ def host_ms(fn, n=10, warmup=2) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def bound(nbytes: int, ops: dict) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations of each type over that type's peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(n / PEAK_OPS[t] for t, n in ops.items())
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _sici_ops(x, ncoef, nasy, prec):
+    """Operations of hmvec::sici_parts (csrc/nfw_u.cuh) at each x: 1/max,
+    the Chebyshev variable, the dual Clenshaw, the f/g tail or product,
+    and Si/Ci (with a log in the series branch)."""
+    in0 = x <= 4.0
+    n = 1 + torch.where(in0, 4, 3) + (1 + 6 * ncoef + 4)
+    n = n + torch.where(x > 40.0, 4 + 4 * nasy, 3)
+    return n + torch.where(in0, 3 + LIB_OPS["log"][prec], 7)
+
+
+def nfw_ops(ks, scales, cs, tier) -> dict:
+    """Operations of hmvec::nfw_u over the (row, k) grid, counted from
+    csrc/nfw_u.cuh on this run's inputs: the two phases, their sin/cos,
+    two sici_parts and the assembly; split by type (the fast tier forms
+    and reduces its phases in float64 and does the rest in float32)."""
+    x = ks[None, :] * scales.reshape(-1)[:, None]
+    x2 = x * (1.0 + cs.reshape(-1))[:, None]
+    prec, ncoef, nasy = (("f32", 16, 7) if tier == "fast"
+                         else ("f64", 24, 13))
+    body = (_sici_ops(x, ncoef, nasy, prec) + _sici_ops(x2, ncoef, nasy, prec)
+            + 3 + torch.where(x2 <= 4.0, 2, 1) + torch.where(x <= 4.0, 1, 7)
+            + 6)
+    n_el = x.numel()
+    body = int(body.sum().item()) + 2 * LIB_OPS["sincos"][prec] * n_el
+    phases = 2 * n_el + (8 * n_el if tier == "fast" else 0)
+    if prec == "f64":
+        return {"f64": body + phases}
+    return {"f64": phases, "f32": body}
+
+
+def pair_lerp_work(u, scales, ks, dkt) -> tuple[int, dict]:
+    """(bytes, operations) of one pair_lerp call on this run's data: each
+    table entry that some target reads (u[b, i0], u[b, i0+1] in the lerp
+    window, u[b, 1] below it) once, scales, ks and the float64 output;
+    2 float64 operations per target for p, 5 more in the lerp window."""
+    nkt = u.shape[-1]
+    rows = scales.numel()
+    p = ks[None, :] * scales.reshape(-1)[:, None] / dkt
+    win = (p >= 1.0) & (p <= nkt - 1.0)
+    i0 = torch.floor(p).clamp(1, nkt - 2).long()
+    dummy = torch.full_like(i0, nkt)      # a column no target reads
+    touched = torch.zeros((rows, nkt + 1), dtype=torch.bool, device=u.device)
+    touched.scatter_(1, torch.where(win, i0, torch.where(p < 1.0, 1, dummy)),
+                     True)
+    touched.scatter_(1, torch.where(win, i0 + 1, dummy), True)
+    n_read = int(touched[:, :nkt].sum().item())
+    nbytes = (n_read * u.element_size() + 8 * rows + 8 * ks.numel()
+              + 8 * rows * ks.numel())
+    return nbytes, {"f64": 2 * p.numel() + 5 * int(win.sum().item())}
 
 
 def adversarial_rows(dev):
@@ -111,6 +233,22 @@ def adversarial_rows(dev):
            t(np.array([0.1, 0.3, 0.6]) * 1.5), t([3.0, 7.0, 11.0]))
 
 
+def adversarial_lerp(dev):
+    """(u, scales, ks, dkt) for the resample kernel: a (3, 7) batch of
+    1,031-sample rows (unaligned) to 333 targets from far below kt_1 to
+    far above Nyquist, and scales that are powers of two with targets on a
+    grid of quarters, so that many positions p = k s / dkt land exactly on
+    integers."""
+    rng = np.random.default_rng(1)
+    dkt = 0.25
+    scales = 2.0 ** rng.integers(-3, 3, (3, 7)).astype(np.float64)
+    ks = np.concatenate([np.geomspace(1e-4, 5e3, 233),
+                         np.arange(100) * 0.25 * 7.0])
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+    return (t(rng.standard_normal((3, 7, 1031))), t(scales),
+            t(np.sort(ks)), dkt)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -120,6 +258,7 @@ def main() -> int:
     from hmvec_tpu_torch import pipeline as pl
     from hmvec_tpu_torch.kernels import _build
     from hmvec_tpu_torch.ops import nfw_kernels as nk
+    from hmvec_tpu_torch.ops import resample_kernels as rk
 
     check(pathlib.Path(hmvec_tpu_torch.__file__).resolve().parent
           == ROOT / "hmvec_tpu_torch",
@@ -128,6 +267,9 @@ def main() -> int:
     torch.cuda.set_device(dev)
     # the float64 path has no float32 matmul, but state the setting
     torch.backends.cuda.matmul.allow_tf32 = False
+    modules = {"nfw_kernels": nk, "resample_kernels": rk}
+    wrappers = {name: getattr(modules[mod], name)
+                for name, mod, _, _ in KERNEL_ROWS}
 
     # ---- phase 1: environment and build --------------------------------
     card = card_line()
@@ -148,9 +290,13 @@ def main() -> int:
 
     # ---- phase 2: each kernel against its plain version on the card ----
     g = np.load(GOLDEN)
+    ge = np.load(GOLDEN_E)
     zs, ks_np, ms = g["zs"], g["ks"], g["ms"]
+    for key in ("zs", "ks", "ms", "param_values"):
+        check(np.array_equal(g[key], ge[key]), f"golden files share {key}")
     names = g["param_names"].tolist()
     cosmos = [dict(zip(names, map(float, row))) for row in g["param_values"]]
+    nxs, xmax = int(ge["nxs"]), float(ge["xmax"])
     ks, scales, cs, a_zm, b_zm = pl.nfw_stage_inputs(zs, ks_np, ms,
                                                      cosmos[0], device=dev)
     rows_s = scales.reshape(-1).contiguous()
@@ -159,8 +305,8 @@ def main() -> int:
     cases = [("config1", ks, rows_s, rows_c), *adversarial_rows(dev)]
     for case, k_, s_, c_ in cases:
         ref = nk.nfw_uk_plain(k_, s_, c_)
-        for name, tier, _ in KERNEL_ROWS[:2]:
-            u = getattr(nk, name)(k_, s_, c_)
+        for name, tier in (("nfw_uk_fast", "fast"), ("nfw_uk_exact", "exact")):
+            u = wrappers[name](k_, s_, c_)
             torch.cuda.synchronize()
             check(u.is_cuda and u.shape == ref.shape, f"{name} output")
             e = (u.double() - ref).abs().max().item()
@@ -183,31 +329,77 @@ def main() -> int:
           f"{tuple(scales.shape)} x {ks.numel()} k: max rel err {rel!r} "
           f"(gate {GATE_CONTRACT_REL}), max abs err {err['nfw_contract']!r}")
 
-    # ---- phase 3: the main path at config-1 width vs the golden Pmm -----
-    fns = {p: pl.make_pmm_fn(zs, ks_np, ms, device=dev, **kw)
-           for p, kw in PATHS.items()}
-    wrappers = {name: getattr(nk, name) for name, _, _ in KERNEL_ROWS}
-    for w in wrappers.values():
-        w.launches = 0
-    for i, ov in enumerate(cosmos):
-        for path, fn in fns.items():
+    # the resample kernel on the config-2 u(kt) table of each tier at the
+    # bench cosmology, and on the adversarial batch
+    tables = {name: pl.electron_stage_inputs(
+                  zs, ks_np, ms, cosmos[0], device=dev, nxs=nxs, xmax=xmax,
+                  fast=name == "pair_lerp_f32")
+              for name in ("pair_lerp_f64", "pair_lerp_f32")}
+    u_adv, s_adv, k_adv, dkt_adv = adversarial_lerp(dev)
+    p_adv = k_adv * s_adv[..., None] / dkt_adv
+    on_int = (p_adv == torch.round(p_adv)) & (p_adv >= 1) & (p_adv <= 1030)
+    check(bool((p_adv < 1).any()) and bool((p_adv > 1030).any())
+          and bool(on_int.any()),
+          "the adversarial resample case reaches both boundaries and "
+          "integer positions inside the lerp window")
+    for name, (u, s_, k_, dkt) in tables.items():
+        dtype = u.dtype
+        for case, args in (("config2", (u, s_, k_, dkt)),
+                           ("adversarial", (u_adv.to(dtype), s_adv, k_adv,
+                                            dkt_adv))):
+            got = wrappers[name](*args)
+            torch.cuda.synchronize()
+            ref = rk.pair_lerp_plain(*args)
+            check(got.is_cuda and got.shape == ref.shape
+                  and got.dtype == torch.float64, f"{name} output")
+            e = (got - ref).abs().max().item()
+            check(e <= GATE_LERP, f"{name} on {case}: {e!r} > {GATE_LERP}")
+            if case == "config2":
+                err[name] = e
+            print(f"[kernel] {name} vs pair_lerp_plain on {case} "
+                  f"{tuple(args[0].shape)} -> {args[2].numel()} k: "
+                  f"max abs err {e!r} (gate {GATE_LERP})")
+
+    # ---- phase 3: both main paths at full width vs the golden files -----
+    def drive(path, fn, want, gate):
+        """Run one path for every cosmology with the launch counts set to
+        0 just before and read just after; returns the counts."""
+        for w in wrappers.values():
+            w.launches = 0
+        for i, ov in enumerate(cosmos):
             out = fn(ov)
             torch.cuda.synchronize()
-            check(out.is_cuda and out.shape == (zs.size, ks_np.size)
-                  and out.dtype == torch.float64, f"{path} output")
-            got = out.cpu().numpy()
-            check(bool(np.all(np.isfinite(got))), f"{path} finite")
-            e = float(np.max(np.abs(got / g["pmm"][i] - 1.0)))
-            check(e <= GATE_PMM[path], f"{path} cosmology {i}: {e!r}")
-            print(f"[e2e] {path} cosmology {i} "
-                  f"(omch2={ov['omch2']}, As={ov['As']}): max rel err vs "
-                  f"golden {e!r} (gate {GATE_PMM[path]})")
-    launches = {name: w.launches for name, w in wrappers.items()}
-    for name, n in launches.items():
-        check(n > 0, f"{name} launched on the main path")
-    print(f"[e2e] launches on the main path: {launches}")
+            outs = out if isinstance(out, tuple) else (out,)
+            for key, o in zip(want, outs):
+                check(o.is_cuda and o.shape == (zs.size, ks_np.size)
+                      and o.dtype == torch.float64, f"{path} {key} output")
+                got = o.cpu().numpy()
+                check(bool(np.all(np.isfinite(got))), f"{path} {key} finite")
+                e = float(np.max(np.abs(got / want[key][i] - 1.0)))
+                check(e <= gate, f"{path} {key} cosmology {i}: {e!r}")
+                print(f"[e2e] {path} {key} cosmology {i} "
+                      f"(omch2={ov['omch2']}, As={ov['As']}): max rel err "
+                      f"vs golden {e!r} (gate {gate})")
+        counts = {name: w.launches for name, w in wrappers.items()}
+        print(f"[e2e] {path}: launches over {len(cosmos)} calls: {counts}")
+        return counts
 
-    # ---- phase 4: d Pmm / d (omch2, As) through a kernel and plain ------
+    fns = {p: pl.make_pmm_fn(zs, ks_np, ms, device=dev, **kw)
+           for p, kw in PATHS.items()}
+    efns = {p: pl.make_electron_fn(zs, ks_np, ms, device=dev, nxs=nxs,
+                                   xmax=xmax, **kw)
+            for p, kw in E_PATHS.items()}
+    launches = {}
+    for path, fn in fns.items():
+        launches[path] = drive(path, fn, {"pmm": g["pmm"]}, GATE_PMM[path])
+    for path, fn in efns.items():
+        launches[path] = drive(path, fn, {"pee": ge["pee"], "pme": ge["pme"]},
+                               GATE_E[path])
+    for name, _, _, paths in KERNEL_ROWS:
+        for path in paths:
+            check(launches[path][name] > 0, f"{name} launched on {path}")
+
+    # ---- phase 4: derivatives through the kernels and plain -------------
     jac = {}
     for path in ("plain", "exact"):
         t0 = time.perf_counter()
@@ -223,37 +415,108 @@ def main() -> int:
     check(jrel <= GATE_JAC_REL, f"jacobian exact vs plain {jrel!r}")
     print(f"[grad] exact vs plain: max rel diff {jrel!r} "
           f"(gate {GATE_JAC_REL})")
+    jac_names = tuple(ge["jac_names"].tolist())
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ejac = pl.fisher_jacobian(efns["electron_plain"], cosmos[0], jac_names,
+                              device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    for key, j in zip(("pee", "pme"), ejac):
+        got = j.cpu().numpy()
+        want = ge[f"jac_{key}"]
+        check(got.shape == want.shape and bool(np.all(np.isfinite(got))),
+              f"electron jacobian {key}")
+        for col, pname in enumerate(jac_names):
+            e = float(np.max(np.abs(got[..., col] / want[..., col] - 1.0)))
+            check(e <= GATE_JAC_REL, f"d {key} / d {pname}: {e!r}")
+            print(f"[grad] fisher_jacobian electron_plain d {key} / d "
+                  f"{pname}: max rel err vs golden {e!r} "
+                  f"(gate {GATE_JAC_REL})")
+    print(f"[grad] fisher_jacobian electron_plain in {dt:.2f} s, peak "
+          f"{peak:.1f} MiB allocated ({card})")
 
     # ---- phase 5: times on the card --------------------------------------
-    plain_uk = event_ms(lambda: nk.nfw_uk_plain(ks, rows_s, rows_c))
-    times = {
-        "nfw_uk_fast": (event_ms(lambda: nk.nfw_uk_fast(ks, rows_s, rows_c)),
-                        plain_uk),
-        "nfw_uk_exact": (event_ms(lambda: nk.nfw_uk_exact(ks, rows_s, rows_c)),
-                         plain_uk),
+    # each timed call: its device time from CUDA-graph replays (device_ms)
+    # and the per-call CUDA-event time, which also holds the host's launch
+    # gaps (event_ms)
+    calls = {
+        "nfw_uk_fast": (lambda: nk.nfw_uk_fast(ks, rows_s, rows_c),
+                        lambda: nk.nfw_uk_plain(ks, rows_s, rows_c)),
+        "nfw_uk_exact": (lambda: nk.nfw_uk_exact(ks, rows_s, rows_c),
+                         lambda: nk.nfw_uk_plain(ks, rows_s, rows_c)),
         "nfw_contract": (
-            event_ms(lambda: nk.nfw_contract(ks, scales, cs, a_zm, b_zm)),
-            event_ms(lambda: nk.nfw_contract_plain(ks, scales, cs, a_zm,
-                                                   b_zm))),
+            lambda: nk.nfw_contract(ks, scales, cs, a_zm, b_zm),
+            lambda: nk.nfw_contract_plain(ks, scales, cs, a_zm, b_zm)),
     }
+    gather_calls = {}
+    for name, (u, s_, k_, dkt) in tables.items():
+        calls[name] = (
+            lambda u=u, s_=s_, k_=k_, dkt=dkt, w=wrappers[name]:
+                w(u, s_, k_, dkt),
+            lambda u=u, s_=s_, k_=k_, dkt=dkt:
+                rk.pair_lerp_plain(u, s_, k_, dkt))
+        # the yardstick for the loads alone: one torch.gather of the same
+        # 2 nk indices per row (no PyTorch call computes the lerp with its
+        # boundaries)
+        i0 = torch.floor(k_ * s_.reshape(-1)[:, None] / dkt).clamp(
+            1, u.shape[-1] - 2).long()
+        idx = torch.cat([i0, i0 + 1], dim=1)
+        u2 = u.reshape(-1, u.shape[-1])
+        gather_calls[name] = lambda u2=u2, idx=idx: torch.gather(u2, 1, idx)
+    times, per_call = {}, {}
+    for name, (kern, plain) in calls.items():
+        times[name] = (device_ms(kern), device_ms(plain))
+        per_call[name] = (event_ms(kern), event_ms(plain))
+    gather_ms = {name: device_ms(fn) for name, fn in gather_calls.items()}
+    work = {
+        "nfw_uk_fast": (8 * (ks.numel() + 2 * rows_s.numel())
+                        + 4 * rows_s.numel() * ks.numel(),
+                        nfw_ops(ks, rows_s, rows_c, "fast")),
+        "nfw_uk_exact": (8 * (ks.numel() + 2 * rows_s.numel())
+                         + 8 * rows_s.numel() * ks.numel(),
+                         nfw_ops(ks, rows_s, rows_c, "exact")),
+    }
+    ops_c = nfw_ops(ks, rows_s, rows_c, "exact")
+    ops_c["f64"] += 5 * rows_s.numel() * ks.numel() + 16 * zs.size * ks.numel()
+    work["nfw_contract"] = (8 * (ks.numel() + 4 * rows_s.numel())
+                            + 16 * zs.size * ks.numel(), ops_c)
+    for name, (u, s_, k_, dkt) in tables.items():
+        work[name] = pair_lerp_work(u, s_, k_, dkt)
+    bounds = {name: bound(*work[name]) for name in wrappers}
+    library = {name: None for name in wrappers}
     for name, (t_k, t_p) in times.items():
-        print(f"[time] {name}: {t_k!r} ms, plain version {t_p!r} ms "
-              f"(CUDA events, median of 25; {card})")
-    for path, fn in fns.items():
+        extra = (f", torch.gather of the 2 nk samples {gather_ms[name]!r} ms"
+                 if name in gather_ms else "")
+        print(f"[time] {name}: {t_k!r} ms, plain version {t_p!r} ms{extra} "
+              f"(device time, CUDA-graph replays of 25 calls); per call "
+              f"with launch gaps {per_call[name][0]!r} ms, plain "
+              f"{per_call[name][1]!r} ms (CUDA events, median of 25); bound "
+              f"{bounds[name][0]!r} ms by {bounds[name][1]} "
+              f"({work[name][0]} bytes, ops {work[name][1]}) ({card})")
+    for path, fn in {**fns, **efns}.items():
         torch.cuda.reset_peak_memory_stats(dev)
         t_ms = host_ms(lambda: fn(cosmos[0]))
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
-        print(f"[time] make_pmm_fn {path} at 20x200x1001: {t_ms!r} ms per "
+        what = "make_pmm_fn" if path in fns else "make_electron_fn"
+        print(f"[time] {what} {path} at 20x200x1001: {t_ms!r} ms per "
               f"call (host clock to synchronize, median of 10), peak "
               f"{peak:.1f} MiB allocated ({card})")
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
-               for name, _, replaces in KERNEL_ROWS]
+    kernels = []
+    for name, mod, replaces, _ in KERNEL_ROWS:
+        row = {"name": name, "route": "cuda", "source": SOURCE[mod],
+               "replaces": replaces,
+               "launches": sum(c[name] for c in launches.values()),
+               "max_abs_err": err[name], "ms": times[name][0],
+               "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+               "bound_by": bounds[name][1], "library_ms": library[name]}
+        if name in gather_ms:
+            row["gather_ms"] = gather_ms[name]
+        kernels.append(row)
     check(all(math.isfinite(k["ms"]) and math.isfinite(k["plain_ms"])
-              for k in kernels), "timings")
+              and math.isfinite(k["bound_ms"]) for k in kernels), "timings")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

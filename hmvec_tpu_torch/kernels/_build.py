@@ -5,8 +5,9 @@ At first use, ``load_library()``:
 1. writes ``sici_coeffs.cuh`` (the Si/Ci Chebyshev tables as __constant__
    arrays) from ``hmvec_tpu_torch/ops/_sici_coeffs.py``, so the tables are
    generated and never typed by hand;
-2. runs ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-   -shared -Xcompiler -fPIC`` on ``csrc/*.cu`` into
+2. compiles each ``csrc/*.cu`` with its own ``nvcc -gencode
+   arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c``, all
+   started together, and links the objects with ``nvcc -shared`` into
    ``hmvec_tpu_torch/build/<hash of sources and flags>/libhmvec_kernels.so``
    (git ignores ``build/``); a library that already exists for the same
    hash is loaded as it is;
@@ -38,7 +39,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "build"
 LIB_NAME = "libhmvec_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # terms kept per precision: the float32 tier truncates the 24-term tables
 # at 16 (truncation < 1e-9, below float32 resolution) and the asymptotic
@@ -108,6 +110,30 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def _run_all(cmds, out_dir):
+    """Run the commands side by side; returns (returncode, log) of each.
+    Output goes to files, so that no pipe fills while another is waited
+    on."""
+    procs = []
+    try:
+        for n, cmd in enumerate(cmds):
+            log = (out_dir / f"nvcc{n}.log").open("w+")
+            procs.append((subprocess.Popen(cmd, stdout=log,
+                                           stderr=subprocess.STDOUT), log))
+        results = []
+        for proc, log in procs:
+            rc = proc.wait()
+            log.seek(0)
+            results.append((rc, log.read()))
+        return results
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
 def _build(nvcc: str) -> pathlib.Path:
     header = sici_header()
     h = hashlib.sha256()
@@ -115,7 +141,7 @@ def _build(nvcc: str) -> pathlib.Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(header.encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
@@ -124,27 +150,36 @@ def _build(nvcc: str) -> pathlib.Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "sici_coeffs.cuh").write_text(header)
-    # build into a temporary name and rename, so that a process that finds
-    # the library finds a whole one
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(out_dir), "-I", str(CSRC),
-           "-o", tmp, *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    # one nvcc per source, all started together, then one link; build into
+    # a temporary name and rename, so that a process that finds the
+    # library finds a whole one
+    tmp_dir = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [tmp_dir / f"{s.stem}.o" for s in srcs]
+    compile_cmds = [[nvcc, *NVCC_FLAGS, "-c", "-I", str(out_dir), "-I",
+                     str(CSRC), "-o", str(o), str(s)]
+                    for s, o in zip(srcs, objs)]
+    tmp = tmp_dir / LIB_NAME
+    link_cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
-    build_info.update(path=str(lib_path), seconds=seconds, cached=False,
-                      log=proc.stdout + proc.stderr)
+    try:
+        logs = []
+        for cmds in (compile_cmds, [link_cmd]):
+            for cmd, (rc, log) in zip(cmds, _run_all(cmds, tmp_dir)):
+                logs.append(log)
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n"
+                                       f"{' '.join(cmd)}\n{log}")
+        os.replace(tmp, lib_path)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    build_info.update(path=str(lib_path), seconds=time.perf_counter() - t0,
+                      cached=False, log="".join(logs))
     return lib_path
 
 
 def _declare(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("hmvec_nfw_uk_f64", "hmvec_nfw_uk_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, i, i, i, p]
@@ -152,6 +187,10 @@ def _declare(lib):
     fn = lib.hmvec_nfw_contract_f64
     fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     fn.restype = i
+    for name in ("hmvec_pair_lerp_f64", "hmvec_pair_lerp_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, d, p, i, i, i, i, p]
+        fn.restype = i
     return lib
 
 

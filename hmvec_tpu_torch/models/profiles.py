@@ -1,5 +1,6 @@
-"""Halo profiles on float64 tensors: Duffy concentration, r_vir and the
-analytic NFW u(k) (port of hmvec_tpu/models/profiles.py).
+"""Halo profiles on float64 tensors: Duffy concentration, r_vir, the
+analytic NFW u(k) and the Battaglia gas density (port of
+hmvec_tpu/models/profiles.py; the pressure profile is not ported yet).
 
 ``nfw_uk_x`` is also the plain PyTorch version of the CUDA NFW kernels
 (ops/nfw_kernels.py), which compute the same function.
@@ -67,3 +68,40 @@ def nfw_uk_analytic(ks, zs, cs, rss):
     ks: (nk,), zs: (nz,), cs and rss: (nz, nm)."""
     x = ks[None, None, :] * rss[..., None] * (1.0 + zs)[:, None, None]
     return nfw_uk_x(x, cs[..., None])
+
+
+def battaglia_fit(m200critz, z, A0, alpham, alphaz):
+    """Battaglia mass/redshift power-law fit parameter."""
+    return A0 * (m200critz / 1.0e14) ** alpham * (1.0 + z) ** alphaz
+
+
+def rho_gas_x(x, m200critz, z, omb, omm, rhocritz, gamma, fit_params):
+    """Battaglia 2016 gas density profile in x = r / (R200/2), with the
+    sign flip on the second gamma (a typo of the paper) that the reference
+    carries.
+
+    The powers with (z, m)-dependent exponents are exp(e ln x), with ln x
+    taken once on the sample axis.  The result has x's dtype.  For float32
+    samples the exponent is formed and exponentiated in float64 and only
+    the samples are rounded to float32: a float32 exponent of magnitude up
+    to ~80 would cost ~1e-5 relative.  (The JAX package's float32 branch
+    replaces the TPU's inaccurate float32 exp/log with polynomials; the
+    card's float64 needs none of that.)
+    """
+    rho0 = battaglia_fit(m200critz, z, fit_params["rho0_A0"],
+                         fit_params["rho0_alpham"], fit_params["rho0_alphaz"])
+    alpha = battaglia_fit(m200critz, z, fit_params["alpha_A0"],
+                          fit_params["alpha_alpham"], fit_params["alpha_alphaz"])
+    beta = battaglia_fit(m200critz, z, fit_params["beta_A0"],
+                         fit_params["beta_alpham"], fit_params["beta_alphaz"])
+    pref = (omb / omm) * rhocritz * rho0
+    expo = -(beta + gamma) / alpha
+    if x.dtype == torch.float32:
+        lnx = torch.log(x.to(torch.float64))
+        g = gamma * lnx + expo * torch.log1p(torch.exp(alpha * lnx))
+        return (pref * torch.exp(g)).to(torch.float32)
+    lnx = torch.log(x)
+    xgamma = torch.exp(gamma * lnx)
+    xalpha = torch.exp(alpha * lnx)
+    outer = torch.exp(expo * torch.log1p(xalpha))
+    return pref * xgamma * outer

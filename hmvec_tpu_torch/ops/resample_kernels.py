@@ -1,0 +1,218 @@
+"""The resample kernel of the profile transform: hand-written CUDA for
+Hopper, its plain PyTorch version, and the wrappers that choose between
+them.
+
+``pair_lerp(u, scales, ks, dkt)`` interpolates each row of u (..., nkt),
+sampled on the uniform grid kt_i = i dkt, at the fractional index
+p = k s / dkt of every target k (nk,), for the row's scale s (...,): flat
+at u[..., 1] below p = 1 and zero above p = nkt - 1.  This is the resample
+step of ``sine_transform.resample_uniform_source``.  It ports
+hmvec_tpu/ops/pallas_resample.py ``select_pairs`` -- both its float64
+(hi/lo) and its float32 kernel -- as the two instantiations of one CUDA
+kernel (csrc/resample_kernels.cu), with the index math, the lerp and the
+boundaries fused in.  u is float64 or float32; the index math, the lerp
+and the output are float64 in both cases.
+
+A wrapper given CUDA tensors launches its kernel (building the library at
+first use, kernels/_build.py) or raises; given CPU tensors it computes the
+plain version, ``pair_lerp_plain``.  There is no fallback between the two.
+Each kernel's wrapper (``pair_lerp_f64``, ``pair_lerp_f32``) counts the
+launches of its kernel in ``<wrapper>.launches``.
+
+Both wrappers are differentiable in u and scales, in reverse and forward
+mode, through a ``torch.autograd.Function`` whose backward and jvp
+recompute the plain version's derivative (the kernel has none of its own,
+as the JAX package's ``_pair_lerp_tpu_jvp`` falls back to gathers).
+"""
+
+from __future__ import annotations
+
+import numbers
+
+import torch
+
+from .nfw_kernels import _raise_on_error, _stream
+
+_F64 = torch.float64
+_MAX_GRID_X = 2**31 - 1
+_MAX_GRID_Y = 65535
+_THREADS = 256  # targets per block, csrc/resample_kernels.cu kThreads
+
+
+def _positions(u, scales, ks, dkt):
+    """(p, i0, frac): the fractional index p = k s / dkt of every target,
+    shape scales.shape + (nk,), its lerp window start clamped to
+    [1, nkt - 2] (float64 and int64) and p - i0.  dkt divides as a tensor
+    on u's device: a Python scalar would let the card's division multiply
+    by 1/dkt instead, which the kernel does not do."""
+    nkt = u.shape[-1]
+    dkt_t = torch.full((), float(dkt), dtype=_F64, device=u.device)
+    p = ks * scales[..., None] / dkt_t
+    i0f = torch.floor(p).clamp(1, nkt - 2)
+    return p, i0f.long(), p - i0f
+
+
+def _pair_lerp_gather(u, i0, frac):
+    """u[..., i0] + frac (u[..., i0+1] - u[..., i0]) by two gathers, in
+    float64 whatever u's dtype (the JAX package's _pair_lerp_gather)."""
+    u0 = torch.gather(u, -1, i0).to(_F64)
+    u1 = torch.gather(u, -1, i0 + 1).to(_F64)
+    return u0 + frac * (u1 - u0)
+
+
+def pair_lerp_plain(u, scales, ks, dkt):
+    """The resample of u (..., nkt) at the targets ks (nk,) for the row
+    scales (...,), as two gathers and a lerp; float64, shape (..., nk)."""
+    nkt = u.shape[-1]
+    p, i0, frac = _positions(u, scales, ks, dkt)
+    val = torch.where(p < 1.0, u[..., 1:2].to(_F64),
+                      _pair_lerp_gather(u, i0, frac))
+    return torch.where(p > nkt - 1.0, 0.0, val)
+
+
+def _pair_lerp_jvp(u, scales, ks, dkt, t_u, t_s):
+    """Tangent of pair_lerp_plain at (u, scales) along (t_u, t_s), either of
+    which may be None, written with the gathers of the primal: in the lerp
+    window d val = du0 + frac (du1 - du0) + dp (u1 - u0), with
+    dp = k ds / dkt."""
+    nkt = u.shape[-1]
+    p, i0, frac = _positions(u, scales, ks, dkt)
+    out = torch.zeros(p.shape, dtype=_F64, device=u.device)
+    if t_u is not None:
+        out = out + torch.where(p < 1.0, t_u[..., 1:2].to(_F64),
+                                _pair_lerp_gather(t_u, i0, frac))
+    if t_s is not None:
+        u0 = torch.gather(u, -1, i0).to(_F64)
+        u1 = torch.gather(u, -1, i0 + 1).to(_F64)
+        dp = ks * t_s[..., None] / dkt
+        out = out + torch.where(p < 1.0, 0.0, dp * (u1 - u0))
+    return torch.where(p > nkt - 1.0, 0.0, out)
+
+
+def _check(u, scales, ks, dkt, dtype):
+    """Validate types, ranks, sizes and device; raises on what the kernel
+    does not take (``_launch`` checks contiguity)."""
+    for name, t in (("u", u), ("scales", scales), ("ks", ks)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if u.dtype != dtype:
+        raise TypeError(f"u must be {dtype}, got {u.dtype}")
+    for name, t in (("scales", scales), ("ks", ks)):
+        if t.dtype != _F64:
+            raise TypeError(f"{name} must be float64, got {t.dtype}")
+    if isinstance(dkt, torch.Tensor) or not isinstance(dkt, numbers.Real):
+        raise TypeError(f"dkt must be a Python number, got "
+                        f"{type(dkt).__name__}")
+    if u.dim() < 1 or u.shape[-1] < 3:
+        raise ValueError(f"u must be (..., nkt) with nkt >= 3, got shape "
+                         f"{tuple(u.shape)}")
+    if tuple(scales.shape) != tuple(u.shape[:-1]):
+        raise ValueError(f"scales must have shape {tuple(u.shape[:-1])}, got "
+                         f"{tuple(scales.shape)}")
+    if ks.dim() != 1:
+        raise ValueError(f"ks must be 1-d, got shape {tuple(ks.shape)}")
+    for name, t in (("scales", scales), ("ks", ks)):
+        if t.device != u.device:
+            raise ValueError(f"{name} is on {t.device}, expected {u.device}")
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {u.device}")
+
+
+def _launch(u, scales, ks, dkt):
+    from ..kernels._build import load_library
+
+    for name, t in (("u", u), ("scales", scales), ("ks", ks)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on CUDA")
+    nkt, nk = u.shape[-1], ks.shape[0]
+    rows = scales.numel()
+    out = torch.empty((*u.shape[:-1], nk), dtype=_F64, device=u.device)
+    if rows == 0 or nk == 0:
+        return out
+    if rows > _MAX_GRID_X or -(-nk // _THREADS) > _MAX_GRID_Y:
+        raise ValueError(f"pair_lerp takes at most {_MAX_GRID_X} rows and "
+                         f"{_THREADS * _MAX_GRID_Y} targets, got {rows} and "
+                         f"{nk}")
+    lib = load_library()
+    f64 = u.dtype == _F64
+    fn = lib.hmvec_pair_lerp_f64 if f64 else lib.hmvec_pair_lerp_f32
+    err = fn(u.data_ptr(), scales.data_ptr(), ks.data_ptr(), float(dkt),
+             out.data_ptr(), rows, nkt, nk, u.device.index, _stream(u))
+    _raise_on_error(err, f"pair_lerp({u.dtype})")
+    (pair_lerp_f64 if f64 else pair_lerp_f32).launches += 1
+    return out
+
+
+class _PairLerp(torch.autograd.Function):
+    @staticmethod
+    def forward(u, scales, ks, dkt):
+        if u.is_cuda:
+            return _launch(u, scales, ks, dkt)
+        return pair_lerp_plain(u, scales, ks, dkt)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        u, scales, ks, dkt = inputs
+        ctx.save_for_backward(u, scales, ks)
+        ctx.save_for_forward(u, scales, ks)
+        ctx.dkt = dkt
+
+    @staticmethod
+    def backward(ctx, grad):
+        u, scales, ks = ctx.saved_tensors
+        _, vjp = torch.func.vjp(
+            lambda u_, s_: pair_lerp_plain(u_, s_, ks, ctx.dkt),
+            u.detach(), scales.detach())
+        g_u, g_s = vjp(grad)
+        return g_u, g_s, None, None
+
+    @staticmethod
+    def jvp(ctx, t_u, t_s, _t_ks, _t_dkt):
+        u, scales, ks = ctx.saved_tensors
+        return _pair_lerp_jvp(u, scales, ks, ctx.dkt, t_u, t_s)
+
+    @staticmethod
+    def vmap(info, in_dims, u, scales, ks, dkt):
+        """torch.func.vmap: the mapped dimension becomes one more batch
+        dimension of the rows, so the kernel runs once for the batch."""
+        u_bd, s_bd, k_bd, _ = in_dims
+        if k_bd is not None:
+            raise NotImplementedError("pair_lerp under vmap takes one ks "
+                                      "for every mapped element")
+
+        def lead(t, bd):
+            return (t.expand(info.batch_size, *t.shape) if bd is None
+                    else t.movedim(bd, 0))
+
+        u, scales = lead(u, u_bd), lead(scales, s_bd)
+        if u.is_cuda:
+            u, scales = u.contiguous(), scales.contiguous()
+        return _PairLerp.apply(u, scales, ks, dkt), 0
+
+
+def pair_lerp_f64(u, scales, ks, dkt):
+    """The resample of float64 u (..., nkt) at ks (nk,) for scales (...,)
+    and grid step dkt: the float64 kernel (port of select_pairs'
+    _select_pair_kernel), float64 output (..., nk).  CPU tensors:
+    pair_lerp_plain."""
+    _check(u, scales, ks, dkt, _F64)
+    return _PairLerp.apply(u, scales, ks, dkt)
+
+
+def pair_lerp_f32(u, scales, ks, dkt):
+    """As pair_lerp_f64 for float32 u: the float32-storage kernel (port of
+    _select_pair_kernel_f32); index math, lerp and output in float64.
+    CPU tensors: pair_lerp_plain."""
+    _check(u, scales, ks, dkt, torch.float32)
+    return _PairLerp.apply(u, scales, ks, dkt)
+
+
+pair_lerp_f64.launches = 0
+pair_lerp_f32.launches = 0
+
+
+def pair_lerp(u, scales, ks, dkt):
+    """``pair_lerp_f64`` or ``pair_lerp_f32`` by u's dtype."""
+    if isinstance(u, torch.Tensor) and u.dtype == torch.float32:
+        return pair_lerp_f32(u, scales, ks, dkt)
+    return pair_lerp_f64(u, scales, ks, dkt)

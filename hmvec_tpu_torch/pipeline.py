@@ -11,8 +11,13 @@ kernel (``fast=True``, ``fast="exact"``, ``fused_serving=True``; see
 ops/nfw_kernels.py).  Every path is differentiable through autograd;
 ``fisher_jacobian`` takes d Pmm / d theta in forward mode.
 
+``make_electron_fn`` builds params -> (Pee, Pme) on the same stages plus
+the M200 conversion and the numeric Battaglia gas-profile transform, whose
+resample step runs a hand-written CUDA kernel on the card
+(ops/resample_kernels.py).
+
 Not ported yet: ``make_batched_fn``, the integrated w0/wa growth
-(``growth="ode"``), and the Limber, HOD, electron and kSZ pipelines.
+(``growth="ode"``), and the Limber, HOD and kSZ pipelines.
 """
 
 from __future__ import annotations
@@ -26,8 +31,10 @@ from .models import mass_function as mfm
 from .models import power as pwr
 from .models import profiles as prof
 from .models.linear_power import _varies
+from .models.mass_conversion import mdelta_from_mdelta
 from .ops.nfw_kernels import nfw_contract, nfw_uk
-from .params import merge_params, to_torch_params
+from .ops.sine_transform import generic_profile_fft, profile_table
+from .params import battaglia_defaults, merge_params, to_torch_params
 from .utils.weights import catmull_taps_nonuniform, simpson_weights
 
 _F64 = torch.float64
@@ -210,6 +217,135 @@ def make_pmm_fn(zs, ks, ms, *, device, mass_function: str = "sheth-torman",
                                rho_m0, p["kstar_damping"])
 
     return pmm
+
+
+_ELECTRON_GRID_KEYS = ("electron_density_profile_integral_numxs",
+                       "electron_density_profile_integral_xmax")
+
+
+def _gas_profile(p, g: _Grids, bg, mdef, fit):
+    """(rhofunc, cmaxs, rgs) of the electron profile transform: the
+    Battaglia gas density on x = r / (R200/2), with M200 from the halo mass
+    by the NFW mass-definition conversion, truncated at c = r_vir / rgs,
+    and the scale radii rgs = R200/2."""
+    zs, ms = g.zs, g.ms
+    rhocritz = bgmod.rho_critical_z(bg, zs)
+    omz = bgmod.omz(bg, zs)
+    rhomz = bgmod.rho_matter_z(bg, zs)
+    cs = prof.concentration_duffy(ms, zs, mdef, p, p["H0"] / 100.0)
+    rvirs = prof.rvir_grid(ms, zs, mdef, rhocritz, rhomz, omz)
+    if mdef == "vir":
+        dr1 = rhocritz * mfm.deltav_bryan_norman(omz)
+    else:
+        dr1 = rhomz * 200.0
+    m200 = mdelta_from_mdelta(ms, cs, dr1, 200.0 * rhocritz)
+    r200 = mfm.R_from_M(m200, rhocritz[:, None], delta=200.0)
+    omb = p["ombh2"] / (p["H0"] / 100.0) ** 2
+
+    def rhofunc(xsamp):
+        return prof.rho_gas_x(xsamp[None, None, :], m200[..., None],
+                              zs[:, None, None], omb, bg.omm0,
+                              rhocritz[:, None, None],
+                              p["battaglia_gas_gamma"], fit)
+
+    rgs = r200 / 2.0
+    return rhofunc, rvirs / rgs, rgs
+
+
+def _electron_grid(overrides, defaults, nxs, xmax):
+    """(nxs, xmax) as Python numbers: the build-time values, else the
+    electron profile parameters from the caller's overrides or the
+    defaults.  They shape the sample grid, so a tensor is refused (it
+    would have to be read back from the device)."""
+    out = []
+    for key, val in zip(_ELECTRON_GRID_KEYS, (nxs, xmax)):
+        if val is None:
+            val = (overrides or {}).get(key, defaults[key])
+        if isinstance(val, torch.Tensor):
+            raise TypeError(f"{key} shapes the sample grid: pass a Python "
+                            f"number, not a tensor")
+        out.append(val)
+    return int(out[0]), float(out[1])
+
+
+def make_electron_fn(zs, ks, ms, *, device, family: str = "AGN",
+                     nxs: int | None = None, xmax: float | None = None,
+                     mass_function: str = "sheth-torman", mdef: str = "vir",
+                     accuracy: str = "medium", fast: bool = False,
+                     growth: str = "auto"):
+    """Build params -> (Pee, Pme): the Battaglia gas-density electron
+    auto spectrum and its cross with matter, each (nz, nk) float64 on
+    ``device`` (bench config 2 of the JAX package).
+
+    The electron profile is the Battaglia 2016 gas density of the family's
+    fit, truncated at r_vir and transformed numerically
+    (``ops.sine_transform.generic_profile_fft``, nxs samples on (0, xmax]
+    in units of R200/2); M200 comes from the halo mass by the NFW
+    mass-definition conversion.  The matter leg is the NFW profile of
+    ``make_pmm_fn``.
+
+    device: 'cpu' or 'cuda[:i]'; required.
+    nxs, xmax: the sample grid; None reads the parameters
+        electron_density_profile_integral_numxs / _xmax from the overrides
+        or the defaults, as Python numbers.
+    fast: False -- the plain float64 NFW stage and a float64 transform,
+        resampled by the float64-storage kernel on the card; True -- the
+        fast-tier NFW kernel, and the transform sampled in float32
+        (complex64 FFT, float32 table resampled by the float32-storage
+        kernel).  The port ties float32 sampling to ``fast``; the JAX
+        package ties it to the backend (float32 on the TPU).  On the CPU
+        both kernels run their plain versions.
+    growth: 'auto', 'closed' or 'ode' (not ported yet: raises).
+    """
+    if fast not in (False, True):
+        raise ValueError(f"fast must be False or True, got {fast!r}")
+    dev = _resolve_device(device)
+    defaults = merge_params()
+    grids = _Grids(zs, ks, ms, defaults, None, dev)
+    engine = lpm.EHEngine()
+    fit = dict(battaglia_defaults[family])
+    sample_dtype = torch.float32 if fast else _F64
+
+    def electron(overrides=None):
+        nxs_l, xmax_l = _electron_grid(overrides, defaults, nxs, xmax)
+        ov = to_torch_params(overrides, dev)
+        p = {**defaults, **ov}
+        bg, pzk, nzm, bh, rho_m0, uk_nfw = _stages(
+            p, grids, mass_function, mdef, accuracy, engine,
+            fast_nfw=fast, growth_mode=_growth_mode_from(ov, growth))
+        rhofunc, cmaxs, rgs = _gas_profile(p, grids, bg, mdef, fit)
+        _, uk_e = generic_profile_fft(rhofunc, cmaxs, rgs, grids.zs,
+                                      grids.ks, xmax_l, nxs_l,
+                                      sample_dtype=sample_dtype)
+        te = pwr.MatterTracer(uk=uk_e)
+        tn = pwr.MatterTracer(uk=uk_nfw)
+        pee = pwr.power_total(te, te, nzm, bh, grids.ms, grids.ks, pzk,
+                              rho_m0, p["kstar_damping"])
+        pme = pwr.power_total(tn, te, nzm, bh, grids.ms, grids.ks, pzk,
+                              rho_m0, p["kstar_damping"])
+        return pee, pme
+
+    return electron
+
+
+def electron_stage_inputs(zs, ks, ms, overrides=None, *, device, nxs, xmax,
+                          fast: bool = False, family: str = "AGN",
+                          mdef: str = "vir"):
+    """What ``make_electron_fn`` hands the resample kernel at one
+    cosmology: (u, scales, ks, dkt), with u (nz, nm, nxs//2 + 1) the
+    u(kt) table (float64, or float32 for ``fast=True``), scales (nz, nm)
+    and ks (nk,) float64 tensors on ``device``, and dkt a Python float."""
+    dev = _resolve_device(device)
+    defaults = merge_params()
+    grids = _Grids(zs, ks, ms, defaults, None, dev)
+    p = {**defaults, **to_torch_params(overrides, dev)}
+    bg = bgmod.background(p, dev)
+    rhofunc, cmaxs, rgs = _gas_profile(p, grids, bg, mdef,
+                                       dict(battaglia_defaults[family]))
+    u, scales, dkt, _ = profile_table(
+        rhofunc, cmaxs, rgs, grids.zs, xmax, nxs,
+        sample_dtype=torch.float32 if fast else _F64)
+    return u, scales, grids.ks, dkt
 
 
 def _contract_inputs(p, grids: _Grids, mass_function, mdef, accuracy,
