@@ -17,6 +17,16 @@ Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  Every gate that fails raises, so the script exits
 nonzero and prints no result.
 
+Before the paths it prints, as [env] lines, each kernel's registers, stack
+and spills (ptxas), its static SASS instruction count by class (cuobjdump)
+and the NFW kernels' occupancy and waves at config 1, and it holds each
+kernel against its plain version: the NFW kernels at config 1 and on
+adversarial rows, among them inputs that put x and (1+c)x on the Si/Ci
+domain edges inside single warps; the contraction also against itself on
+a second call (bit for bit).  With the NFW kernels' device times it
+prints each one's bare launch (its ctypes call into preallocated outputs)
+beside the wrapper call.
+
 Run from the repository root, on a machine with a CUDA card:
 
     python3 chip_smoke.py
@@ -31,9 +41,12 @@ bytes or operations).
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -49,9 +62,12 @@ GOLDEN_E = DATA / "electron_config2_golden.npz"
 
 # kernel vs plain version on the card (absolute on u; relative on S1, S2;
 # the resample kernel repeats the plain version's float64 operations in
-# the same order, so it must agree bit for bit)
+# the same order, so it must agree bit for bit).  The contraction kernel
+# computes u in the fast tier's float32, as the TPU kernel it ports does
+# (and the fused tier's JAX path asks for), and sums in float64, so its
+# gate is that TPU kernel's own 2e-5 relative, not float64's rounding.
 GATE_UK = {"exact": 2e-7, "fast": 5e-6}
-GATE_CONTRACT_REL = 1e-10
+GATE_CONTRACT_REL = 2e-5
 GATE_LERP = 0.0
 # end to end, max relative error against the golden spectra
 GATE_PMM = {"plain": 1e-10, "exact": 1e-7, "fast": 1e-5, "fused": 1e-5}
@@ -83,11 +99,80 @@ PEAK_OPS = {"f64": 34e12, "f32": 67e12}
 # operations counted for one call of a math-library function: an estimate
 # of its range reduction and polynomial, since its source is not ours
 LIB_OPS = {"sincos": {"f64": 40, "f32": 20}, "log": {"f64": 30, "f32": 15}}
+# series terms and asymptotic-tail terms per Si/Ci in each precision
+# (kernels/_build.py)
+NCOEF = {"f32": 16, "f64": 24}
+NASY = {"f32": 7, "f64": 13}
+# the NFW kernels' per-row constants (nfw_u.cuh row_constants): 1 + c
+# twice, c / (1 + c), the difference, 1 / F, (1 + c) scale, and a log
+ROW_OPS_F64 = 6 + LIB_OPS["log"]["f64"]
+
+
+# SASS opcodes by the class of unit or work they take (the rest: integer,
+# move and predicate logic, special registers, shuffles)
+SASS_CLASSES = {
+    "fp32": ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK",
+             "FSWZADD"),
+    "fp64": ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX"),
+    "mufu": ("MUFU",),
+    "convert": ("F2F", "F2I", "I2F", "F2FP", "I2FP", "FRND"),
+    "memory": ("LDG", "STG", "LDS", "STS", "LDC", "ULDC", "LDL", "STL", "LD",
+               "ST", "ATOM", "ATOMS", "RED"),
+    "control": ("BRA", "BSSY", "BSYNC", "EXIT", "RET", "CALL", "BAR",
+                "WARPSYNC", "BPT", "JMP"),
+}
+_SASS_CLASS = {op: cls for cls, ops in SASS_CLASSES.items() for op in ops}
 
 
 def check(ok: bool, what: str):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def kernel_name(symbol: str) -> str:
+    """The readable name of one of the port's kernels in a mangled symbol
+    (nfw_uk_kernel<float>, nfw_contract_kernel, ...); other symbols as
+    they are."""
+    m = re.search(r"(nfw_uk_kernel|nfw_contract_kernel|pair_lerp_kernel)"
+                  r"(?:I([fd])E)?", symbol)
+    if not m:
+        return symbol
+    return m.group(1) + {"f": "<float>", "d": "<double>", None: ""}[m.group(2)]
+
+
+def sass_counts(text: str) -> dict:
+    """Static SASS instruction counts per kernel from ``cuobjdump -sass``:
+    {kernel: {"body": Counter by class, "cold": Counter}}.  "cold" is the
+    out-of-line subroutines that the kernel reaches by CALL, such as a
+    math library's slow path, which the main path takes only on rare
+    inputs: everything from the first CALL target on.  NOPs and the trap
+    loop at the end (a BRA to its own address) are not counted."""
+    funcs = {}
+    insns = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            insns = funcs.setdefault(kernel_name(m.group(1)), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)\S*\s*([^;]*);", line)
+        if m and insns is not None and m.group(2) != "NOP":
+            insns.append((int(m.group(1), 16), m.group(2), m.group(3).strip()))
+    out = {}
+    for name, insns in funcs.items():
+        calls = [int(t, 16) for _, op, t in insns
+                 if op == "CALL" and t.startswith("0x")]
+        cold_from = min(calls, default=math.inf)
+        counts = {"body": collections.Counter(),
+                  "cold": collections.Counter()}
+        for addr, op, target in insns:
+            if op == "BRA" and target.startswith("0x") \
+                    and int(target, 16) == addr:
+                continue
+            region = "cold" if addr >= cold_from else "body"
+            counts[region][_SASS_CLASS.get(op, "int")] += 1
+        out[name] = counts
+    return out
 
 
 def card_line() -> str:
@@ -167,34 +252,37 @@ def bound(nbytes: int, ops: dict) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _sici_ops(x, ncoef, nasy, prec):
-    """Operations of hmvec::sici_parts (csrc/nfw_u.cuh) at each x: 1/max,
-    the Chebyshev variable, the dual Clenshaw, the f/g tail or product,
-    and Si/Ci (with a log in the series branch)."""
-    in0 = x <= 4.0
-    n = 1 + torch.where(in0, 4, 3) + (1 + 6 * ncoef + 4)
-    n = n + torch.where(x > 40.0, 4 + 4 * nasy, 3)
-    return n + torch.where(in0, 3 + LIB_OPS["log"][prec], 7)
+def _sici_ops(x, prec):
+    """Floating-point operations of one Si/Ci argument x in csrc/nfw_u.cuh
+    (an FMA counts 2, compares and selects 0): its reciprocal, then the
+    body of its domain alone -- the Chebyshev variable, the two series by
+    Horner (one FMA per term after the first), and f = A v, g = B v^2 in
+    domains 1-2; above x = 40 only the asymptotic tail, no series."""
+    series = 2 * 2 * (NCOEF[prec] - 1)
+    n = torch.where(x <= 4.0, 4 + series, 3 + series + 3)
+    return 1 + torch.where(x > 40.0, 1 + 2 * 2 * (NASY[prec] - 1) + 2, n)
 
 
 def nfw_ops(ks, scales, cs, tier) -> dict:
     """Operations of hmvec::nfw_u over the (row, k) grid, counted from
-    csrc/nfw_u.cuh on this run's inputs: the two phases, their sin/cos,
-    two sici_parts and the assembly; split by type (the fast tier forms
-    and reduces its phases in float64 and does the rest in float32)."""
+    csrc/nfw_u.cuh on this run's inputs, by type: the phases x = k s1 and
+    x2 = k s2 in float64; their sin/cos (float64 sincos in the exact tier;
+    in the fast tier the quadrant reduction in float64 and the float32
+    polynomials); two Si/Ci; the assembly (a log in the branch with
+    x <= 4 < x2); and the row constants, once per row, in float64."""
     x = ks[None, :] * scales.reshape(-1)[:, None]
     x2 = x * (1.0 + cs.reshape(-1))[:, None]
-    prec, ncoef, nasy = (("f32", 16, 7) if tier == "fast"
-                         else ("f64", 24, 13))
-    body = (_sici_ops(x, ncoef, nasy, prec) + _sici_ops(x2, ncoef, nasy, prec)
-            + 3 + torch.where(x2 <= 4.0, 2, 1) + torch.where(x <= 4.0, 1, 7)
-            + 6)
+    prec = "f32" if tier == "fast" else "f64"
+    in01, in02 = x <= 4.0, x2 <= 4.0
+    assembly = 3 + torch.where(
+        in02, 5, torch.where(in01, 12 + LIB_OPS["log"][prec], 14)) + 6
+    body = _sici_ops(x, prec) + _sici_ops(x2, prec) + assembly
     n_el = x.numel()
-    body = int(body.sum().item()) + 2 * LIB_OPS["sincos"][prec] * n_el
-    phases = 2 * n_el + (8 * n_el if tier == "fast" else 0)
+    body = int(body.sum().item())
+    f64 = 2 * n_el + ROW_OPS_F64 * scales.numel()
     if prec == "f64":
-        return {"f64": body + phases}
-    return {"f64": phases, "f32": body}
+        return {"f64": f64 + body + 2 * LIB_OPS["sincos"]["f64"] * n_el}
+    return {"f64": f64 + 2 * 3 * n_el, "f32": body + 2 * 16 * n_el}
 
 
 def pair_lerp_work(u, scales, ks, dkt) -> tuple[int, dict]:
@@ -231,6 +319,27 @@ def adversarial_rows(dev):
            t([8.0, 12.0]), t([25.0, 30.0]))
     yield ("edges", t(np.geomspace(1e-3, 50, 77)),
            t(np.array([0.1, 0.3, 0.6]) * 1.5), t([3.0, 7.0, 11.0]))
+    yield ("domain_edges", *map(t, domain_edges()))
+
+
+def domain_edges():
+    """(ks, scales, cs) that put x = k s and x2 = (1+c) x on the Si/Ci
+    domain edges 4, 10 and 40 inside single warps: c = 3 and scales 1 and
+    1/4, so that x and x2 are k, 4k and k/4, k exactly; each edge K of x
+    or x2 gets a run of 32 ks (one warp of the kernels) holding K, K
+    +- 1 ulp in float64 and in float32, K (1 +- 1e-3) and 25 more ks
+    within 2% of K."""
+    ks = []
+    for K in (1.0, 2.5, 4.0, 10.0, 16.0, 40.0, 160.0):
+        f = np.float32(K)
+        edge = [K, np.nextafter(K, 0.0), np.nextafter(K, np.inf),
+                float(np.nextafter(f, np.float32(0.0))),
+                float(np.nextafter(f, np.float32(np.inf))),
+                K * (1.0 - 1e-3), K * (1.0 + 1e-3)]
+        fill = K * (1.0 + np.concatenate([np.linspace(-2e-2, -2e-3, 12),
+                                          np.linspace(2e-3, 2e-2, 13)]))
+        ks.append(np.sort(np.concatenate([edge, fill])))
+    return np.concatenate(ks), np.array([1.0, 0.25]), np.array([3.0, 3.0])
 
 
 def adversarial_lerp(dev):
@@ -285,8 +394,20 @@ def main() -> int:
           f"(nvcc {info['seconds']:.2f} s, cached={info['cached']}) "
           f"-> {pathlib.Path(info['path']).relative_to(ROOT)}")
     for line in info.get("log", "").splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"[env] ptxas: {line.strip()}")
+        if any(w in line for w in ("Function properties", "Used", "spill")):
+            name = re.sub(r"_Z\w+", lambda m: kernel_name(m.group(0)),
+                          line.strip())
+            print(f"[env] ptxas: {name}")
+    sass = subprocess.run(
+        [str(pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")), "-sass",
+         info["path"]], capture_output=True, text=True, check=True,
+        timeout=120).stdout
+    for name, regions in sorted(sass_counts(sass).items()):
+        body, cold = regions["body"], regions["cold"]
+        print(f"[env] sass {name}: {sum(body.values())} instructions in the "
+              f"body {dict(sorted(body.items()))}, {sum(cold.values())} in "
+              f"cold subroutines {dict(sorted(cold.items()))} (static counts, "
+              f"cuobjdump -sass)")
 
     # ---- phase 2: each kernel against its plain version on the card ----
     g = np.load(GOLDEN)
@@ -301,6 +422,20 @@ def main() -> int:
                                                      cosmos[0], device=dev)
     rows_s = scales.reshape(-1).contiguous()
     rows_c = cs.reshape(-1).contiguous()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _build.load_library()
+    for which, name, nrows in ((0, "nfw_uk_kernel<float>", rows_s.numel()),
+                               (1, "nfw_uk_kernel<double>", rows_s.numel()),
+                               (2, "nfw_contract_kernel", zs.size)):
+        kinfo = (ctypes.c_int * 6)()
+        check(lib.hmvec_nfw_kernel_info(which, dev.index, nrows, ks.numel(),
+                                        kinfo) == 0, f"{name} attributes")
+        regs, local, smem, threads, per_sm, blocks = kinfo
+        waves = blocks / (per_sm * n_sm) if per_sm > 0 else math.nan
+        print(f"[env] occupancy {name}: {regs} registers, {local} local bytes "
+              f"per thread, {smem} static shared bytes, {threads} threads "
+              f"per block, {per_sm} resident blocks per SM x {n_sm} SMs; "
+              f"config-1 launch {blocks} blocks = {waves!r} waves")
     err = {}
     cases = [("config1", ks, rows_s, rows_c), *adversarial_rows(dev)]
     for case, k_, s_, c_ in cases:
@@ -328,6 +463,12 @@ def main() -> int:
     print(f"[kernel] nfw_contract vs nfw_contract_plain on config1 "
           f"{tuple(scales.shape)} x {ks.numel()} k: max rel err {rel!r} "
           f"(gate {GATE_CONTRACT_REL}), max abs err {err['nfw_contract']!r}")
+    again = nk.nfw_contract(ks, scales, cs, a_zm, b_zm)
+    torch.cuda.synchronize()
+    check(torch.equal(again[0], s1) and torch.equal(again[1], s2),
+          "nfw_contract gives the same bits on a second call")
+    print("[kernel] nfw_contract: a second call on config1 gives the same "
+          "bits")
 
     # the resample kernel on the config-2 u(kt) table of each tier at the
     # bench cosmology, and on the adversarial batch
@@ -465,10 +606,27 @@ def main() -> int:
         idx = torch.cat([i0, i0 + 1], dim=1)
         u2 = u.reshape(-1, u.shape[-1])
         gather_calls[name] = lambda u2=u2, idx=idx: torch.gather(u2, 1, idx)
-    times, per_call = {}, {}
+    # each NFW kernel's bare launch: its ctypes call into outputs allocated
+    # once, without the wrapper's checks, autograd and allocation
+    u32 = torch.empty((rows_s.numel(), ks.numel()), dtype=torch.float32,
+                      device=dev)
+    u64 = torch.empty((rows_s.numel(), ks.numel()), dtype=torch.float64,
+                      device=dev)
+    s12 = (torch.empty_like(s1), torch.empty_like(s2))
+    bare_calls = {
+        "nfw_uk_fast": lambda: nk._launch_nfw_uk(ks, rows_s, rows_c, "fast",
+                                                 out=u32),
+        "nfw_uk_exact": lambda: nk._launch_nfw_uk(ks, rows_s, rows_c,
+                                                  "exact", out=u64),
+        "nfw_contract": lambda: nk._launch_nfw_contract(
+            ks, scales, cs, a_zm, b_zm, out=s12),
+    }
+    times, per_call, bare_ms = {}, {}, {}
     for name, (kern, plain) in calls.items():
         times[name] = (device_ms(kern), device_ms(plain))
         per_call[name] = (event_ms(kern), event_ms(plain))
+        if name in bare_calls:
+            bare_ms[name] = device_ms(bare_calls[name])
     gather_ms = {name: device_ms(fn) for name, fn in gather_calls.items()}
     work = {
         "nfw_uk_fast": (8 * (ks.numel() + 2 * rows_s.numel())
@@ -478,8 +636,12 @@ def main() -> int:
                          + 8 * rows_s.numel() * ks.numel(),
                          nfw_ops(ks, rows_s, rows_c, "exact")),
     }
-    ops_c = nfw_ops(ks, rows_s, rows_c, "exact")
-    ops_c["f64"] += 5 * rows_s.numel() * ks.numel() + 16 * zs.size * ks.numel()
+    # the float32 u of the fast tier, then per element u^2 and the two
+    # float64 multiply-adds; per (z, k) the sum of a block's 8 warps, for
+    # S1 and S2
+    ops_c = nfw_ops(ks, rows_s, rows_c, "fast")
+    ops_c["f64"] += (5 * rows_s.numel() * ks.numel()
+                     + 2 * 8 * zs.size * ks.numel())
     work["nfw_contract"] = (8 * (ks.numel() + 4 * rows_s.numel())
                             + 16 * zs.size * ks.numel(), ops_c)
     for name, (u, s_, k_, dkt) in tables.items():
@@ -489,6 +651,8 @@ def main() -> int:
     for name, (t_k, t_p) in times.items():
         extra = (f", torch.gather of the 2 nk samples {gather_ms[name]!r} ms"
                  if name in gather_ms else "")
+        if name in bare_ms:
+            extra += f", bare launch {bare_ms[name]!r} ms"
         print(f"[time] {name}: {t_k!r} ms, plain version {t_p!r} ms{extra} "
               f"(device time, CUDA-graph replays of 25 calls); per call "
               f"with launch gaps {per_call[name][0]!r} ms, plain "
@@ -514,6 +678,8 @@ def main() -> int:
                "bound_by": bounds[name][1], "library_ms": library[name]}
         if name in gather_ms:
             row["gather_ms"] = gather_ms[name]
+        if name in bare_ms:
+            row["bare_ms"] = bare_ms[name]
         kernels.append(row)
     check(all(math.isfinite(k["ms"]) and math.isfinite(k["plain_ms"])
               and math.isfinite(k["bound_ms"]) for k in kernels), "timings")

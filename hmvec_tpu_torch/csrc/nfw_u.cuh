@@ -2,19 +2,32 @@
 //
 // Device-side counterpart of hmvec_tpu_torch.models.profiles.nfw_uk_x
 // (itself a port of hmvec_tpu/models/profiles.py:nfw_uk_x), with the Si/Ci
-// of ops/special.sici_with_trig inlined: one dual Clenshaw recurrence with a
-// three-domain coefficient select (x <= 4, 4 < x <= 10, 10 < x <= 40) and
-// the asymptotic f/g tail above 40.  The coefficient tables come from
-// sici_coeffs.cuh, which kernels/_build.py writes at build time from
-// hmvec_tpu_torch/ops/_sici_coeffs.py; they sit in __constant__ memory.
+// of ops/special.sici_with_trig inlined.  Si/Ci take one branch per
+// argument on its domain (x <= 4, 4 < x <= 10, 10 < x <= 40, x > 40) into a
+// body compiled for that domain alone: the domain's two Chebyshev series,
+// as polynomials in the Chebyshev variable t evaluated by Horner (one FMA
+// per term, each coefficient a compile-time constant: an immediate or a
+// constant-bank operand, never an indexed load), or, above 40, the
+// asymptotic f/g tail and no series.  The coefficients come from
+// sici_coeffs.cuh, which kernels/_build.py converts at build time from the
+// Chebyshev tables of hmvec_tpu_torch/ops/_sici_coeffs.py.  The callers'
+// warps are 32 neighbouring k of one row, so x is monotone across a warp
+// and only the warps that straddle a domain edge run two bodies.
 //
-// T = double is the exact tier: every operation in float64, all 24
-// Chebyshev terms and the 13-term tail.  T = float is the fast tier: the
-// phases x = k s1 and (1+c)x = k s2 are formed and reduced mod 2 pi in
-// float64, then sin/cos, the 16-term Clenshaw, the 7-term tail and the
-// assembly run in float32.  This replaces the TPU's double-single
-// machinery (pallas_kernels.py _two_prod/_ds_*), which existed only because
-// Pallas on the TPU has no float64.
+// T = double is the exact tier: every operation in float64, all 24 series
+// terms, the 13-term tail, ::sincos.  T = float is the fast tier: the
+// phases x = k s1 and (1+c)x = k s2 are formed and reduced to a quadrant
+// in float64, the reduced phase r in [-pi/4, pi/4] goes to float32, and
+// sin/cos, the 16-term series, the 7-term tail and the assembly run in
+// float32.  This replaces the TPU's double-single machinery
+// (pallas_kernels.py _two_prod/_ds_*), which existed only because Pallas on
+// the TPU has no float64.
+//
+// Divisions: one reciprocal per argument (v = 1/x, shared by the Chebyshev
+// variable, f = A v, g = B v^2, the tail's y = v^2 and sin(cx)/x2), and the
+// constant spans of the Chebyshev variable as multiplications by their
+// reciprocals.  These, and the polynomial form of the series, move results
+// in the last bits only.
 //
 // The difference forms of the TPU kernel (pallas_kernels.py:_nfw_u_tile)
 // are kept, since at float32 width the large constants would otherwise
@@ -24,8 +37,6 @@
 //                     constants cancel analytically);
 //   Ci(x2) - Ci(x)  = ln(1+c) + (B2 - B1) when x2 <= 4 (both in the
 //                     series branch; ln x2 - ln x = ln(1+c) exactly).
-// The row constants s1 = r_s (1+z), s2 = (1+c) s1, 1/F(c) and ln(1+c) are
-// computed once per row in float64 by the Python wrapper.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,14 +48,9 @@ namespace hmvec {
 template <typename T> struct Prec;
 
 template <> struct Prec<double> {
-  static constexpr int ncoef = SICI_NCOEF_F64;
-  static constexpr int nasy = SICI_NASY_F64;
   static constexpr double tiny = 1e-300;
-  __device__ static __forceinline__ double a(int dom, int k) { return SICI_A_F64[dom][k]; }
-  __device__ static __forceinline__ double b(int dom, int k) { return SICI_B_F64[dom][k]; }
-  __device__ static __forceinline__ double fasy(int n) { return SICI_FASY_F64[n]; }
-  __device__ static __forceinline__ double gasy(int n) { return SICI_GASY_F64[n]; }
   __device__ static __forceinline__ double log(double x) { return ::log(x); }
+  __device__ static __forceinline__ double rcp(double x) { return __drcp_rn(x); }
   // sin and cos of a float64 phase in float64
   __device__ static __forceinline__ void sincos_phase(double x, double* s, double* c) {
     ::sincos(x, s, c);
@@ -52,116 +58,174 @@ template <> struct Prec<double> {
 };
 
 template <> struct Prec<float> {
-  static constexpr int ncoef = SICI_NCOEF_F32;
-  static constexpr int nasy = SICI_NASY_F32;
   static constexpr float tiny = 1e-30f;
-  __device__ static __forceinline__ float a(int dom, int k) { return SICI_A_F32[dom][k]; }
-  __device__ static __forceinline__ float b(int dom, int k) { return SICI_B_F32[dom][k]; }
-  __device__ static __forceinline__ float fasy(int n) { return SICI_FASY_F32[n]; }
-  __device__ static __forceinline__ float gasy(int n) { return SICI_GASY_F32[n]; }
   __device__ static __forceinline__ float log(float x) { return ::logf(x); }
-  // reduce the float64 phase mod 2 pi in float64 (error ~ n * 1e-16 for
-  // n turns: ~1e-12 rad at the largest phases, ~4e4), then sin/cos in float32
+  // the hardware reciprocal alone (MUFU.RCP, within 1 ulp), without the
+  // IEEE-rounded reciprocal's range checks and slow path: x >= 1e-30 is
+  // never subnormal, and neither is 1/x below x = 2^126
+  __device__ static __forceinline__ float rcp(float x) {
+    float r;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+    return r;
+  }
+  // The float64 phase is reduced to its quadrant in float64, n = x 2/pi
+  // rounded to an integer and r = x - n pi/2 (error ~ n * 6e-17: ~2e-12 rad
+  // at the largest phases, ~4e4), so float32 sees r in [-pi/4, pi/4] only
+  // and needs no range reduction of its own; sin r and cos r are the Cephes
+  // sinf/cosf minimax polynomials on that interval (error < 1e-7), swapped
+  // and negated by quadrant.  n is rounded by adding and subtracting
+  // 1.5 * 2^52, whose sum holds n in its low bits, so that the float64
+  // pipe does the rounding and the quadrant needs no conversion (a 64-bit
+  // conversion issues at a quarter of the float64 rate).
   __device__ static __forceinline__ void sincos_phase(double x, float* s, float* c) {
-    const double n = rint(x * 0.15915494309189535);  // 1 / (2 pi)
-    const float r = static_cast<float>(fma(-n, 6.283185307179586, x));
-    ::sincosf(r, s, c);
+    constexpr double kRound = 6755399441055744.0;  // 1.5 * 2^52
+    const double big = fma(x, 0.6366197723675814, kRound);  // 2 / pi
+    const double n = big - kRound;
+    const float r = static_cast<float>(fma(-n, 1.5707963267948966, x));
+    const int q = __double2loint(big);
+    const float r2 = r * r;
+    const float ps = fmaf(fmaf(-1.9515295891e-4f, r2, 8.3321608736e-3f), r2,
+                          -1.6666654611e-1f);
+    const float pc = fmaf(fmaf(2.443315711809948e-5f, r2, -1.388731625493765e-3f),
+                          r2, 4.166664568298827e-2f);
+    const float sr = fmaf(ps * r2, r, r);
+    const float cr = fmaf(fmaf(pc, r2, -0.5f), r2, 1.0f);
+    float sv = (q & 1) ? cr : sr;
+    float cv = (q & 1) ? sr : cr;
+    *s = (q & 2) ? -sv : sv;
+    *c = ((q + 1) & 2) ? -cv : cv;
   }
 };
 
+// The two numbers Si/Ci hand to the assembly: in the series domain
+// (x <= 4) p = A = Si(x)/x and q = B = Ci(x) - gamma - ln x; above it
+// p = f and q = g, the auxiliaries of Si = pi/2 - f cos x - g sin x and
+// Ci = f sin x - g cos x.
 template <typename T> struct SiciParts {
-  T si, ci;   // Si(x), Ci(x)
-  T B, f, g;  // series remainder B (x <= 4) and auxiliaries f, g (x > 4)
-  bool in0;   // x <= 4: the series branch
+  T p, q;
 };
 
-// Si(x), Ci(x) and their parts, given sin x and cos x; the same
-// arithmetic as ops/special.py:sici_with_trig.
-template <typename T>
-__device__ __forceinline__ SiciParts<T> sici_parts(T x, T sinx, T cosx) {
-  using P = Prec<T>;
-  const T xs = x > P::tiny ? x : P::tiny;
-  const bool in0 = xs <= T(4);
-  const bool in1 = !in0 && xs <= T(10);
-  const int dom = in0 ? 0 : (in1 ? 1 : 2);
-
-  const T v = T(1) / (xs > T(4) ? xs : T(4));
-  T t;
-  if (in0) {
-    const T q = xs / T(4);
-    const T u = q * q < T(1) ? q * q : T(1);
-    t = T(2) * u - T(1);
-  } else if (in1) {
-    const T lo = T(0.1), hi = T(0.25);
-    const T cl = v < lo ? lo : (v > hi ? hi : v);
-    t = (T(2) * cl - (lo + hi)) / (hi - lo);
+// sum_{k >= K} c_k t^(k - K) for the two series of domain D, by Horner;
+// the coefficients are read at compile time (constexpr), so each is an
+// immediate or a constant-bank operand of its FMA.
+template <typename T, int D, int K = 0>
+__device__ __forceinline__ SiciParts<T> series(T t) {
+  using S = SiciTables<T>;
+  constexpr T ca = S::coef(0, D, K);
+  constexpr T cb = S::coef(1, D, K);
+  if constexpr (K == S::ncoef - 1) {
+    return {ca, cb};
   } else {
-    const T lo = T(0.025), hi = T(0.1);
-    const T cl = v < lo ? lo : (v > hi ? hi : v);
-    t = (T(2) * cl - (lo + hi)) / (hi - lo);
+    const SiciParts<T> h = series<T, D, K + 1>(t);
+    return {h.p * t + ca, h.q * t + cb};
   }
-
-  // dual Clenshaw: A is Si/x or x f, B is Ci - gamma - ln x or x^2 g
-  T a0 = T(0), a1 = T(0), b0 = T(0), b1 = T(0);
-  const T t2 = T(2) * t;
-#pragma unroll
-  for (int k = P::ncoef - 1; k >= 0; --k) {
-    const T na = t2 * a0 - a1 + P::a(dom, k);
-    const T nb = t2 * b0 - b1 + P::b(dom, k);
-    a1 = a0;
-    a0 = na;
-    b1 = b0;
-    b0 = nb;
-  }
-  const T A = a0 - t * a1;
-  const T B = b0 - t * b1;
-
-  SiciParts<T> out;
-  out.in0 = in0;
-  out.B = B;
-  if (xs > T(40)) {
-    const T y = T(1) / (xs * xs);
-    T fa = T(0), ga = T(0);
-#pragma unroll
-    for (int n = P::nasy - 1; n >= 0; --n) {
-      fa = fa * y + P::fasy(n);
-      ga = ga * y + P::gasy(n);
-    }
-    out.f = fa / xs;
-    out.g = ga * y;
-  } else {
-    out.f = A * v;
-    out.g = B * v * v;
-  }
-  if (in0) {
-    out.si = xs * A;
-    out.ci = T(SICI_EULER_GAMMA) + P::log(xs) + B;
-  } else {
-    out.si = T(1.5707963267948966) - out.f * cosx - out.g * sinx;
-    out.ci = out.f * sinx - out.g * cosx;
-  }
-  return out;
 }
 
-// u(k | row) for x = k s1, x2 = k s2 = (1+c) x.
+// sum_{n >= N} c_n y^(n - N) for the asymptotic tails of f and g.
+template <typename T, int N = 0>
+__device__ __forceinline__ SiciParts<T> asymptotic(T y) {
+  using S = SiciTables<T>;
+  constexpr T cf = S::asy(0, N);
+  constexpr T cg = S::asy(1, N);
+  if constexpr (N == S::nasy - 1) {
+    return {cf, cg};
+  } else {
+    const SiciParts<T> h = asymptotic<T, N + 1>(y);
+    return {h.p * y + cf, h.q * y + cg};
+  }
+}
+
+// Si/Ci parts of x (> 0) in domain D, with v = 1/x; the arithmetic of
+// ops/special.py:sici_with_trig up to the reciprocals and the series'
+// polynomial form.
+template <typename T, int D>
+__device__ __forceinline__ SiciParts<T> sici_domain(T x, T v) {
+  if constexpr (D == 0) {
+    const T q = x * T(0.25);
+    return series<T, 0>(T(2) * (q * q) - T(1));
+  } else if constexpr (D == 3) {
+    const T y = v * v;
+    const SiciParts<T> fg = asymptotic<T>(y);
+    return {fg.p * v, fg.q * y};
+  } else {
+    // Chebyshev variable of v on [lo, hi] = [1/10, 1/4] or [1/40, 1/10]
+    constexpr T lo = D == 1 ? T(0.1) : T(0.025);
+    constexpr T hi = D == 1 ? T(0.25) : T(0.1);
+    constexpr T mid = lo + hi;
+    constexpr T rspan = T(1) / (hi - lo);
+    const T cl = v < lo ? lo : (v > hi ? hi : v);
+    const SiciParts<T> ab = series<T, D>((T(2) * cl - mid) * rspan);
+    return {ab.p * v, ab.q * v * v};
+  }
+}
+
+// Si/Ci parts of x with one branch on its domain.  D = -1, the kernels'
+// case, branches on x.  D >= 0 fixes the domain at compile time; no kernel
+// of the port uses it: only the SASS probes of tools/torch_nfw_probe.cu
+// do, to count one domain's path.
+template <typename T, int D>
+__device__ __forceinline__ SiciParts<T> sici_parts(T x, T v) {
+  if constexpr (D >= 0) {
+    return sici_domain<T, D>(x, v);
+  } else {
+    if (x <= T(4)) return sici_domain<T, 0>(x, v);
+    if (x <= T(10)) return sici_domain<T, 1>(x, v);
+    if (x <= T(40)) return sici_domain<T, 2>(x, v);
+    return sici_domain<T, 3>(x, v);
+  }
+}
+
+// Per-row constants, from the row's scale r_s (1+z) and concentration c in
+// float64 with the plain version's formulas: s1 = scale, s2 = (1+c) s1,
+// 1/F(c) with F(c) = ln(1+c) - c/(1+c), and ln(1+c).
+template <typename T> struct RowConst {
+  double s1, s2;
+  T inv_mc, ln1pc;
+};
+
 template <typename T>
-__device__ __forceinline__ T nfw_u(double k, double s1, double s2, T inv_mc,
-                                   T ln1pc) {
+__device__ __forceinline__ RowConst<T> row_constants(double scale, double c) {
+  const double ln1pc = ::log(1.0 + c);
+  const double mc = ln1pc - c / (1.0 + c);
+  return {scale, (1.0 + c) * scale, static_cast<T>(1.0 / mc),
+          static_cast<T>(ln1pc)};
+}
+
+// u(k | row) for x = k s1, x2 = k s2 = (1+c)x.  The kernels leave D1, D2
+// at -1; D1, D2 >= 0 fix the domains of x and x2 at compile time for the
+// SASS probes alone (see sici_parts).
+template <typename T, int D1 = -1, int D2 = -1>
+__device__ __forceinline__ T nfw_u(double k, const RowConst<T>& r) {
   using P = Prec<T>;
-  const double x = k * s1;
-  const double x2 = k * s2;
+  const double x = k * r.s1;
+  const double x2 = k * r.s2;
   T sx, cx, sx2, cx2;
   P::sincos_phase(x, &sx, &cx);
   P::sincos_phase(x2, &sx2, &cx2);
-  const T xt = static_cast<T>(x);
-  const T x2t = static_cast<T>(x2);
-  const SiciParts<T> p1 = sici_parts<T>(xt, sx, cx);
-  const SiciParts<T> p2 = sici_parts<T>(x2t, sx2, cx2);
+  const T xt = static_cast<T>(x) > P::tiny ? static_cast<T>(x) : P::tiny;
+  const T x2t = static_cast<T>(x2) > P::tiny ? static_cast<T>(x2) : P::tiny;
+  const T v1 = P::rcp(xt);
+  const T v2 = P::rcp(x2t);
+  const SiciParts<T> p1 = sici_parts<T, D1>(xt, v1);
+  const SiciParts<T> p2 = sici_parts<T, D2>(x2t, v2);
+  const bool in01 = D1 >= 0 ? D1 == 0 : xt <= T(4);
+  const bool in02 = D2 >= 0 ? D2 == 0 : x2t <= T(4);
   const T sin_cx = sx2 * cx - cx2 * sx;  // sin(cx) = sin(x2 - x)
-  const T dci = p2.in0 ? ln1pc + (p2.B - p1.B) : p2.ci - p1.ci;
-  const T dsi = p1.in0 ? p2.si - p1.si
-                       : (p1.f * cx + p1.g * sx) - (p2.f * cx2 + p2.g * sx2);
-  return (sx * dsi - sin_cx / x2t + cx * dci) * inv_mc;
+  T dsi, dci;
+  if (in02) {  // both in the series branch (x < x2 <= 4)
+    dci = r.ln1pc + (p2.q - p1.q);
+    dsi = x2t * p2.p - xt * p1.p;
+  } else {
+    const T ci2 = p2.p * sx2 - p2.q * cx2;
+    if (in01) {
+      dci = ci2 - (T(SICI_EULER_GAMMA) + P::log(xt) + p1.q);
+      dsi = (T(1.5707963267948966) - p2.p * cx2 - p2.q * sx2) - xt * p1.p;
+    } else {
+      dci = ci2 - (p1.p * sx - p1.q * cx);
+      dsi = (p1.p * cx + p1.q * sx) - (p2.p * cx2 + p2.q * sx2);
+    }
+  }
+  return (sx * dsi - sin_cx * v2 + cx * dci) * r.inv_mc;
 }
 
 }  // namespace hmvec

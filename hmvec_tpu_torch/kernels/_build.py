@@ -2,9 +2,9 @@
 
 At first use, ``load_library()``:
 
-1. writes ``sici_coeffs.cuh`` (the Si/Ci Chebyshev tables as __constant__
-   arrays) from ``hmvec_tpu_torch/ops/_sici_coeffs.py``, so the tables are
-   generated and never typed by hand;
+1. writes ``sici_coeffs.cuh`` (the Si/Ci series as constexpr tables of
+   polynomial coefficients) from ``hmvec_tpu_torch/ops/_sici_coeffs.py``,
+   so the tables are generated and never typed by hand;
 2. compiles each ``csrc/*.cu`` with its own ``nvcc -gencode
    arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c``, all
    started together, and links the objects with ``nvcc -shared`` into
@@ -33,6 +33,7 @@ import threading
 import time
 
 import numpy as np
+from numpy.polynomial.chebyshev import cheb2poly
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -53,43 +54,58 @@ _lib = None
 build_info: dict = {}
 
 
-def _c_array(name, ctype, rows):
-    body = ",\n".join(
-        "  {" + ", ".join(repr(float(v)) for v in row) + "}" for row in rows)
-    return f"__constant__ {ctype} {name}[{len(rows)}][{len(rows[0])}] = {{\n{body}\n}};\n"
-
-
-def _c_vector(name, ctype, vals):
-    return (f"__constant__ {ctype} {name}[{len(vals)}] = {{"
-            + ", ".join(repr(float(v)) for v in vals) + "};\n")
+def _c_list(vals):
+    if isinstance(vals, np.ndarray) and vals.ndim == 1:
+        return "{" + ", ".join(repr(float(v)) for v in vals) + "}"
+    return "{" + ",\n   ".join(_c_list(v) for v in vals) + "}"
 
 
 def sici_header() -> str:
     """Text of sici_coeffs.cuh, generated from ops/_sici_coeffs.py.
 
-    float64 values print with repr (shortest round-trip form); the float32
-    tables print the float32-rounded value of each coefficient."""
+    Each domain's two Chebyshev series in t (A: Si/x or x f; B: Ci -
+    gamma - ln x or x^2 g), cut at the precision's length, are converted
+    to the coefficients of t^k (numpy's ``cheb2poly``, in float64), so that
+    the kernels evaluate them by Horner, one FMA per term; float32 values
+    are the float64 coefficients rounded.  The asymptotic tails' (-1)^n
+    (2n)! and (-1)^n (2n+1)! follow.  All sit in constexpr tables, read
+    through a constexpr accessor at compile-time indices only, so that every
+    coefficient compiles to an immediate or a constant-bank operand of its
+    FMA.  Values print with repr (shortest round-trip form)."""
     from ..ops import _sici_coeffs as sc
 
     out = ["// Generated by hmvec_tpu_torch/kernels/_build.py from",
            "// hmvec_tpu_torch/ops/_sici_coeffs.py -- do not edit.",
-           "#pragma once", ""]
-    out.append(f"#define SICI_EULER_GAMMA {float(sc.EULER_GAMMA)!r}")
+           "#pragma once", "",
+           f"#define SICI_EULER_GAMMA {float(sc.EULER_GAMMA)!r}", "",
+           "namespace hmvec {", "",
+           "template <typename T> struct SiciTables;"]
     for tag, ctype, cast in (("F64", "double", np.float64),
                              ("F32", "float", np.float32)):
         n, na = _NCOEF[tag], _NASY[tag]
-        out.append(f"#define SICI_NCOEF_{tag} {n}")
-        out.append(f"#define SICI_NASY_{tag} {na}")
-        for ab in ("A", "B"):
-            rows = [np.asarray(getattr(sc, f"SICI_{ab}{d}")[:n]).astype(cast)
-                    for d in range(3)]
-            out.append(_c_array(f"SICI_{ab}_{tag}", ctype, rows))
-        fasy = [(-1.0) ** i * math.factorial(2 * i) for i in range(na)]
-        gasy = [(-1.0) ** i * math.factorial(2 * i + 1) for i in range(na)]
-        out.append(_c_vector(f"SICI_FASY_{tag}", ctype,
-                             np.asarray(fasy).astype(cast)))
-        out.append(_c_vector(f"SICI_GASY_{tag}", ctype,
-                             np.asarray(gasy).astype(cast)))
+        poly = np.stack([
+            np.stack([cheb2poly(np.asarray(getattr(sc, f"SICI_{ab}{d}")[:n],
+                                           np.float64)) for d in range(3)])
+            for ab in ("A", "B")]).astype(cast)
+        fasy = np.asarray([(-1.0) ** i * math.factorial(2 * i)
+                           for i in range(na)]).astype(cast)
+        gasy = np.asarray([(-1.0) ** i * math.factorial(2 * i + 1)
+                           for i in range(na)]).astype(cast)
+        out += ["", f"template <> struct SiciTables<{ctype}> {{",
+                f"  static constexpr int ncoef = {n};",
+                f"  static constexpr int nasy = {na};",
+                "  // poly[s][d][k]: series s (0 A, 1 B), domain d, "
+                "coefficient of t^k",
+                f"  static constexpr {ctype} poly[2][3][{n}] = "
+                f"{_c_list(poly)};",
+                f"  static constexpr {ctype} fasy[{na}] = {_c_list(fasy)};",
+                f"  static constexpr {ctype} gasy[{na}] = {_c_list(gasy)};",
+                f"  __host__ __device__ static constexpr {ctype} coef(int s, "
+                "int d, int k) { return poly[s][d][k]; }",
+                f"  __host__ __device__ static constexpr {ctype} asy(int s, "
+                "int n) { return s == 0 ? fasy[n] : gasy[n]; }",
+                "};"]
+    out += ["", "}  // namespace hmvec"]
     return "\n".join(out) + "\n"
 
 
@@ -182,10 +198,13 @@ def _declare(lib):
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("hmvec_nfw_uk_f64", "hmvec_nfw_uk_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, p]
         fn.restype = i
-    fn = lib.hmvec_nfw_contract_f64
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    fn = lib.hmvec_nfw_contract
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.hmvec_nfw_kernel_info
+    fn.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
     fn.restype = i
     for name in ("hmvec_pair_lerp_f64", "hmvec_pair_lerp_f32"):
         fn = getattr(lib, name)

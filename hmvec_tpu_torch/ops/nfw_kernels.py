@@ -7,8 +7,14 @@ PyTorch versions, and the wrappers that choose between them.
   output) as the two instantiations of one CUDA kernel
   (csrc/nfw_kernels.cu).
 * ``nfw_contract(ks, scales, cs, a, b)``: u(k) reduced on the spot to the
-  two mass integrals S1 = sum_m a u^2 and S2 = sum_m b u, float64.  Ports
-  ``nfw_contract_pallas``.
+  two mass integrals S1 = sum_m a u^2 and S2 = sum_m b u.  Ports
+  ``nfw_contract_pallas``; like it, the kernel computes u in the fast
+  tier's float32 (within 2e-5 relative of the plain version on S1, S2),
+  and it sums in float64.
+
+Each kernel takes the per-row scale and concentration as they are and
+computes its row constants itself, so a wrapper call on the card is one
+launch.
 
 A wrapper given CUDA tensors launches its kernel (building the library at
 first use, kernels/_build.py) or raises; given CPU tensors it computes the
@@ -64,16 +70,6 @@ def _partials(ks, scales, cs):
     return u, du_ds, du_dc
 
 
-def _row_constants(scales, cs):
-    """(rows, 4) float64: s1 = r_s (1+z), s2 = (1+c) s1, 1/F(c), ln(1+c),
-    computed once per row (the kernel's per-row transcendentals)."""
-    s1 = scales.reshape(-1)
-    c = cs.reshape(-1)
-    ln1pc = torch.log(1.0 + c)
-    mc = ln1pc - c / (1.0 + c)
-    return torch.stack([s1, (1.0 + c) * s1, 1.0 / mc, ln1pc], dim=1).contiguous()
-
-
 def _stream(t):
     """PyTorch's current cudaStream_t on t's device, as a Python int."""
     return torch.cuda.current_stream(t.device).cuda_stream
@@ -115,13 +111,15 @@ def _raise_on_error(err, what):
                            f"{err}")
 
 
-def _launch_nfw_uk(ks, scales, cs, tier):
+def _launch_nfw_uk(ks, scales, cs, tier, out=None):
+    """One launch of the tier's kernel into ``out`` (allocated if None)."""
     from ..kernels._build import load_library
 
-    rows = _row_constants(scales, cs)
-    nrows, nk = rows.shape[0], ks.shape[0]
-    out_dtype = _F64 if tier == "exact" else torch.float32
-    out = torch.empty((nrows, nk), dtype=out_dtype, device=scales.device)
+    nrows, nk = scales.shape[0], ks.shape[0]
+    if out is None:
+        out = torch.empty((nrows, nk),
+                          dtype=_F64 if tier == "exact" else torch.float32,
+                          device=scales.device)
     if nrows == 0 or nk == 0:
         return out
     if -(-nrows // 8) > _MAX_GRID_Y:
@@ -129,21 +127,24 @@ def _launch_nfw_uk(ks, scales, cs, tier):
                          f"got {nrows}")
     lib = load_library()
     fn = lib.hmvec_nfw_uk_f64 if tier == "exact" else lib.hmvec_nfw_uk_f32
-    err = fn(ks.data_ptr(), rows.data_ptr(), out.data_ptr(), nrows, nk,
-             scales.device.index, _stream(scales))
+    err = fn(ks.data_ptr(), scales.data_ptr(), cs.data_ptr(), out.data_ptr(),
+             nrows, nk, scales.device.index, _stream(scales))
     _raise_on_error(err, f"nfw_uk(tier={tier!r})")
     _NFW_UK_TIERS[tier].launches += 1
     return out
 
 
-def _launch_nfw_contract(ks, scales, cs, a, b):
+def _launch_nfw_contract(ks, scales, cs, a, b, out=None):
+    """One launch of the contraction kernel into ``out`` = (S1, S2)
+    (allocated if None)."""
     from ..kernels._build import load_library
 
     nz, nm = scales.shape
     nk = ks.shape[0]
-    rows = _row_constants(scales, cs)
-    s1 = torch.empty((nz, nk), dtype=_F64, device=scales.device)
-    s2 = torch.empty((nz, nk), dtype=_F64, device=scales.device)
+    if out is None:
+        out = tuple(torch.empty((nz, nk), dtype=_F64, device=scales.device)
+                    for _ in range(2))
+    s1, s2 = out
     if nz == 0 or nk == 0:
         return s1, s2
     if nm == 0:
@@ -152,10 +153,10 @@ def _launch_nfw_contract(ks, scales, cs, a, b):
         raise ValueError(f"nfw_contract takes at most {_MAX_GRID_Y} "
                          f"redshifts, got {nz}")
     lib = load_library()
-    err = lib.hmvec_nfw_contract_f64(
-        ks.data_ptr(), rows.data_ptr(), a.data_ptr(), b.data_ptr(),
-        s1.data_ptr(), s2.data_ptr(), nz, nm, nk, scales.device.index,
-        _stream(scales))
+    err = lib.hmvec_nfw_contract(
+        ks.data_ptr(), scales.data_ptr(), cs.data_ptr(), a.data_ptr(),
+        b.data_ptr(), s1.data_ptr(), s2.data_ptr(), nz, nm, nk,
+        scales.device.index, _stream(scales))
     _raise_on_error(err, "nfw_contract")
     nfw_contract.launches += 1
     return s1, s2
@@ -273,7 +274,7 @@ def nfw_uk(ks, scales, cs, *, tier="exact"):
 
     tier="exact": ``nfw_uk_exact``, the float64 kernel (port of
     nfw_uk_pallas_ds), float64 output.  tier="fast": ``nfw_uk_fast``, the
-    float32-Clenshaw kernel (port of nfw_uk_pallas), float32 output.  CPU
+    float32 kernel (port of nfw_uk_pallas), float32 output.  CPU
     tensors: ``nfw_uk_plain`` (float64) for both tiers."""
     if tier not in _NFW_UK_TIERS:
         raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
@@ -283,7 +284,8 @@ def nfw_uk(ks, scales, cs, *, tier="exact"):
 def nfw_contract(ks, scales, cs, a, b):
     """(S1, S2), each (nz, nk) float64: S1 = sum_m a u^2, S2 = sum_m b u
     with u the NFW profile of scales = r_s (1+z) and cs; scales, cs, a, b
-    are (nz, nm) float64 and ks (nk,).  CPU tensors: ``nfw_contract_plain``."""
+    are (nz, nm) float64 and ks (nk,).  On the card u is the fast tier's
+    float32 and the sums float64; CPU tensors: ``nfw_contract_plain``."""
     _check({"ks": ks, "scales": scales, "cs": cs, "a": a, "b": b},
            {"ks": ("k",), "scales": ("z", "m"), "cs": ("z", "m"),
             "a": ("z", "m"), "b": ("z", "m")})

@@ -186,7 +186,7 @@ def make_pmm_fn(zs, ks, ms, *, device, mass_function: str = "sheth-torman",
     device: 'cpu' or 'cuda[:i]'; required.  A CUDA device without a card
         raises.
     fast: False -- the plain float64 NFW stage; True -- the fast-tier CUDA
-        kernel (float32 Clenshaw, <= 5e-6 on u); "exact" -- the float64 CUDA
+        kernel (float32 Si/Ci, <= 5e-6 on u); "exact" -- the float64 CUDA
         kernel.  On the CPU both kernel tiers run the plain version.
     fused_serving: u(k) and both mass integrals in one CUDA kernel
         (``nfw_contract``); as in the JAX package it ignores ``fast``.

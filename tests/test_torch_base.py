@@ -77,22 +77,48 @@ def test_coefficient_tables_bit_identical(tmod, jmod):
 
 
 def test_generated_cuda_header_round_trips_tables():
-    """sici_coeffs.cuh is generated from the port's table copy: every
-    float64 literal parses back to the exact coefficient, and the float32
-    tables hold the float32-rounded coefficients."""
+    """sici_coeffs.cuh is generated from the port's table copy.  For each
+    precision, each of the three domains and both series it holds the
+    power-series form (in the Chebyshev variable t) of the table cut at the
+    precision's length: numpy's cheb2poly in float64, printed so that it
+    parses back to that value exactly (float64) or to its float32 rounding
+    (float32), and evaluated it gives the Chebyshev series to the
+    precision's rounding.  Then both asymptotic tails and Euler's gamma."""
+    import math
     import re
+
+    from numpy.polynomial import chebyshev as C
+
     text = _build.sici_header()
-    for tag, dtype, n in (("F64", np.float64, 24), ("F32", np.float32, 16)):
-        for ab in ("A", "B"):
-            m = re.search(rf"SICI_{ab}_{tag}\[3\]\[{n}\] = \{{(.*?)\}};",
-                          text, re.S)
-            assert m, (ab, tag)
-            vals = np.array([float(v) for v in
-                             re.findall(r"[-+0-9.e]+", m.group(1))])
-            want = np.stack([getattr(tsc, f"SICI_{ab}{d}")[:n]
-                             for d in range(3)]).astype(dtype)
-            assert np.array_equal(vals.astype(dtype).reshape(3, n), want)
-            assert np.array_equal(vals.reshape(3, n), want.astype(np.float64))
+    t = np.linspace(-1.0, 1.0, 2001)
+    for ctype, dtype, n, na in (("double", np.float64, 24, 13),
+                                ("float", np.float32, 16, 7)):
+        block = re.search(rf"struct SiciTables<{ctype}> {{(.*?)\n}};", text,
+                          re.S).group(1)
+        ints = dict(re.findall(r"static constexpr int (\w+) = (\d+);", block))
+        assert (int(ints["ncoef"]), int(ints["nasy"])) == (n, na)
+        tabs = {name: np.array([float(v) for v in re.findall(
+                    r"[-+0-9.e]+", body.replace("{", " ").replace("}", " "))])
+                for name, body in re.findall(
+                    rf"static constexpr {ctype} (\w+)\[[^=]*= (\{{.*?\}});",
+                    block, re.S)}
+        poly = tabs["poly"].reshape(2, 3, n)
+        for s_, ab in enumerate("AB"):
+            for d in range(3):
+                cheb = np.asarray(getattr(tsc, f"SICI_{ab}{d}")[:n])
+                want = C.cheb2poly(cheb).astype(dtype)
+                assert np.array_equal(poly[s_, d].astype(dtype), want)
+                assert np.array_equal(poly[s_, d], want.astype(np.float64))
+                err = np.abs(np.polynomial.polynomial.polyval(t, poly[s_, d])
+                             - C.chebval(t, cheb)).max()
+                assert err <= (1e-14 if dtype == np.float64 else 1e-6)
+        for name, first in (("fasy", 0), ("gasy", 1)):
+            want = [(-1.0) ** i * math.factorial(2 * i + first)
+                    for i in range(na)]
+            assert np.array_equal(tabs[name],
+                                  np.asarray(want, dtype).astype(np.float64))
+    gamma = re.search(r"#define SICI_EULER_GAMMA (\S+)", text).group(1)
+    assert float(gamma) == tsc.EULER_GAMMA
 
 
 def test_sici_matches_jax():
