@@ -12,7 +12,13 @@ the golden files that the JAX package wrote (tools/gen_torch_golden.py):
   tiers (float64 sampling; fast=True: float32 sampling and the fast NFW
   kernel).
 
-It differentiates both, and times the kernels and the end-to-end calls.
+A growth_ode phase then drives config 1 on the integrated w0/wa growth
+(growth="ode": plain, exact and fused) against its own golden file, with
+the Jacobian over (omch2, w0, wa), the launches of one growth table, and
+an ode call's latency beside a closed-form call's.
+
+It differentiates both paths, and times the kernels and the end-to-end
+calls.
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  Every gate that fails raises, so the script exits
 nonzero and prints no result.
@@ -54,11 +60,13 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DATA = ROOT / "hmvec_tpu_torch" / "data"
 GOLDEN = DATA / "pmm_config1_golden.npz"
 GOLDEN_E = DATA / "electron_config2_golden.npz"
+GOLDEN_W = DATA / "pmm_config1_w0wa_golden.npz"
 
 # kernel vs plain version on the card (absolute on u; relative on S1, S2;
 # the resample kernel repeats the plain version's float64 operations in
@@ -67,12 +75,21 @@ GOLDEN_E = DATA / "electron_config2_golden.npz"
 # (and the fused tier's JAX path asks for), and sums in float64, so its
 # gate is that TPU kernel's own 2e-5 relative, not float64's rounding.
 GATE_UK = {"exact": 2e-7, "fast": 5e-6}
+# what the float64 kernel is designed to beside its gate: float64-class u
+# on every case (tools/emulate_torch_nfw_fast.py --tier exact holds its
+# arithmetic to the same number on the CPU)
+EXPECT_UK_EXACT = 1e-12
 GATE_CONTRACT_REL = 2e-5
 GATE_LERP = 0.0
 # end to end, max relative error against the golden spectra
 GATE_PMM = {"plain": 1e-10, "exact": 1e-7, "fast": 1e-5, "fused": 1e-5}
 GATE_E = {"electron_plain": 1e-10, "electron_fast": 1e-5}
 GATE_JAC_REL = 1e-6
+# growth="ode" at LCDM against the closed form (the JAX package's own
+# gate, tests/test_background.py), and the launches of one growth table
+GATE_ODE_VS_CLOSED = 1e-7
+MAX_GROWTH_TABLE_LAUNCHES = 2500
+ODE_PATHS = ("plain", "exact", "fused")
 PATHS = {"plain": {"fast": False}, "exact": {"fast": "exact"},
          "fast": {"fast": True}, "fused": {"fused_serving": True}}
 E_PATHS = {"electron_plain": {"fast": False}, "electron_fast": {"fast": True}}
@@ -82,9 +99,9 @@ KERNEL_ROWS = (
     ("nfw_uk_fast", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:321",
      ("fast", "electron_fast")),
     ("nfw_uk_exact", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:800",
-     ("exact",)),
+     ("exact", "ode_exact")),
     ("nfw_contract", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:388",
-     ("fused",)),
+     ("fused", "ode_fused")),
     ("pair_lerp_f64", "resample_kernels",
      "hmvec_tpu/ops/pallas_resample.py:110", ("electron_plain",)),
     ("pair_lerp_f32", "resample_kernels",
@@ -96,16 +113,23 @@ SOURCE = {"nfw_kernels": "hmvec_tpu_torch/csrc/nfw_kernels.cu",
 # the card's data-sheet peaks (H100 SXM, dense, outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"f64": 34e12, "f32": 67e12}
-# operations counted for one call of a math-library function: an estimate
+# operations counted for one call of the math library's log: an estimate
 # of its range reduction and polynomial, since its source is not ours
-LIB_OPS = {"sincos": {"f64": 40, "f32": 20}, "log": {"f64": 30, "f32": 15}}
-# series terms and asymptotic-tail terms per Si/Ci in each precision
-# (kernels/_build.py)
-NCOEF = {"f32": 16, "f64": 24}
-NASY = {"f32": 7, "f64": 13}
+LIB_OPS = {"log": {"f64": 30, "f32": 15}}
 # the NFW kernels' per-row constants (nfw_u.cuh row_constants): 1 + c
 # twice, c / (1 + c), the difference, 1 / F, (1 + c) scale, and a log
 ROW_OPS_F64 = 6 + LIB_OPS["log"]["f64"]
+# one sin/cos pair of nfw_u.cuh sincos_phase.  Exact tier, all float64:
+# the quadrant (an FMA and a subtraction), two FMAs of the two-part pi/2,
+# r^2, five FMAs for each polynomial, r^3 and the FMA of sin, two FMAs of
+# cos.  Fast tier: the FMA, the subtraction and one FMA in float64, then
+# r^2, two FMAs for each polynomial and three operations and two FMAs to
+# finish, in float32.
+SINCOS_OPS = {"f64": {"f64": 3 + 4 + 1 + 20 + 3 + 4},
+              "f32": {"f64": 5, "f32": 16}}
+# the reciprocal: the hardware's seed, and in float64 two Newton steps of
+# two FMAs each
+RCP_OPS = {"f64": 1 + 8, "f32": 1}
 
 
 # SASS opcodes by the class of unit or work they take (the rest: integer,
@@ -256,20 +280,26 @@ def _sici_ops(x, prec):
     """Floating-point operations of one Si/Ci argument x in csrc/nfw_u.cuh
     (an FMA counts 2, compares and selects 0): its reciprocal, then the
     body of its domain alone -- the Chebyshev variable, the two series by
-    Horner (one FMA per term after the first), and f = A v, g = B v^2 in
-    domains 1-2; above x = 40 only the asymptotic tail, no series."""
-    series = 2 * 2 * (NCOEF[prec] - 1)
-    n = torch.where(x <= 4.0, 4 + series, 3 + series + 3)
-    return 1 + torch.where(x > 40.0, 1 + 2 * 2 * (NASY[prec] - 1) + 2, n)
+    Horner (one FMA per term after the first, with the domain's number of
+    terms from kernels/_build.py), and f = A v, g = B v^2 in domains 1-2;
+    above x = 40 only the asymptotic tail, no series."""
+    from hmvec_tpu_torch.kernels._build import NASY, NCOEF
+
+    series = [2 * 2 * (n - 1) for n in NCOEF[prec.upper()]]
+    # the Chebyshev variable: x/4, its square and an FMA below 4 (in
+    # float64 x^2 and an FMA); an FMA and a product above
+    n = torch.where(x <= 4.0, (4 if prec == "f32" else 3) + series[0],
+                    3 + 3 + torch.where(x <= 10.0, series[1], series[2]))
+    tail = 1 + 2 * 2 * (NASY[prec.upper()] - 1) + 2
+    return RCP_OPS[prec] + torch.where(x > 40.0, tail, n)
 
 
 def nfw_ops(ks, scales, cs, tier) -> dict:
     """Operations of hmvec::nfw_u over the (row, k) grid, counted from
     csrc/nfw_u.cuh on this run's inputs, by type: the phases x = k s1 and
-    x2 = k s2 in float64; their sin/cos (float64 sincos in the exact tier;
-    in the fast tier the quadrant reduction in float64 and the float32
-    polynomials); two Si/Ci; the assembly (a log in the branch with
-    x <= 4 < x2); and the row constants, once per row, in float64."""
+    x2 = k s2 in float64; their sin/cos (SINCOS_OPS); two Si/Ci; the
+    assembly (a log in the branch with x <= 4 < x2); and the row
+    constants, once per row, in float64."""
     x = ks[None, :] * scales.reshape(-1)[:, None]
     x2 = x * (1.0 + cs.reshape(-1))[:, None]
     prec = "f32" if tier == "fast" else "f64"
@@ -279,10 +309,11 @@ def nfw_ops(ks, scales, cs, tier) -> dict:
     body = _sici_ops(x, prec) + _sici_ops(x2, prec) + assembly
     n_el = x.numel()
     body = int(body.sum().item())
-    f64 = 2 * n_el + ROW_OPS_F64 * scales.numel()
-    if prec == "f64":
-        return {"f64": f64 + body + 2 * LIB_OPS["sincos"]["f64"] * n_el}
-    return {"f64": f64 + 2 * 3 * n_el, "f32": body + 2 * 16 * n_el}
+    ops = {"f64": 2 * n_el + ROW_OPS_F64 * scales.numel()}
+    ops[prec] = ops.get(prec, 0) + body
+    for t, n in SINCOS_OPS[prec].items():
+        ops[t] += 2 * n * n_el
+    return ops
 
 
 def pair_lerp_work(u, scales, ks, dkt) -> tuple[int, dict]:
@@ -309,13 +340,16 @@ def pair_lerp_work(u, scales, ks, dkt) -> tuple[int, dict]:
 def adversarial_rows(dev):
     """(name, ks, scales, cs) sweeps of tests/test_pallas_fast.py at sizes
     that are not multiples of the block: c in [1.2, 30], r_s (1+z) up to
-    12, phases k (1+c) r_s up to ~3.7e4."""
+    12, phases k (1+c) r_s up to ~3.7e4, and one case a thousand times
+    beyond, where an ulp of the phase is 7e-9 rad."""
     rng = np.random.default_rng(0)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
     yield ("adversarial", t(np.geomspace(1e-4, 100.0, 777)),
            t(np.exp(rng.uniform(np.log(0.003), np.log(12.0), 1237))),
            t(rng.uniform(1.2, 30.0, 1237)))
     yield ("phase3.7e4", t(np.geomspace(10.0, 100.0, 64)),
+           t([8.0, 12.0]), t([25.0, 30.0]))
+    yield ("phase3.7e7", t(np.geomspace(1e3, 1e5, 96)),
            t([8.0, 12.0]), t([25.0, 30.0]))
     yield ("edges", t(np.geomspace(1e-3, 50, 77)),
            t(np.array([0.1, 0.3, 0.6]) * 1.5), t([3.0, 7.0, 11.0]))
@@ -366,8 +400,10 @@ def main() -> int:
     import hmvec_tpu_torch
     from hmvec_tpu_torch import pipeline as pl
     from hmvec_tpu_torch.kernels import _build
+    from hmvec_tpu_torch.models import background as bgmod
     from hmvec_tpu_torch.ops import nfw_kernels as nk
     from hmvec_tpu_torch.ops import resample_kernels as rk
+    from hmvec_tpu_torch.params import merge_params, to_torch_params
 
     check(pathlib.Path(hmvec_tpu_torch.__file__).resolve().parent
           == ROOT / "hmvec_tpu_torch",
@@ -447,6 +483,9 @@ def main() -> int:
             e = (u.double() - ref).abs().max().item()
             check(e <= GATE_UK[tier], f"{name} on {case}: {e!r} > "
                   f"{GATE_UK[tier]}")
+            if tier == "exact":
+                check(e <= EXPECT_UK_EXACT, f"{name} on {case}: {e!r} > "
+                      f"{EXPECT_UK_EXACT}")
             if case == "config1":
                 err[name] = e
             print(f"[kernel] {name} vs nfw_uk_plain on {case} "
@@ -502,7 +541,7 @@ def main() -> int:
                   f"max abs err {e!r} (gate {GATE_LERP})")
 
     # ---- phase 3: both main paths at full width vs the golden files -----
-    def drive(path, fn, want, gate):
+    def drive(path, fn, want, gate, cosmos=cosmos, vary=("omch2", "As")):
         """Run one path for every cosmology with the launch counts set to
         0 just before and read just after; returns the counts."""
         for w in wrappers.values():
@@ -518,9 +557,9 @@ def main() -> int:
                 check(bool(np.all(np.isfinite(got))), f"{path} {key} finite")
                 e = float(np.max(np.abs(got / want[key][i] - 1.0)))
                 check(e <= gate, f"{path} {key} cosmology {i}: {e!r}")
-                print(f"[e2e] {path} {key} cosmology {i} "
-                      f"(omch2={ov['omch2']}, As={ov['As']}): max rel err "
-                      f"vs golden {e!r} (gate {gate})")
+                what = ", ".join(f"{k}={ov[k]}" for k in vary)
+                print(f"[e2e] {path} {key} cosmology {i} ({what}): max rel "
+                      f"err vs golden {e!r} (gate {gate})")
         counts = {name: w.launches for name, w in wrappers.items()}
         print(f"[e2e] {path}: launches over {len(cosmos)} calls: {counts}")
         return counts
@@ -536,9 +575,6 @@ def main() -> int:
     for path, fn in efns.items():
         launches[path] = drive(path, fn, {"pee": ge["pee"], "pme": ge["pme"]},
                                GATE_E[path])
-    for name, _, _, paths in KERNEL_ROWS:
-        for path in paths:
-            check(launches[path][name] > 0, f"{name} launched on {path}")
 
     # ---- phase 4: derivatives through the kernels and plain -------------
     jac = {}
@@ -577,6 +613,83 @@ def main() -> int:
                   f"(gate {GATE_JAC_REL})")
     print(f"[grad] fisher_jacobian electron_plain in {dt:.2f} s, peak "
           f"{peak:.1f} MiB allocated ({card})")
+
+    # ---- phase 4b: config 1 on the integrated w0/wa growth ----------------
+    gw = np.load(GOLDEN_W)
+    for key in ("zs", "ks", "ms"):
+        check(np.array_equal(g[key], gw[key]), f"golden files share {key}")
+    cosmos_w = [dict(zip(gw["param_names"].tolist(), map(float, row)))
+                for row in gw["param_values"]]
+    check(cosmos_w[2] == cosmos[0], "the third w0/wa cosmology is the bench's")
+    ode_fns = {p: pl.make_pmm_fn(zs, ks_np, ms, device=dev, growth="ode",
+                                 **PATHS[p]) for p in ODE_PATHS}
+    for p, fn in ode_fns.items():
+        launches[f"ode_{p}"] = drive(f"growth_ode {p}", fn,
+                                     {"pmm": gw["pmm"]}, GATE_PMM[p],
+                                     cosmos=cosmos_w, vary=("w0", "wa"))
+    for name, _, _, paths in KERNEL_ROWS:
+        for path in paths:
+            check(launches[path][name] > 0, f"{name} launched on {path}")
+    e = ((ode_fns["plain"](cosmos[0]) / fns["plain"](cosmos[0]) - 1.0)
+         .abs().max().item())
+    check(e <= GATE_ODE_VS_CLOSED, f"growth ode vs closed at LCDM: {e!r}")
+    print(f"[e2e] growth_ode plain at LCDM vs growth='closed': max rel diff "
+          f"{e!r} (gate {GATE_ODE_VS_CLOSED})")
+    # growth='auto' takes a differentiated w0/wa to the integrated growth
+    jac_w_names = tuple(gw["jac_names"].tolist())
+    t0 = time.perf_counter()
+    jac_w = pl.fisher_jacobian(fns["exact"], cosmos[0], jac_w_names,
+                               device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got, want = jac_w.cpu().numpy(), gw["jac_pmm"]
+    check(got.shape == want.shape and bool(np.all(np.isfinite(got))),
+          "growth_ode jacobian")
+    for col, pname in enumerate(jac_w_names):
+        e = float(np.max(np.abs(got[..., col] / want[..., col] - 1.0)))
+        check(e <= GATE_JAC_REL, f"d pmm / d {pname}: {e!r}")
+        print(f"[grad] fisher_jacobian exact d pmm / d {pname}: max rel err "
+              f"vs golden {e!r} (gate {GATE_JAC_REL}), max abs "
+              f"{float(np.abs(got[..., col]).max())!r}")
+    print(f"[grad] fisher_jacobian exact over {jac_w_names} in {dt:.2f} s")
+    # one growth table, and one call of each growth mode, traced: kernel
+    # launches and device-to-host reads
+    def traced(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        return (sum(1 for ev in events
+                    if ev.device_type == torch.autograd.DeviceType.CUDA),
+                sum(1 for ev in events
+                    if ev.name == "aten::_local_scalar_dense"))
+
+    bg_w = bgmod.background({**merge_params(),
+                             **to_torch_params(cosmos_w[1], dev)}, dev)
+    bgmod.growth_table(bg_w)
+    n_table, sync_table = traced(lambda: bgmod.growth_table(bg_w))
+    check(0 < n_table <= MAX_GROWTH_TABLE_LAUNCHES and sync_table == 0,
+          f"growth_table: {n_table} launches, {sync_table} host reads")
+    n_closed, sync_closed = traced(lambda: fns["exact"](cosmos_w[2]))
+    n_ode, sync_ode = traced(lambda: fns["exact"](cosmos_w[1]))
+    check(sync_ode <= sync_closed, f"an ode call reads the device "
+          f"{sync_ode} times, a closed call {sync_closed}")
+    print(f"[growth] one growth_table: {n_table} kernel launches (limit "
+          f"{MAX_GROWTH_TABLE_LAUNCHES}), {sync_table} host reads; one "
+          f"make_pmm_fn exact call: {n_ode} launches and {sync_ode} host "
+          f"reads with growth 'ode' (w0, wa = {cosmos_w[1]['w0']}, "
+          f"{cosmos_w[1]['wa']}), {n_closed} and {sync_closed} with "
+          f"'closed' (torch.profiler)")
+    t_closed = host_ms(lambda: fns["exact"](cosmos_w[2]))
+    t_ode = host_ms(lambda: fns["exact"](cosmos_w[1]))
+    t_ode2 = host_ms(lambda: fns["exact"](cosmos_w[1]))
+    t_closed2 = host_ms(lambda: fns["exact"](cosmos_w[2]))
+    print(f"[time] make_pmm_fn exact at 20x200x1001, growth 'closed' / "
+          f"'ode' / 'ode' / 'closed': {t_closed!r} / {t_ode!r} / {t_ode2!r} "
+          f"/ {t_closed2!r} ms per call (host clock to synchronize, median "
+          f"of 10 each) ({card})")
 
     # ---- phase 5: times on the card --------------------------------------
     # each timed call: its device time from CUDA-graph replays (device_ms)

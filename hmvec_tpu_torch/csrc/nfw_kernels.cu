@@ -15,8 +15,10 @@
 // for its domain, its series evaluated by Horner with every coefficient an
 // immediate or constant-bank operand, and no series where the asymptotic
 // tail is used; one reciprocal per argument in place of the divisions; in
-// the float32 tier, sin/cos polynomials on a phase reduced to its quadrant
-// in float64.  The per-row constants (s2, ln(1+c), 1/F(c)) are computed
+// both tiers, sin/cos polynomials on a phase reduced to its quadrant in
+// float64, and in the float64 tier, whose pipe issues at half rate, each
+// series cut at its table's noise floor and a reciprocal from the
+// hardware's seed.  The per-row constants (s2, ln(1+c), 1/F(c)) are computed
 // once per row in the kernel, in float64, into a shared-memory row cache,
 // so a wrapper call is one launch.  PERF.md gives each kernel's time
 // beside its bound and its issue floor (tools/measure_torch_nfw.py).

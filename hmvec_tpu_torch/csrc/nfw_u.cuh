@@ -7,21 +7,26 @@
 // body compiled for that domain alone: the domain's two Chebyshev series,
 // as polynomials in the Chebyshev variable t evaluated by Horner (one FMA
 // per term, each coefficient a compile-time constant: an immediate or a
-// constant-bank operand, never an indexed load), or, above 40, the
+// constant-bank load at a fixed offset, never an indexed load), or, above
+// 40, the
 // asymptotic f/g tail and no series.  The coefficients come from
 // sici_coeffs.cuh, which kernels/_build.py converts at build time from the
 // Chebyshev tables of hmvec_tpu_torch/ops/_sici_coeffs.py.  The callers'
 // warps are 32 neighbouring k of one row, so x is monotone across a warp
 // and only the warps that straddle a domain edge run two bodies.
 //
-// T = double is the exact tier: every operation in float64, all 24 series
-// terms, the 13-term tail, ::sincos.  T = float is the fast tier: the
-// phases x = k s1 and (1+c)x = k s2 are formed and reduced to a quadrant
-// in float64, the reduced phase r in [-pi/4, pi/4] goes to float32, and
-// sin/cos, the 16-term series, the 7-term tail and the assembly run in
-// float32.  This replaces the TPU's double-single machinery
-// (pallas_kernels.py _two_prod/_ds_*), which existed only because Pallas on
-// the TPU has no float64.
+// T = double is the exact tier, designed for the float64 pipe, which issues
+// at half the rate of the others: every operation in float64, each series
+// to the noise floor of its table (12, 17 and 15 terms by domain), the
+// 13-term tail, sin/cos as polynomials on a phase reduced with a two-part
+// pi/2, the reciprocal as the hardware's seed and two Newton steps, and no
+// call into the math library but the one log of the mixed branch.
+// T = float is the fast tier: the phases x = k s1 and (1+c)x = k s2 are
+// formed and reduced to a quadrant in float64, the reduced phase r in
+// [-pi/4, pi/4] goes to float32, and sin/cos, the 16-term series, the
+// 7-term tail and the assembly run in float32.  This replaces the TPU's
+// double-single machinery (pallas_kernels.py _two_prod/_ds_*), which
+// existed only because Pallas on the TPU has no float64.
 //
 // Divisions: one reciprocal per argument (v = 1/x, shared by the Chebyshev
 // variable, f = A v, g = B v^2, the tail's y = v^2 and sin(cx)/x2), and the
@@ -47,13 +52,75 @@ namespace hmvec {
 
 template <typename T> struct Prec;
 
+// Constants of Prec<double>::sincos_phase, in constant memory: a float64
+// constant is no immediate of its FMA (the instruction holds 32 bits), so
+// written as a literal it costs two integer moves, while from constant
+// memory at a fixed offset it costs one uniform load, off the integer pipe.
+// 2/pi; pi/2 = hi + lo; the fdlibm minimax coefficients of
+// (sin r - r) / r^3 and (cos r - 1 + r^2/2) / r^4 in z = r^2, highest first.
+static __constant__ double kTwoOverPi = 0.6366197723675814;
+static __constant__ double kPio2Hi = 1.5707963267948966;
+static __constant__ double kPio2Lo = 6.123233995736766e-17;
+static __constant__ double kSinPoly[6] = {
+    1.58969099521155010221e-10, -2.50507602534068634195e-08,
+    2.75573137070700676789e-06, -1.98412698298579493134e-04,
+    8.33333333332248946124e-03, -1.66666666666666324348e-01};
+static __constant__ double kCosPoly[6] = {
+    -1.13596475577881948265e-11, 2.08757232129817482790e-09,
+    -2.75573143513906633035e-07, 2.48015872894767294178e-05,
+    -1.38888888888741095749e-03, 4.16666666666666019037e-02};
+
 template <> struct Prec<double> {
   static constexpr double tiny = 1e-300;
+  // Only the assembly's branch x <= 4 < x2 takes a log (a tenth of
+  // config 1's elements), so the math library's is kept.
   __device__ static __forceinline__ double log(double x) { return ::log(x); }
-  __device__ static __forceinline__ double rcp(double x) { return __drcp_rn(x); }
-  // sin and cos of a float64 phase in float64
+  // 1/x from the hardware's seed (MUFU.RCP64H, about 20 bits) and two
+  // Newton steps y += y (1 - x y) with the residual from one FMA each:
+  // within an ulp or two, without the IEEE-rounded reciprocal's range
+  // checks and slow path.  x >= 1e-300 is never subnormal, and neither is
+  // 1/x below x = 2^1022.
+  __device__ static __forceinline__ double rcp(double x) {
+    double y;
+    asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
+    y = fma(y, fma(-x, y, 1.0), y);
+    return fma(y, fma(-x, y, 1.0), y);
+  }
+  // v with its sign flipped where bit 31 of `bits` is set
+  __device__ static __forceinline__ double flip_sign(double v, unsigned bits) {
+    return __hiloint2double(__double2hiint(v) ^ static_cast<int>(bits & 0x80000000u),
+                            __double2loint(v));
+  }
+  // sin and cos of a float64 phase in float64, without the math library:
+  // n = x 2/pi rounded to an integer (by adding 1.5 * 2^52, whose sum holds
+  // n in its low word, so the quadrant needs no 64-bit conversion), then
+  // r = x - n pi/2 with pi/2 = hi + lo to 107 bits and one FMA for each
+  // part (Cody-Waite; the FMA keeps x - n hi exact up to its one rounding),
+  // so that r in [-pi/4, pi/4] is good to ~1e-16 whatever n; then the
+  // fdlibm minimax polynomials of sin (to r^13) and cos (to r^14) on that
+  // interval (error < 2^-57), swapped and negated by quadrant.  Valid for
+  // 0 <= x < 2^51 quadrants (the sum must hold n exactly); sin and cos stay
+  // within 1.2e-16 of the library's up to x = 1e12, far above any phase
+  // k (1+c) r_s (1+z) that float64 can carry to the exact tier's accuracy
+  // (at x = 1e9 one ulp of x is already 1.2e-7 rad).
   __device__ static __forceinline__ void sincos_phase(double x, double* s, double* c) {
-    ::sincos(x, s, c);
+    constexpr double kRound = 6755399441055744.0;  // 1.5 * 2^52
+    const double big = fma(x, kTwoOverPi, kRound);
+    const double n = big - kRound;
+    const unsigned q = static_cast<unsigned>(__double2loint(big));
+    const double r = fma(-n, kPio2Lo, fma(-n, kPio2Hi, x));
+    const double z = r * r;
+    double ps = kSinPoly[0], pc = kCosPoly[0];
+#pragma unroll
+    for (int i = 1; i < 6; ++i) {
+      ps = fma(ps, z, kSinPoly[i]);
+      pc = fma(pc, z, kCosPoly[i]);
+    }
+    const double sr = fma(z * r, ps, r);
+    const double cr = fma(fma(pc, z, -0.5), z, 1.0);
+    const bool odd = q & 1u;
+    *s = flip_sign(odd ? cr : sr, q << 30);
+    *c = flip_sign(odd ? sr : cr, (q + 1) << 30);
   }
 };
 
@@ -106,14 +173,14 @@ template <typename T> struct SiciParts {
 };
 
 // sum_{k >= K} c_k t^(k - K) for the two series of domain D, by Horner;
-// the coefficients are read at compile time (constexpr), so each is an
-// immediate or a constant-bank operand of its FMA.
+// the coefficients are read at compile-time indices, so each is an
+// immediate of its FMA (float) or one constant-bank load (double).
 template <typename T, int D, int K = 0>
 __device__ __forceinline__ SiciParts<T> series(T t) {
   using S = SiciTables<T>;
-  constexpr T ca = S::coef(0, D, K);
-  constexpr T cb = S::coef(1, D, K);
-  if constexpr (K == S::ncoef - 1) {
+  const T ca = S::template coef<0, D, K>();
+  const T cb = S::template coef<1, D, K>();
+  if constexpr (K == S::len[D] - 1) {
     return {ca, cb};
   } else {
     const SiciParts<T> h = series<T, D, K + 1>(t);
@@ -125,8 +192,8 @@ __device__ __forceinline__ SiciParts<T> series(T t) {
 template <typename T, int N = 0>
 __device__ __forceinline__ SiciParts<T> asymptotic(T y) {
   using S = SiciTables<T>;
-  constexpr T cf = S::asy(0, N);
-  constexpr T cg = S::asy(1, N);
+  const T cf = S::template asy<0, N>();
+  const T cg = S::template asy<1, N>();
   if constexpr (N == S::nasy - 1) {
     return {cf, cg};
   } else {
@@ -141,8 +208,15 @@ __device__ __forceinline__ SiciParts<T> asymptotic(T y) {
 template <typename T, int D>
 __device__ __forceinline__ SiciParts<T> sici_domain(T x, T v) {
   if constexpr (D == 0) {
-    const T q = x * T(0.25);
-    return series<T, 0>(T(2) * (q * q) - T(1));
+    // t = 2 (x/4)^2 - 1.  In float64, whose pipe sets the pace, as one
+    // product and one FMA: the scalings by powers of two round nothing, so
+    // the bits are those of the three-operation form.
+    if constexpr (sizeof(T) == sizeof(double)) {
+      return series<T, 0>(fma(x * x, T(0.125), T(-1)));
+    } else {
+      const T q = x * T(0.25);
+      return series<T, 0>(T(2) * (q * q) - T(1));
+    }
   } else if constexpr (D == 3) {
     const T y = v * v;
     const SiciParts<T> fg = asymptotic<T>(y);

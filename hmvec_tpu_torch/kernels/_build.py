@@ -43,11 +43,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-# terms kept per precision: the float32 tier truncates the 24-term tables
-# at 16 (truncation < 1e-9, below float32 resolution) and the asymptotic
-# tails at 7 terms
-_NCOEF = {"F64": 24, "F32": 16}
-_NASY = {"F64": 13, "F32": 7}
+# Series terms kept per precision and Si/Ci domain (x <= 4, <= 10, <= 40),
+# and asymptotic-tail terms.  The tables are least-squares Chebyshev fits:
+# their coefficients fall to the fit's noise floor, a few 1e-15, at index
+# 11-12, 16-17 and 14-15 of the three domains, and the terms after that add
+# only that noise (cut there, each series stays within 2.4e-14 of its
+# 24-term sum on [-1, 1]).  The float64 tier stops at the floor; the
+# float32 tier at 16 terms (truncation < 1e-9, below float32 resolution)
+# and 7 tail terms.
+NCOEF = {"F64": (12, 17, 15), "F32": (16, 16, 16)}
+NASY = {"F64": 13, "F32": 7}
 
 _lock = threading.Lock()
 _lib = None
@@ -64,14 +69,18 @@ def sici_header() -> str:
     """Text of sici_coeffs.cuh, generated from ops/_sici_coeffs.py.
 
     Each domain's two Chebyshev series in t (A: Si/x or x f; B: Ci -
-    gamma - ln x or x^2 g), cut at the precision's length, are converted
-    to the coefficients of t^k (numpy's ``cheb2poly``, in float64), so that
-    the kernels evaluate them by Horner, one FMA per term; float32 values
-    are the float64 coefficients rounded.  The asymptotic tails' (-1)^n
-    (2n)! and (-1)^n (2n+1)! follow.  All sit in constexpr tables, read
-    through a constexpr accessor at compile-time indices only, so that every
-    coefficient compiles to an immediate or a constant-bank operand of its
-    FMA.  Values print with repr (shortest round-trip form)."""
+    gamma - ln x or x^2 g), cut at the precision's length for that domain
+    (``len``), are converted to the coefficients of t^k (numpy's
+    ``cheb2poly``, in float64; rows shorter than the widest are padded
+    with zeros that no kernel reads), so that the kernels evaluate them by
+    Horner, one FMA per term; float32 values are the float64 coefficients
+    rounded.  The asymptotic tails' (-1)^n
+    (2n)! and (-1)^n (2n+1)! follow.  The float32 tables are constexpr
+    and the float64 ones sit in constant memory; both are read through
+    accessors whose indices are template arguments, so that a float32
+    coefficient compiles to an immediate of its FMA and a float64 one to
+    one load from the constant bank.  Values print with repr (shortest
+    round-trip form)."""
     from ..ops import _sici_coeffs as sc
 
     out = ["// Generated by hmvec_tpu_torch/kernels/_build.py from",
@@ -82,28 +91,60 @@ def sici_header() -> str:
            "template <typename T> struct SiciTables;"]
     for tag, ctype, cast in (("F64", "double", np.float64),
                              ("F32", "float", np.float32)):
-        n, na = _NCOEF[tag], _NASY[tag]
-        poly = np.stack([
-            np.stack([cheb2poly(np.asarray(getattr(sc, f"SICI_{ab}{d}")[:n],
-                                           np.float64)) for d in range(3)])
-            for ab in ("A", "B")]).astype(cast)
+        lens, na = NCOEF[tag], NASY[tag]
+        n = max(lens)
+        poly = np.zeros((2, 3, n))
+        for s, ab in enumerate("AB"):
+            for d, length in enumerate(lens):
+                poly[s, d, :length] = cheb2poly(np.asarray(
+                    getattr(sc, f"SICI_{ab}{d}")[:length], np.float64))
+        poly = poly.astype(cast)
         fasy = np.asarray([(-1.0) ** i * math.factorial(2 * i)
                            for i in range(na)]).astype(cast)
         gasy = np.asarray([(-1.0) ** i * math.factorial(2 * i + 1)
                            for i in range(na)]).astype(cast)
+        const_bank = tag == "F64"
+        if const_bank:
+            # a float64 coefficient is no immediate of its FMA (the
+            # instruction holds 32 bits): out of a constexpr table each
+            # costs two integer moves, out of constant memory at a
+            # compile-time offset one uniform load, off the integer pipe
+            out += ["", "// poly[s][d][k]: series s (0 A, 1 B), domain d, "
+                    "coefficient of t^k",
+                    f"static __constant__ double kSiciPoly[2][3][{n}] = "
+                    f"{_c_list(poly)};",
+                    f"static __constant__ double kSiciAsy[2][{na}] = "
+                    f"{_c_list(np.stack([fasy, gasy]))};"]
         out += ["", f"template <> struct SiciTables<{ctype}> {{",
-                f"  static constexpr int ncoef = {n};",
                 f"  static constexpr int nasy = {na};",
-                "  // poly[s][d][k]: series s (0 A, 1 B), domain d, "
+                "  // series terms of each domain",
+                "  static constexpr int len[3] = "
+                f"{{{', '.join(map(str, lens))}}};"]
+        if const_bank:
+            out += ["  template <int S, int D, int K>",
+                    "  __device__ static __forceinline__ double coef() "
+                    "{ return kSiciPoly[S][D][K]; }",
+                    "  template <int S, int N>",
+                    "  __device__ static __forceinline__ double asy() "
+                    "{ return kSiciAsy[S][N]; }",
+                    "};"]
+            continue
+        out += ["  // poly[s][d][k]: series s (0 A, 1 B), domain d, "
                 "coefficient of t^k",
                 f"  static constexpr {ctype} poly[2][3][{n}] = "
                 f"{_c_list(poly)};",
                 f"  static constexpr {ctype} fasy[{na}] = {_c_list(fasy)};",
                 f"  static constexpr {ctype} gasy[{na}] = {_c_list(gasy)};",
-                f"  __host__ __device__ static constexpr {ctype} coef(int s, "
-                "int d, int k) { return poly[s][d][k]; }",
-                f"  __host__ __device__ static constexpr {ctype} asy(int s, "
-                "int n) { return s == 0 ? fasy[n] : gasy[n]; }",
+                "  template <int S, int D, int K>",
+                f"  __device__ static __forceinline__ {ctype} coef() {{",
+                f"    constexpr {ctype} c = poly[S][D][K];",
+                "    return c;",
+                "  }",
+                "  template <int S, int N>",
+                f"  __device__ static __forceinline__ {ctype} asy() {{",
+                f"    constexpr {ctype} c = S == 0 ? fasy[N] : gasy[N];",
+                "    return c;",
+                "  }",
                 "};"]
     out += ["", "}  // namespace hmvec"]
     return "\n".join(out) + "\n"

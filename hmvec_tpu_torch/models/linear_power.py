@@ -43,16 +43,23 @@ def _mnu_maybe_active(omnu0) -> bool:
 
 
 def plin_approx(bg, zs, ks, kind: str = "eisenhu_osc",
-                growth_mode: str = "closed", component: str = "total"):
+                growth_mode: str = "closed", component: str = "total",
+                growth_table=None):
     """Fully analytic linear P(k, z) in Mpc^3, shape (nz, nk).
 
     P = [8 pi^2 As c^4 / (25 (omm H0^2)^2)] (k/kp)^(ns-1) k D(z)^2 T(k)^2,
     times the EH99 suppression ratio squared when mnu > 0.
+
+    growth_mode: 'closed' (Heath/2F1, LCDM-exact) or 'ode' (any w0/wa),
+    which reads ``growth_table`` (``background.growth_table(bg)``; built
+    here when None, so a caller with several spectra of one background
+    builds it once and passes it).
     """
     zs = torch.atleast_1d(zs)
     tk = transfer_eh98(bg, ks, kind)[None, :]
     a = 1.0 / (1.0 + zs)
-    dz = bgmod.d_growth(bg, a, norm="anorm", mode=growth_mode)[:, None]
+    dz = bgmod.d_growth(bg, a, norm="anorm", mode=growth_mode,
+                        table=growth_table)[:, None]
     # omm*H0^2 including massive neutrinos
     omh2 = (bg.omch2 + bg.ombh2) * 100.0**2 + bg.omnu0 * bg.H0**2
     kfacts = (ks / bg.pivot_scalar) ** (bg.ns - 1.0) * ks
@@ -70,19 +77,21 @@ class EHEngine:
     name = "eh"
 
     def plin(self, bg, zs, ks, accuracy: str = "medium",
-             growth_mode: str = "closed", component: str = "total"):
+             growth_mode: str = "closed", component: str = "total",
+             growth_table=None):
         p = plin_approx(bg, zs, ks, growth_mode=growth_mode,
-                        component=component)
+                        component=component, growth_table=growth_table)
         if accuracy != "low":
             p = bg.as8**2 * p  # as8 knob applies on engine-normalized tiers
         return p
 
     def pzk_grid(self, bg, zs, ks, nonlinear: bool = False,
-                 growth_mode: str = "closed"):
+                 growth_mode: str = "closed", growth_table=None):
         if nonlinear:
             raise NotImplementedError(
                 "EHEngine has no nonlinear power")
-        return bg.as8**2 * plin_approx(bg, zs, ks, growth_mode=growth_mode)
+        return bg.as8**2 * plin_approx(bg, zs, ks, growth_mode=growth_mode,
+                                       growth_table=growth_table)
 
 
 def sigma2_k_grid(params):

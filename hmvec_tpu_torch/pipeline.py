@@ -16,8 +16,7 @@ the M200 conversion and the numeric Battaglia gas-profile transform, whose
 resample step runs a hand-written CUDA kernel on the card
 (ops/resample_kernels.py).
 
-Not ported yet: ``make_batched_fn``, the integrated w0/wa growth
-(``growth="ode"``), and the Limber, HOD and kSZ pipelines.
+Not ported yet: ``make_batched_fn`` and the Limber, HOD and kSZ pipelines.
 """
 
 from __future__ import annotations
@@ -47,8 +46,8 @@ def _growth_mode_from(overrides, setting: str) -> str:
     'auto': no w0/wa override -> the LCDM closed form.  A w0/wa that is
     differentiated (requires grad or carries a forward-mode tangent) or
     differs from the fiducial (-1, 0) -> 'ode', the integrated growing
-    mode: the closed form's dD/dw0 is identically zero.  'ode' is not
-    ported yet and raises NotImplementedError where it is used.
+    mode (background.growth_table): the closed form's dD/dw0 is
+    identically zero.  Pass 'closed' or 'ode' to force one.
     """
     if setting != "auto":
         return setting
@@ -135,17 +134,20 @@ def _stages(p, g: _Grids, mass_function, mdef, accuracy, engine,
     inputs (cs, rss) in place of uk."""
     bg = bgmod.background(p, g.device)
     zs, ks, ms = g.zs, g.ks, g.ms
+    # one growth table per call, shared by both linear spectra
+    growth = {"growth_mode": growth_mode,
+              "growth_table": (bgmod.growth_table(bg)
+                               if growth_mode == "ode" else None)}
 
     # linear power on the target grid
     if accuracy == "low":
-        pzk = lpm.plin_approx(bg, zs, ks, growth_mode=growth_mode)
+        pzk = lpm.plin_approx(bg, zs, ks, **growth)
     else:
-        pzk = engine.pzk_grid(bg, zs, ks, growth_mode=growth_mode)
+        pzk = engine.pzk_grid(bg, zs, ks, **growth)
 
     # sigma^2 -> mass function
     ks_s2, kw = g.sigma2_grid(p)
-    spzk = engine.plin(bg, zs, ks_s2, accuracy=accuracy,
-                       growth_mode=growth_mode)
+    spzk = engine.plin(bg, zs, ks_s2, accuracy=accuracy, **growth)
     rho_m0 = bgmod.rho_matter_z(bg, 0.0)
     R = mfm.R_from_M(ms, rho_m0, delta=1.0)
     sigma2 = lpm.sigma2_weighted(R, spzk, ks_s2, kw, p["Wkr_taylor_switch"])
@@ -193,7 +195,9 @@ def make_pmm_fn(zs, ks, ms, *, device, mass_function: str = "sheth-torman",
     static_params: build-time default overrides (e.g. sigma2_numks).
     uk_subsample: (ksplit, every) -- evaluate u(k) on a k grid thinned by
         ``every`` below ``ksplit`` and fill in by Catmull-Rom in ln k.
-    growth: 'auto', 'closed' or 'ode' (not ported yet: raises).
+    growth: 'auto' (the closed form unless w0/wa are overridden away from
+        (-1, 0) or differentiated, then the integrated growth), 'closed'
+        or 'ode'.
     """
     if fast not in (False, True, "exact"):
         raise ValueError(f"fast must be False, True or 'exact', got {fast!r}")
@@ -295,7 +299,7 @@ def make_electron_fn(zs, ks, ms, *, device, family: str = "AGN",
         kernel).  The port ties float32 sampling to ``fast``; the JAX
         package ties it to the backend (float32 on the TPU).  On the CPU
         both kernels run their plain versions.
-    growth: 'auto', 'closed' or 'ode' (not ported yet: raises).
+    growth: 'auto', 'closed' or 'ode', as in ``make_pmm_fn``.
     """
     if fast not in (False, True):
         raise ValueError(f"fast must be False or True, got {fast!r}")

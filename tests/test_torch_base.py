@@ -80,7 +80,7 @@ def test_generated_cuda_header_round_trips_tables():
     """sici_coeffs.cuh is generated from the port's table copy.  For each
     precision, each of the three domains and both series it holds the
     power-series form (in the Chebyshev variable t) of the table cut at the
-    precision's length: numpy's cheb2poly in float64, printed so that it
+    precision's length for that domain (zeros after it): numpy's cheb2poly in float64, printed so that it
     parses back to that value exactly (float64) or to its float32 rounding
     (float32), and evaluated it gives the Chebyshev series to the
     precision's rounding.  Then both asymptotic tails and Euler's gamma."""
@@ -91,27 +91,42 @@ def test_generated_cuda_header_round_trips_tables():
 
     text = _build.sici_header()
     t = np.linspace(-1.0, 1.0, 2001)
-    for ctype, dtype, n, na in (("double", np.float64, 24, 13),
-                                ("float", np.float32, 16, 7)):
+    for ctype, dtype, lens, na in (("double", np.float64, (12, 17, 15), 13),
+                                   ("float", np.float32, (16, 16, 16), 7)):
+        n = max(lens)
+        # the float64 tables sit in constant memory, ahead of their struct
         block = re.search(rf"struct SiciTables<{ctype}> {{(.*?)\n}};", text,
                           re.S).group(1)
+        block += text[:text.index("struct SiciTables<double>")]
         ints = dict(re.findall(r"static constexpr int (\w+) = (\d+);", block))
-        assert (int(ints["ncoef"]), int(ints["nasy"])) == (n, na)
+        assert int(ints["nasy"]) == na
+        assert re.search(r"static constexpr int len\[3\] = \{([0-9, ]+)\};",
+                         block).group(1) == ", ".join(map(str, lens))
         tabs = {name: np.array([float(v) for v in re.findall(
                     r"[-+0-9.e]+", body.replace("{", " ").replace("}", " "))])
                 for name, body in re.findall(
-                    rf"static constexpr {ctype} (\w+)\[[^=]*= (\{{.*?\}});",
-                    block, re.S)}
+                    rf"static (?:constexpr|__constant__) {ctype} (\w+)\[[^=]*= "
+                    rf"(\{{.*?\}});", block, re.S)}
+        if dtype == np.float64:
+            tabs["poly"] = tabs["kSiciPoly"]
+            tabs["fasy"], tabs["gasy"] = tabs["kSiciAsy"].reshape(2, na)
         poly = tabs["poly"].reshape(2, 3, n)
         for s_, ab in enumerate("AB"):
-            for d in range(3):
-                cheb = np.asarray(getattr(tsc, f"SICI_{ab}{d}")[:n])
+            for d, length in enumerate(lens):
+                table = np.asarray(getattr(tsc, f"SICI_{ab}{d}"))
+                cheb = table[:length]
                 want = C.cheb2poly(cheb).astype(dtype)
-                assert np.array_equal(poly[s_, d].astype(dtype), want)
-                assert np.array_equal(poly[s_, d], want.astype(np.float64))
-                err = np.abs(np.polynomial.polynomial.polyval(t, poly[s_, d])
+                got = poly[s_, d, :length]
+                assert not poly[s_, d, length:].any()
+                assert np.array_equal(got.astype(dtype), want)
+                assert np.array_equal(got, want.astype(np.float64))
+                err = np.abs(np.polynomial.polynomial.polyval(t, got)
                              - C.chebval(t, cheb)).max()
                 assert err <= (1e-14 if dtype == np.float64 else 1e-6)
+                # the terms left out are the fit's noise floor (float64)
+                # or below float32's resolution
+                cut = np.abs(C.chebval(t, cheb) - C.chebval(t, table)).max()
+                assert cut <= (3e-14 if dtype == np.float64 else 1e-8)
         for name, first in (("fasy", 0), ("gasy", 1)):
             want = [(-1.0) ** i * math.factorial(2 * i + first)
                     for i in range(na)]

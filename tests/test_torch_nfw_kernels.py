@@ -33,6 +33,17 @@ def _chip_smoke():
     return mod
 
 
+def _emulator():
+    """tools/emulate_torch_nfw_fast.py as a module: the kernels' arithmetic
+    in numpy."""
+    path = (pathlib.Path(__file__).resolve().parents[1] / "tools"
+            / "emulate_torch_nfw_fast.py")
+    spec = importlib.util.spec_from_file_location("emulate_nfw", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.fixture(autouse=True)
 def _two_threads():
     old = torch.get_num_threads()
@@ -250,16 +261,21 @@ def test_nfw_ops_counts_no_clenshaw_above_40(monkeypatch):
     costs the asymptotic tail alone, whatever the series' length; one at
     or below 40 pays an FMA (2 operations) per term of each of its two
     series."""
+    from hmvec_tpu_torch.kernels import _build
+
     cs = _chip_smoke()
     x = _t([0.5, 4.0, 7.0, 10.0, 39.0, 40.0, 40.5, 1e3])
     for prec in ("f32", "f64"):
+        tag = prec.upper()
         base = cs._sici_ops(x, prec)
-        monkeypatch.setitem(cs.NCOEF, prec, cs.NCOEF[prec] + 100)
+        monkeypatch.setitem(_build.NCOEF, tag,
+                            tuple(n + 100 for n in _build.NCOEF[tag]))
         longer = cs._sici_ops(x, prec)
         above = x > 40.0
         assert torch.equal(longer[above], base[above])
         assert torch.all(longer[~above] - base[~above] == 400)
-        assert torch.all(base[above] == 1 + 3 + 4 * (cs.NASY[prec] - 1))
+        assert torch.all(base[above] == cs.RCP_OPS[prec] + 3
+                         + 4 * (_build.NASY[tag] - 1))
 
 
 def test_nfw_ops_splits_f32_and_f64_by_tier():
@@ -273,7 +289,9 @@ def test_nfw_ops_splits_f32_and_f64_by_tier():
     fast = cs.nfw_ops(ks, s, c, "fast")
     exact = cs.nfw_ops(ks, s, c, "exact")
     assert set(fast) == {"f32", "f64"} and set(exact) == {"f64"}
-    assert fast["f64"] == 8 * n_el + cs.ROW_OPS_F64 * s.numel()
+    # x, x2 and per sin/cos an FMA, a subtraction and an FMA (an FMA
+    # counts 2)
+    assert fast["f64"] == (2 + 2 * 5) * n_el + cs.ROW_OPS_F64 * s.numel()
     assert exact["f64"] > fast["f64"] + fast["f32"]
 
 
@@ -335,12 +353,55 @@ def test_sass_counts_splits_body_and_cold_subroutines():
     assert not contract["cold"]
 
 
+EMULATED_CASES = ("config1", "adversarial", "phase3.7e4", "phase3.7e7",
+                  "edges", "domain_edges")
+
+
+@pytest.mark.parametrize("case", EMULATED_CASES)
+def test_exact_tier_emulation_within_budget(case):
+    """The float64 kernel's arithmetic, repeated in numpy (two-part pi/2
+    reduction, sin/cos polynomials, seeded Newton reciprocal, each series
+    cut at its table's noise floor), stays within 1e-12 on u of the plain
+    version and of a u assembled from scipy's sici, at the config-1 inputs
+    and on every adversarial case that the card run checks."""
+    em = _emulator()
+    if case == "config1":
+        ks, scales, cs, _, _ = em.config1_inputs()
+        rows = ks, scales.reshape(-1), cs.reshape(-1)
+    else:
+        rows = {name: arrays for name, *arrays in em.adversarial_cases()}[case]
+    err = em.exact_errors(*rows)
+    assert err["vs_plain"] <= em.EXACT_BUDGET
+    assert err["vs_scipy"] <= em.EXACT_BUDGET
+    assert err["sincos"] <= 2.5e-16
+
+
+def test_exact_tier_emulation_parts():
+    """sin/cos of the reduction stay at float64 rounding far beyond the
+    pipeline's phases; the reciprocal is good to an ulp over the whole
+    range of x; and the log branch holds about a tenth of config 1."""
+    em = _emulator()
+    rng = np.random.default_rng(11)
+    for top in (1e2, 1e5, 1e9, 1e12):
+        x = rng.uniform(0.0, top, 50_000)
+        s, c = em.sincos_phase_f64(x)
+        assert np.abs(s - np.sin(x)).max() <= 2.5e-16
+        assert np.abs(c - np.cos(x)).max() <= 2.5e-16
+    x = np.exp(rng.uniform(np.log(1e-300), np.log(1e300), 50_000))
+    assert np.abs(em.rcp_newton(x) * x - 1.0).max() <= 2.5e-16
+    x = np.array([[1.0, 3.0, 5.0] + [9.0] * 30])
+    el, warps = em.log_branch_share(x, 2.0 * x)
+    assert el == 1.0 / 33.0 and warps == 0.5
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
     """Each CUDA kernel against its plain version on the card, on the
     sweeps above, the Si/Ci domain edges (chip_smoke.domain_edges) and at
     the config-1 shape (4,000 rows x 1,001 k): exact <= 2e-7 and fast
-    <= 5e-6 absolute on u.  The contraction computes u in float32, as the
+    <= 5e-6 absolute on u; the exact tier, float64 throughout, is also
+    held to the 1e-12 it is designed to, up to phases of 3.7e7
+    (chip_smoke.adversarial_rows).  The contraction computes u in float32, as the
     TPU kernel it ports does, and sums in float64: <= 2e-5 relative on S1
     and S2 (that kernel's own gate), and the same bits on a second call."""
     if not torch.cuda.is_available():
@@ -350,6 +411,8 @@ def test_kernels_match_plain_on_card():
     cases = [(_t(ks, dev), *(_t(v, dev) for v in _rows(zs, cs, rss)))
              for _, zs, cs, rss, ks in SWEEPS]
     cases.append(tuple(_t(v, dev) for v in _chip_smoke().domain_edges()))
+    cases += [row[1:] for row in _chip_smoke().adversarial_rows(dev)
+              if row[0].startswith("phase")]
     cases.append((_t(np.geomspace(1e-4, 100, 1001), dev),
                   _t(rng.uniform(0.003, 12.0, 4000), dev),
                   _t(rng.uniform(1.2, 30.0, 4000), dev)))
@@ -360,7 +423,10 @@ def test_kernels_match_plain_on_card():
             u = wrapper(ks, scales, cs)
             torch.cuda.synchronize()
             assert u.is_cuda and wrapper.launches == n0 + 1
-            assert (u.double() - ref).abs().max().item() <= gate
+            err = (u.double() - ref).abs().max().item()
+            assert err <= gate
+            if wrapper is nk.nfw_uk_exact:
+                assert err <= 1e-12
     ks = _t(np.geomspace(1e-4, 100, 1001), dev)
     shape = (20, 200)
     s, c = _t(rng.uniform(0.003, 12.0, shape), dev), \

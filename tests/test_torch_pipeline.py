@@ -126,9 +126,12 @@ def test_growth_mode_resolution():
     assert gm({"wa": torch.tensor(0.0, dtype=torch.float64,
                                   requires_grad=True)}, "auto") == "ode"
     assert gm({"w0": -0.9}, "closed") == "closed"
+    # a w0/wa cosmology gets the integrated growth, not the LCDM answer
     fn = tpipe.make_pmm_fn(ZS[:2], KS[::16], MS[::8], device="cpu")
-    with pytest.raises(NotImplementedError):
-        fn({"w0": -0.9})          # no LCDM answer for a w0/wa cosmology
+    jfn = jpipe.make_pmm_fn(ZS[:2], KS[::16], MS[::8], fast=False)
+    out = fn({"w0": -0.9}).numpy()
+    assert _rel(out, np.asarray(jfn({"w0": jnp.asarray(-0.9)}))) <= 1e-10
+    assert _rel(out, fn({}).numpy()) > 1e-3
 
 
 def test_unsupported_options_raise():

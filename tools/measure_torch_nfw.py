@@ -2,6 +2,7 @@
 
     python3 tools/measure_torch_nfw.py --roots PARENT . . PARENT
     python3 tools/measure_torch_nfw.py --floors [--out floors.json]
+                                       [--sass-out probes.sass]
 
 --roots DIR [DIR ...]: for each checkout in the order given, one process
     that builds that checkout's kernels and times, by CUDA-graph replay at
@@ -28,6 +29,11 @@
     the kernel's instructions; warps that straddle a domain edge, which
     run two bodies, are counted at one (their share is printed).  The
     contraction kernel's floor counts its float32 u evaluations alone.
+    Beside it, the float64-pipe floor: an SM has 64 float64 lanes, two
+    warp-instructions per clock, so the float64 arithmetic instructions
+    per element (DFMA, DMUL, DADD, DSETP, DMNMX) times the elements, over
+    132 SMs x 2 x 32 lanes x the clock.  The larger of the two is the
+    kernel's floor.  --sass-out FILE keeps the probes' disassembly.
 
 Run from the repository root on a machine with a CUDA card.
 """
@@ -50,6 +56,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PROBE = ROOT / "tools" / "torch_nfw_probe.cu"
 ISSUE_PER_CLOCK = 4   # warp-instructions per SM per clock
+FP64_PER_CLOCK = 2    # of them float64 arithmetic: 64 lanes per SM
 WARP = 32
 
 
@@ -149,7 +156,7 @@ def _domains(x):
             + (x > 40.0).to(torch.int64))
 
 
-def floors() -> dict:
+def floors(sass_out=None) -> dict:
     """Issue-rate floors of this checkout's NFW kernels (see above)."""
     sys.path.insert(0, str(ROOT))
     from hmvec_tpu_torch.kernels import _build
@@ -166,6 +173,9 @@ def floors() -> dict:
               "-o", str(cubin), str(PROBE)], 600)
         sass = _run([str(pathlib.Path(nvcc).with_name("cuobjdump")), "-sass",
                      str(cubin)], 120)
+    if sass_out:
+        pathlib.Path(sass_out).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(sass_out).write_text(sass)
     probes = {}
     for name, regions in cs_mod.sass_counts(sass).items():
         m = re.search(r"nfw_u_probeI([fd])Li(\d)ELi(\d)E", name)
@@ -208,8 +218,10 @@ def floors() -> dict:
             return lo != w.amax(-1)
 
         divergent = (mixed(w1) | mixed(w2)).double().mean().item()
-        floor_ms = total / WARP / (n_sm * ISSUE_PER_CLOCK * clock_mhz * 1e6) \
-            * 1e3
+        warp_clocks_per_ms = n_sm * clock_mhz * 1e3
+        floor_ms = total / WARP / (ISSUE_PER_CLOCK * warp_clocks_per_ms)
+        fp64_ms = per_class["fp64"] / WARP / (FP64_PER_CLOCK
+                                              * warp_clocks_per_ms)
         report[kernel] = {
             "elements": n_el,
             "instructions_per_element": total / n_el,
@@ -217,10 +229,12 @@ def floors() -> dict:
                                      sorted(per_class.items())},
             "divergent_warp_share": divergent,
             "issue_floor_ms": floor_ms,
+            "fp64_pipe_floor_ms": fp64_ms,
         }
         print(f"[floor] {kernel}: {total / n_el!r} SASS instructions per "
               f"element ({ {k: round(v / n_el, 2) for k, v in sorted(per_class.items())} }), "
-              f"{n_el} elements, issue floor {floor_ms!r} ms at "
+              f"{n_el} elements, issue floor {floor_ms!r} ms, float64-pipe "
+              f"floor {fp64_ms!r} ms at "
               f"{clock_mhz} MHz x {n_sm} SMs; warps straddling a domain "
               f"edge {divergent!r} ({report['card']})")
     return report
@@ -231,6 +245,8 @@ def main() -> int:
     parser.add_argument("--roots", nargs="+", type=pathlib.Path)
     parser.add_argument("--floors", action="store_true")
     parser.add_argument("--out", help="write the results as JSON here")
+    parser.add_argument("--sass-out",
+                        help="with --floors: write the probes' SASS here")
     parser.add_argument("--time-root", type=pathlib.Path,
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -254,7 +270,7 @@ def main() -> int:
                       f"ms (CUDA-graph replays of 25 calls; {run['card']})")
         results["roots"] = runs
     if args.floors:
-        results["floors"] = floors()
+        results["floors"] = floors(args.sass_out)
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(results, indent=1))

@@ -9,7 +9,9 @@ off), then traces one call with torch.profiler and reports the device time
 summed over the call's kernels, the device's busy share of the unprofiled
 wall time, the number of kernel launches, the number of host-device
 synchronisations (scalar reads of device tensors), and the kernels that
-took the most device time.
+took the most device time.  The exact path is measured once more as
+"exact_ode": the same function at (w0, wa) = (-1.1, 0.3), which takes the
+integrated growth (background.growth_table) in place of the closed form.
 
 For the electron tiers it then runs the call's layers one at a time --
 the halo-model stages through the NFW profile, the M200 bisection, the
@@ -41,6 +43,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PATHS = {"plain": {"fast": False}, "exact": {"fast": "exact"},
          "fast": {"fast": True}, "fused": {"fused_serving": True}}
 E_PATHS = {"electron_plain": False, "electron_fast": True}
+W0WA = {"w0": -1.1, "wa": 0.3}     # a cosmology on the integrated growth
 NXS, XMAX = 4096, 20.0
 
 
@@ -102,9 +105,11 @@ def main() -> int:
                                           device=dev, nxs=NXS, xmax=XMAX,
                                           fast=fast)
                 for path, fast in E_PATHS.items()})
-    for path, fn in fns.items():
-        wall, walls = _median_wall_ms(lambda: fn(ov))
-        _, prof = _trace(lambda: fn(ov))
+    calls = {path: (fn, ov) for path, fn in fns.items()}
+    calls["exact_ode"] = (fns["exact"], {**ov, **W0WA})
+    for path, (fn, ov_) in calls.items():
+        wall, walls = _median_wall_ms(lambda: fn(ov_))
+        _, prof = _trace(lambda: fn(ov_))
         kernels = _kernels(prof)
         device_ms = sum(_device_us(e) for e in kernels) / 1e3
         d2h = sum(1 for e in prof.events()
