@@ -17,8 +17,20 @@ A growth_ode phase then drives config 1 on the integrated w0/wa growth
 the Jacobian over (omch2, w0, wa), the launches of one growth table, and
 an ode call's latency beside a closed-form call's.
 
-It differentiates both paths, and times the kernels and the end-to-end
-calls.
+A batch phase drives pipeline.make_batched_fn on the batch-serving lines
+of bench.py -- b16 (16 cosmologies, fast tier, float64 out), bN (128
+cosmologies, fast tier, sigma^2 on 1,250 k, u(k) thinned below k = 0.2,
+float32 out) and bNf (the same through the fused tier) -- and on a plain
+and an exact B = 16 batch and a B = 2 electron batch: chosen rows against
+a JAX golden file, every row against the port's own single call, one
+launch of each NFW kernel per batched call, the launches of a batched
+call beside a single call's, latency per cosmology and peak memory.  The
+hod and limber phases drive config 3, make_hod_fn (Pgg, Pgm; ngal 1e-4
+per z), and config 4, make_lensing_cls_fn (C_kk at 60 ells, Pmm; source
+at z = 1100), plain and fast, against their golden files.
+
+It differentiates both paths, and times the kernels, at one cosmology's
+shapes and at the batches', and the end-to-end calls.
 Each path is driven with every kernel's launch count set to 0 just before
 it and read just after.  Every gate that fails raises, so the script exits
 nonzero and prints no result.
@@ -67,6 +79,9 @@ DATA = ROOT / "hmvec_tpu_torch" / "data"
 GOLDEN = DATA / "pmm_config1_golden.npz"
 GOLDEN_E = DATA / "electron_config2_golden.npz"
 GOLDEN_W = DATA / "pmm_config1_w0wa_golden.npz"
+GOLDEN_B = DATA / "pmm_batch_golden.npz"
+GOLDEN_H = DATA / "hod_config3_golden.npz"
+GOLDEN_L = DATA / "lensing_config4_golden.npz"
 
 # kernel vs plain version on the card (absolute on u; relative on S1, S2;
 # the resample kernel repeats the plain version's float64 operations in
@@ -90,6 +105,23 @@ GATE_JAC_REL = 1e-6
 GATE_ODE_VS_CLOSED = 1e-7
 MAX_GROWTH_TABLE_LAUNCHES = 2500
 ODE_PATHS = ("plain", "exact", "fused")
+# configs 3 and 4 against their golden files, by NFW tier
+GATE_TIER = {"plain": 1e-10, "fast": 1e-5}
+# a batched call against the port's own single calls, row by row: the same
+# arithmetic per element, whatever the batch
+GATE_BATCH_VS_SINGLE = 1e-12
+# the serving options of bench.py's bN and bNf lines
+SERVING = {"static_params": {"sigma2_numks": 1250}, "uk_subsample": (0.2, 4)}
+# batch line: (theta and golden rows of, make_pmm_fn options, gate against
+# the golden rows, float32 output, the NFW kernel it must launch once)
+BATCH_LINES = {
+    "b16": ("b16", {"fast": True}, 1e-5, False, "nfw_uk_fast"),
+    "b16_plain": ("b16", {"fast": False}, 1e-10, False, None),
+    "b16_exact": ("b16", {"fast": "exact"}, 1e-7, False, "nfw_uk_exact"),
+    "bN": ("bN", {"fast": True, **SERVING}, 1e-5, True, "nfw_uk_fast"),
+    "bNf": ("bN", {"fused_serving": True, **SERVING}, 1e-5, True,
+            "nfw_contract"),
+}
 PATHS = {"plain": {"fast": False}, "exact": {"fast": "exact"},
          "fast": {"fast": True}, "fused": {"fused_serving": True}}
 E_PATHS = {"electron_plain": {"fast": False}, "electron_fast": {"fast": True}}
@@ -97,15 +129,17 @@ E_PATHS = {"electron_plain": {"fast": False}, "electron_fast": {"fast": True}}
 # launch it
 KERNEL_ROWS = (
     ("nfw_uk_fast", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:321",
-     ("fast", "electron_fast")),
+     ("fast", "electron_fast", "b16", "bN", "hod_fast", "limber_fast")),
     ("nfw_uk_exact", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:800",
-     ("exact", "ode_exact")),
+     ("exact", "ode_exact", "b16_exact")),
     ("nfw_contract", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:388",
-     ("fused", "ode_fused")),
+     ("fused", "ode_fused", "bNf")),
     ("pair_lerp_f64", "resample_kernels",
-     "hmvec_tpu/ops/pallas_resample.py:110", ("electron_plain",)),
+     "hmvec_tpu/ops/pallas_resample.py:110",
+     ("electron_plain", "electron_plain_b2")),
     ("pair_lerp_f32", "resample_kernels",
-     "hmvec_tpu/ops/pallas_resample.py:110", ("electron_fast",)),
+     "hmvec_tpu/ops/pallas_resample.py:110",
+     ("electron_fast", "electron_fast_b2")),
 )
 SOURCE = {"nfw_kernels": "hmvec_tpu_torch/csrc/nfw_kernels.cu",
           "resample_kernels": "hmvec_tpu_torch/csrc/resample_kernels.cu"}
@@ -541,17 +575,23 @@ def main() -> int:
                   f"max abs err {e!r} (gate {GATE_LERP})")
 
     # ---- phase 3: both main paths at full width vs the golden files -----
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        return {name: w.launches for name, w in wrappers.items()}
+
     def drive(path, fn, want, gate, cosmos=cosmos, vary=("omch2", "As")):
         """Run one path for every cosmology with the launch counts set to
         0 just before and read just after; returns the counts."""
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counts()
         for i, ov in enumerate(cosmos):
             out = fn(ov)
             torch.cuda.synchronize()
             outs = out if isinstance(out, tuple) else (out,)
             for key, o in zip(want, outs):
-                check(o.is_cuda and o.shape == (zs.size, ks_np.size)
+                check(o.is_cuda and o.shape == want[key][i].shape
                       and o.dtype == torch.float64, f"{path} {key} output")
                 got = o.cpu().numpy()
                 check(bool(np.all(np.isfinite(got))), f"{path} {key} finite")
@@ -560,7 +600,7 @@ def main() -> int:
                 what = ", ".join(f"{k}={ov[k]}" for k in vary)
                 print(f"[e2e] {path} {key} cosmology {i} ({what}): max rel "
                       f"err vs golden {e!r} (gate {gate})")
-        counts = {name: w.launches for name, w in wrappers.items()}
+        counts = read_counts()
         print(f"[e2e] {path}: launches over {len(cosmos)} calls: {counts}")
         return counts
 
@@ -627,9 +667,6 @@ def main() -> int:
         launches[f"ode_{p}"] = drive(f"growth_ode {p}", fn,
                                      {"pmm": gw["pmm"]}, GATE_PMM[p],
                                      cosmos=cosmos_w, vary=("w0", "wa"))
-    for name, _, _, paths in KERNEL_ROWS:
-        for path in paths:
-            check(launches[path][name] > 0, f"{name} launched on {path}")
     e = ((ode_fns["plain"](cosmos[0]) / fns["plain"](cosmos[0]) - 1.0)
          .abs().max().item())
     check(e <= GATE_ODE_VS_CLOSED, f"growth ode vs closed at LCDM: {e!r}")
@@ -690,6 +727,141 @@ def main() -> int:
           f"'ode' / 'ode' / 'closed': {t_closed!r} / {t_ode!r} / {t_ode2!r} "
           f"/ {t_closed2!r} ms per call (host clock to synchronize, median "
           f"of 10 each) ({card})")
+
+    # ---- phase 4c: batch serving (make_batched_fn) ------------------------
+    gb = np.load(GOLDEN_B)
+    for key in ("zs", "ks", "ms"):
+        check(np.array_equal(g[key], gb[key]), f"golden files share {key}")
+    names_b = tuple(gb["param_names"].tolist())
+    single_fns = {"b16": fns["fast"], "b16_plain": fns["plain"],
+                  "b16_exact": fns["exact"]}
+
+    def rel_rows(got, want):
+        """Max relative difference of got (tensor) and want, over all."""
+        return (got.double() / want - 1.0).abs().max().item()
+
+    batch_stats = {}
+    for line, (tkey, kw, gate, f32_out, kernel) in BATCH_LINES.items():
+        theta_np = gb[f"theta_{tkey}"]
+        nb = theta_np.shape[0]
+        fn1 = single_fns.get(line) or pl.make_pmm_fn(zs, ks_np, ms,
+                                                     device=dev, **kw)
+        bfn = pl.make_batched_fn(
+            fn1, names_b, out_dtype=torch.float32 if f32_out else None)
+        bfn(theta_np[:2])                      # warm up at a small batch
+        torch.cuda.synchronize()
+        # the main path of this line: counts set to 0 just before, read
+        # just after
+        reset_counts()
+        out = bfn(theta_np)
+        torch.cuda.synchronize()
+        launches[line] = read_counts()
+        check(out.is_cuda and out.shape == (nb, zs.size, ks_np.size)
+              and out.dtype == (torch.float32 if f32_out else torch.float64)
+              and bool(torch.isfinite(out).all()), f"{line} output")
+        want_kernels = {name: int(name == kernel) for name in wrappers}
+        check(launches[line] == want_kernels,
+              f"{line}: one launch of {kernel} for the whole batch, got "
+              f"{launches[line]}")
+        rows_g = gb[f"rows_{tkey}"]
+        want = torch.as_tensor(gb[f"pmm_{tkey}"], device=dev)
+        e_gold = rel_rows(out[torch.as_tensor(rows_g, device=dev)], want)
+        check(e_gold <= gate, f"{line} rows {rows_g.tolist()} vs golden: "
+              f"{e_gold!r} > {gate}")
+        # every row against the port's own single call at that cosmology
+        # (in float64: a float32 line is the cast of the same batch)
+        out64 = pl.make_batched_fn(fn1, names_b)(theta_np) if f32_out else out
+        if f32_out:
+            check(torch.equal(out64.to(torch.float32), out),
+                  f"{line}: the float32 output is the float64 batch, cast")
+        e_single = max(rel_rows(out64[i], fn1(dict(zip(names_b, row))))
+                       for i, row in enumerate(theta_np.tolist()))
+        check(e_single <= GATE_BATCH_VS_SINGLE,
+              f"{line} vs single calls: {e_single!r}")
+        if line == "bNf":
+            again = bfn(theta_np)
+            check(torch.equal(again, out), "bNf repeats bit for bit")
+            del again
+        del out64, want
+        ov0 = dict(zip(names_b, theta_np[0].tolist()))
+        n_single, sync_single = traced(lambda: fn1(ov0))
+        n_batch, sync_batch = traced(lambda: bfn(theta_np))
+        check(n_batch < 2 * n_single and sync_batch <= sync_single,
+              f"{line}: a batched call is {n_batch} launches and "
+              f"{sync_batch} host reads, a single call {n_single} and "
+              f"{sync_single}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_batch = host_ms(lambda: bfn(theta_np), n=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        t_single = host_ms(lambda: fn1(ov0), n=5, warmup=1)
+        batch_stats[line] = {"B": nb, "ms": t_batch, "ms_per_cosmology":
+                             t_batch / nb, "single_ms": t_single,
+                             "launches": n_batch, "single_launches": n_single,
+                             "peak_mib": peak}
+        print(f"[batch] {line} (B = {nb}, {kw}, out "
+              f"{str(out.dtype).split('.')[-1]}): rows {rows_g.tolist()} vs "
+              f"golden max rel err {e_gold!r} (gate {gate}); every row vs "
+              f"its single call {e_single!r} (gate {GATE_BATCH_VS_SINGLE}); "
+              f"kernel launches of the batched call {launches[line]}; "
+              f"{n_batch} launches and {sync_batch} host reads per batched "
+              f"call, {n_single} and {sync_single} per single call "
+              f"(torch.profiler); {t_batch!r} ms per batch = "
+              f"{t_batch / nb!r} ms per cosmology, a single call "
+              f"{t_single!r} ms (host clock to synchronize, median of 5); "
+              f"peak {peak:.1f} MiB allocated ({card})")
+        del out
+    # a small electron batch, through the resample kernel's vmap rule
+    theta_e = gb["theta_b16"][[0, 15]]
+    for path, fn in efns.items():
+        bfn = pl.make_batched_fn(fn, names_b)
+        reset_counts()
+        outs = bfn(theta_e)
+        torch.cuda.synchronize()
+        launches[f"{path}_b2"] = read_counts()
+        lerp = "pair_lerp_f32" if path == "electron_fast" else "pair_lerp_f64"
+        check(launches[f"{path}_b2"][lerp] == 1,
+              f"{path} batched: one launch of {lerp}")
+        e = max(rel_rows(o[i], s_)
+                for i, row in enumerate(theta_e.tolist())
+                for o, s_ in zip(outs, fn(dict(zip(names_b, row)))))
+        check(e <= GATE_BATCH_VS_SINGLE, f"{path} batched vs single: {e!r}")
+        print(f"[batch] {path} (B = 2): every row vs its single call {e!r} "
+              f"(gate {GATE_BATCH_VS_SINGLE}); kernel launches of the "
+              f"batched call {launches[f'{path}_b2']}")
+        del outs
+    torch.cuda.empty_cache()
+
+    # ---- phase 4d: config 3 (HOD) and config 4 (Limber) -------------------
+    gh, gl = np.load(GOLDEN_H), np.load(GOLDEN_L)
+    for key in ("zs", "ks", "ms", "param_values"):
+        check(np.array_equal(g[key], gh[key]) and np.array_equal(g[key], gl[key]),
+              f"golden files share {key}")
+    cfns = {}
+    for tier, fast in (("plain", False), ("fast", True)):
+        cfns[f"hod_{tier}"] = (
+            pl.make_hod_fn(zs, ks_np, ms, gh["ngal"], device=dev, fast=fast),
+            {"pgg": gh["pgg"], "pgm": gh["pgm"]})
+        cfns[f"limber_{tier}"] = (
+            pl.make_lensing_cls_fn(zs, ks_np, ms, gl["ells"],
+                                   float(gl["zsource"]), device=dev,
+                                   fast=fast),
+            {"ckk": gl["ckk"], "pmm": gl["pmm"]})
+    for path, (fn, want) in cfns.items():
+        launches[path] = drive(path, fn, want,
+                               GATE_TIER[path.split("_")[1]])
+    for path, (fn, _) in cfns.items():
+        n_l, n_sync = traced(lambda: fn(cosmos[0]))
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_ms = host_ms(lambda: fn(cosmos[0]))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        print(f"[time] {path} at 20x200x1001: {t_ms!r} ms per call (host "
+              f"clock to synchronize, median of 10), {n_l} launches and "
+              f"{n_sync} host reads per call (torch.profiler), peak "
+              f"{peak:.1f} MiB allocated ({card})")
+    for name, _, _, paths in KERNEL_ROWS:
+        for path in paths:
+            check(launches[path][name] > 0, f"{name} launched on {path}")
 
     # ---- phase 5: times on the card --------------------------------------
     # each timed call: its device time from CUDA-graph replays (device_ms)
@@ -772,6 +944,75 @@ def main() -> int:
               f"{per_call[name][1]!r} ms (CUDA events, median of 25); bound "
               f"{bounds[name][0]!r} ms by {bounds[name][1]} "
               f"({work[name][0]} bytes, ops {work[name][1]}) ({card})")
+
+    # the NFW kernels at the shapes the batch lines give them: the inputs
+    # of every cosmology of the batch, folded as the wrappers' vmap rules
+    # fold them (rows for nfw_uk, z for nfw_contract)
+    def batch_inputs(theta_np):
+        per = [pl.nfw_stage_inputs(zs, ks_np, ms, dict(zip(names_b, row)),
+                                   device=dev)[1:]
+               for row in theta_np.tolist()]
+        return [torch.cat(x).contiguous() for x in zip(*per)]
+
+    kq = pl._Grids(zs, ks_np, ms, merge_params(), SERVING["uk_subsample"],
+                   dev).kq
+    batch_rows = collections.defaultdict(list)
+    for line, k_ in (("b16", ks), ("b16_exact", ks), ("bN", kq), ("bNf", kq)):
+        kernel = BATCH_LINES[line][4]
+        s_b, c_b, a_b, b_b = batch_inputs(gb[f"theta_{BATCH_LINES[line][0]}"])
+        flat_s, flat_c = s_b.reshape(-1), c_b.reshape(-1)
+        n_el = flat_s.numel() * k_.numel()
+        # the plain version holds some 35 temporaries of the output's size:
+        # it runs on slices of at most 64,000 rows (one b16), one after
+        # the other, and its time is the sum over the slices
+        n_cut = -(-flat_s.numel() // 64000)
+        if kernel == "nfw_contract":
+            kern = lambda: nk.nfw_contract(k_, s_b, c_b, a_b, b_b)
+            plain = lambda: [torch.cat(x) for x in zip(*(
+                nk.nfw_contract_plain(k_, *cut) for cut in zip(
+                    *(t.chunk(n_cut) for t in (s_b, c_b, a_b, b_b)))))]
+            got, ref = kern(), plain()
+            e = max(((x - y).abs() / y.abs()).max().item()
+                    for x, y in zip(got, ref))
+            gate_b = GATE_CONTRACT_REL
+            ops_b = nfw_ops(k_, flat_s, flat_c, "fast")
+            ops_b["f64"] += 5 * n_el + 2 * 8 * s_b.shape[0] * k_.numel()
+            nbytes = (8 * (k_.numel() + 4 * flat_s.numel())
+                      + 16 * s_b.shape[0] * k_.numel())
+        else:
+            tier = "fast" if kernel == "nfw_uk_fast" else "exact"
+            kern = lambda: wrappers[kernel](k_, flat_s, flat_c)
+            plain = lambda: torch.cat([
+                nk.nfw_uk_plain(k_, s_, c_) for s_, c_ in zip(
+                    flat_s.chunk(n_cut), flat_c.chunk(n_cut))])
+            e = (kern().double() - plain()).abs().max().item()
+            gate_b = GATE_UK[tier]
+            ops_b = nfw_ops(k_, flat_s, flat_c, tier)
+            nbytes = (8 * (k_.numel() + 2 * flat_s.numel())
+                      + (4 if tier == "fast" else 8) * n_el)
+        torch.cuda.synchronize()
+        check(e <= gate_b, f"{kernel} at {line}'s shape: {e!r} > {gate_b}")
+        torch.cuda.empty_cache()
+        t_k = device_ms(kern)
+        t_p = event_ms(plain, n=2, warmup=1)
+        b_ms, b_by = bound(nbytes, ops_b)
+        shape = (f"{s_b.shape[0]} x {s_b.shape[1]} x {k_.numel()}"
+                 if kernel == "nfw_contract"
+                 else f"{flat_s.numel()} x {k_.numel()}")
+        batch_rows[kernel].append(
+            {"line": line, "shape": shape, "max_err": e, "ms": t_k,
+             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+             "launches": launches[line][kernel]})
+        print(f"[time] {kernel} at {line}'s shape {shape}: {t_k!r} ms "
+              f"(device time, CUDA-graph replays of 25 calls), plain version "
+              f"{t_p!r} ms (CUDA events, median of 2, in {n_cut} slices of "
+              f"rows), bound {b_ms!r} ms by "
+              f"{b_by} ({nbytes} bytes, ops {ops_b}), time / bound "
+              f"{t_k / b_ms!r}; max err vs the plain version {e!r} (gate "
+              f"{gate_b}); {launches[line][kernel]} launch per batched call "
+              f"({card})")
+        del s_b, c_b, a_b, b_b, flat_s, flat_c
+        torch.cuda.empty_cache()
     for path, fn in {**fns, **efns}.items():
         torch.cuda.reset_peak_memory_stats(dev)
         t_ms = host_ms(lambda: fn(cosmos[0]))
@@ -793,9 +1034,12 @@ def main() -> int:
             row["gather_ms"] = gather_ms[name]
         if name in bare_ms:
             row["bare_ms"] = bare_ms[name]
+        if name in batch_rows:
+            row["batch"] = batch_rows[name]
         kernels.append(row)
     check(all(math.isfinite(k["ms"]) and math.isfinite(k["plain_ms"])
               and math.isfinite(k["bound_ms"]) for k in kernels), "timings")
+    print("[batch] " + json.dumps(batch_stats))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

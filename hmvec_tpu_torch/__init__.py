@@ -8,6 +8,7 @@ numeric profile transform have hand-written CUDA kernels for Hopper
 (``ops.nfw_kernels``, ``ops.resample_kernels``; sources in ``csrc/``),
 built with nvcc at first use.
 
-Entry points: ``hmvec_tpu_torch.pipeline.make_pmm_fn`` and
-``make_electron_fn``.
+Entry points, in ``hmvec_tpu_torch.pipeline``: ``make_pmm_fn``,
+``make_electron_fn``, ``make_hod_fn``, ``make_lensing_cls_fn``, and
+``make_batched_fn``, which batches any of them over sets of parameters.
 """

@@ -41,7 +41,9 @@ constexpr int kUkTiles = 4;  // k tiles of 32 per block, looped by each warp
 // T = double.  A block holds kUkRows rows and kUkTiles * 32 k; the first
 // warp fills the block's row cache, then each warp walks its row's k tiles,
 // one output element per thread and tile, so a warp stores 32 neighbouring
-// outputs.  The ragged edges are masked.
+// outputs.  The ragged edges are masked.  Rows ride on gridDim.x (up to
+// 2^31 - 1 blocks), so a batch of cosmologies folded into the rows is one
+// launch; the k blocks ride on gridDim.y.
 template <typename T>
 __global__ void __launch_bounds__(kUkK * kUkRows)
 nfw_uk_kernel(const double* __restrict__ ks, const double* __restrict__ scales,
@@ -49,7 +51,7 @@ nfw_uk_kernel(const double* __restrict__ ks, const double* __restrict__ scales,
               int nk) {
   __shared__ RowConst<T> rows[kUkRows];
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int row0 = blockIdx.y * kUkRows;
+  const int row0 = blockIdx.x * kUkRows;
   if (ty == 0 && tx < kUkRows && row0 + tx < nrows)
     rows[tx] = hmvec::row_constants<T>(scales[row0 + tx], cs[row0 + tx]);
   __syncthreads();
@@ -57,7 +59,7 @@ nfw_uk_kernel(const double* __restrict__ ks, const double* __restrict__ scales,
   if (i >= nrows) return;
   const RowConst<T> r = rows[ty];
   T* dst = out + static_cast<long long>(i) * nk;
-  const int j0 = blockIdx.x * kUkK * kUkTiles;
+  const int j0 = blockIdx.y * kUkK * kUkTiles;
   const int j_end = min(nk, j0 + kUkK * kUkTiles);
   for (int j = j0 + tx; j < j_end; j += kUkK) dst[j] = hmvec::nfw_u<T>(ks[j], r);
 }
@@ -147,8 +149,8 @@ nfw_contract_kernel(const double* __restrict__ ks,
 }
 
 dim3 uk_grid(int nrows, int nk) {
-  return dim3((nk + kUkK * kUkTiles - 1) / (kUkK * kUkTiles),
-              (nrows + kUkRows - 1) / kUkRows);
+  return dim3((nrows + kUkRows - 1) / kUkRows,
+              (nk + kUkK * kUkTiles - 1) / (kUkK * kUkTiles));
 }
 
 dim3 contract_grid(int nz, int nk) {

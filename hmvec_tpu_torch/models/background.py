@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.special import hyp2f1_growth
+from ..utils.weights import gauss_legendre
 
 CSPEED_KMS = 299792.458
 
@@ -27,6 +28,32 @@ _G_SI = 6.67259e-11
 _RHO_SI_TO_MSUN_MPC3 = 1.477543e37
 _RHO_CRIT_FACTOR = (3.0 * _HZ_TO_SI**2 / (8.0 * float(math.pi) * _G_SI)
                     * _RHO_SI_TO_MSUN_MPC3)  # ~2.775e7 Msun/Mpc^3/(km/s/Mpc)^2
+
+
+_GL_NODES, _GL_WEIGHTS = gauss_legendre(128)
+_GL_ON_DEVICE = {}
+
+
+def _gauss_legendre_on(device):
+    """The 128 Gauss-Legendre nodes and weights on [0, 1] as float64
+    tensors on ``device``, copied there once."""
+    if device not in _GL_ON_DEVICE:
+        _GL_ON_DEVICE[device] = tuple(
+            torch.as_tensor(a, dtype=torch.float64, device=device)
+            for a in (_GL_NODES, _GL_WEIGHTS))
+    return _GL_ON_DEVICE[device]
+
+
+def _varies(t) -> bool:
+    """True when ``t`` has no one value to read at build time: it requires
+    grad, carries a forward-mode tangent, or is mapped over a batch by
+    ``torch.func.vmap``.  The counterpart of the JAX package's
+    ``isinstance(v, jax.core.Tracer)`` build-time tests."""
+    if not isinstance(t, torch.Tensor):
+        return False
+    if t.requires_grad or torch._C._functorch.is_batchedtensor(t):
+        return True
+    return torch.autograd.forward_ad.unpack_dual(t).tangent is not None
 
 
 class BackgroundParams(NamedTuple):
@@ -113,6 +140,50 @@ def hubble_parameter(bg: BackgroundParams, z):
 def h_of_z(bg: BackgroundParams, z):
     """H(z) in 1/Mpc."""
     return hubble_parameter(bg, z) / CSPEED_KMS
+
+
+def _on_device(bg: BackgroundParams, z):
+    return torch.as_tensor(z, dtype=torch.float64, device=bg.H0.device)
+
+
+def comoving_radial_distance(bg: BackgroundParams, z):
+    """chi(z) in Mpc by 128-node Gauss-Legendre on [0, z]."""
+    z = _on_device(bg, z)
+    nodes, weights = _gauss_legendre_on(z.device)
+    integrand = 1.0 / e_of_z(bg, z[..., None] * nodes)   # (..., 128)
+    return (CSPEED_KMS / bg.H0) * z * (integrand @ weights)
+
+
+def _curvature_comoving(bg: BackgroundParams, chi):
+    """S_k(chi): transverse comoving distance from radial chi."""
+    H0_invmpc = bg.H0 / CSPEED_KMS
+    k = -bg.omk0 * H0_invmpc**2
+    sqrt_abs_k = torch.sqrt(torch.abs(k) + 1e-300)
+    x = sqrt_abs_k * chi
+    open_case = torch.sinh(x) / sqrt_abs_k
+    closed_case = torch.sin(x) / sqrt_abs_k
+    return torch.where(k > 1e-12, closed_case,
+                       torch.where(k < -1e-12, open_case, chi))
+
+
+def angular_diameter_distance(bg: BackgroundParams, z1, z2=None):
+    """D_A(z) or D_A(z1, z2) in Mpc."""
+    if z2 is None:
+        chi = comoving_radial_distance(bg, z1)
+        return _curvature_comoving(bg, chi) / (1.0 + _on_device(bg, z1))
+    chi1 = comoving_radial_distance(bg, z1)
+    chi2 = comoving_radial_distance(bg, z2)
+    return _curvature_comoving(bg, chi2 - chi1) / (1.0 + _on_device(bg, z2))
+
+
+def sigma_crit(bg: BackgroundParams, zlens, zsource):
+    """Lensing critical surface density in Msun/Mpc^2."""
+    Gval = 4.517e-48   # Newton G in Mpc, s, Msun units
+    cval = 9.716e-15   # c in Mpc/s
+    Dd = angular_diameter_distance(bg, zlens)
+    Ds = angular_diameter_distance(bg, zsource)
+    Dds = angular_diameter_distance(bg, zlens, zsource)
+    return cval**2 * Ds / 4.0 / math.pi / Gval / Dd / Dds
 
 
 def rho_critical_z(bg: BackgroundParams, z):
@@ -287,8 +358,10 @@ def growth_eval(tab: GrowthTable, a):
 
 def growth_mode_for(params: dict) -> str:
     """'closed' (Heath/2F1, exact for LCDM) unless (w0, wa) != (-1, 0),
-    then 'ode'.  Call on the host with a params dict of numbers."""
-    if float(params.get("w0", -1.0)) == -1.0 and \
-            float(params.get("wa", 0.0)) == 0.0:
-        return "closed"
-    return "ode"
+    then 'ode'.  A w0 or wa that is differentiated or batched has no one
+    value to read and takes 'ode'."""
+    for key, fid in (("w0", -1.0), ("wa", 0.0)):
+        v = params.get(key, fid)
+        if _varies(v) or float(v) != fid:
+            return "ode"
+    return "closed"

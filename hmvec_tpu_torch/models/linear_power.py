@@ -20,25 +20,15 @@ import torch
 from ..ops.special import Wkr
 from ..utils.weights import simpson_weights
 from . import background as bgmod
+from .background import _varies
 from .transfer import eh99_neutrino_ratio, transfer_eh98
 
 CSPEED_KMS = 299792.458
 
 
-def _varies(t) -> bool:
-    """True when ``t`` may change under differentiation: it requires grad
-    or carries a forward-mode tangent.  The counterpart of the JAX
-    package's ``isinstance(v, jax.core.Tracer)`` build-time tests."""
-    if not isinstance(t, torch.Tensor):
-        return False
-    if t.requires_grad:
-        return True
-    return torch.autograd.forward_ad.unpack_dual(t).tangent is not None
-
-
 def _mnu_maybe_active(omnu0) -> bool:
-    """Does this call need the EH99 neutrino ratio?  A differentiated
-    omnu0 always takes it (the ratio is exactly 1 at f_nu = 0)."""
+    """Does this call need the EH99 neutrino ratio?  A differentiated or
+    batched omnu0 always takes it (the ratio is exactly 1 at f_nu = 0)."""
     return _varies(omnu0) or float(omnu0) > 0.0
 
 

@@ -40,7 +40,9 @@ from ..models.profiles import nfw_uk_x
 
 _F64 = torch.float64
 TIERS = ("fast", "exact")
+_MAX_ROWS = 2**31 - 1   # the C interface counts rows in an int
 _MAX_GRID_Y = 65535
+_UK_KS = 128            # k per block, csrc/nfw_kernels.cu kUkK * kUkTiles
 
 
 def nfw_uk_plain(ks, scales, cs):
@@ -76,7 +78,9 @@ def _stream(t):
 
 
 def _check(tensors, shapes):
-    """Validate dtype, rank, matching sizes and device; returns the device."""
+    """Validate dtype, rank, matching sizes and device; returns the device
+    (the launch checks contiguity: under ``torch.func.vmap`` the wrapper
+    sees the logical tensors, the launch the physical ones)."""
     dev = None
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
@@ -98,17 +102,28 @@ def _check(tensors, shapes):
                                  f"expected {sizes[axis]}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda":
-        for name, t in tensors.items():
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous on CUDA")
     return dev
+
+
+def _check_contiguous(**tensors):
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on CUDA")
 
 
 def _raise_on_error(err, what):
     if err != 0:
         raise RuntimeError(f"{what}: kernel launch failed with cudaError_t "
                            f"{err}")
+
+
+def _check_uk_grid(nrows, nk):
+    """Rows ride on gridDim.x and k, 128 to a block, on gridDim.y
+    (csrc/nfw_kernels.cu), so any batch of rows that fits in memory is
+    one launch."""
+    if nrows > _MAX_ROWS or -(-nk // _UK_KS) > _MAX_GRID_Y:
+        raise ValueError(f"nfw_uk takes at most {_MAX_ROWS} rows and "
+                         f"{_UK_KS * _MAX_GRID_Y} k, got {nrows} and {nk}")
 
 
 def _launch_nfw_uk(ks, scales, cs, tier, out=None):
@@ -122,9 +137,8 @@ def _launch_nfw_uk(ks, scales, cs, tier, out=None):
                           device=scales.device)
     if nrows == 0 or nk == 0:
         return out
-    if -(-nrows // 8) > _MAX_GRID_Y:
-        raise ValueError(f"nfw_uk takes at most {8 * _MAX_GRID_Y} rows, "
-                         f"got {nrows}")
+    _check_uk_grid(nrows, nk)
+    _check_contiguous(ks=ks, scales=scales, cs=cs)
     lib = load_library()
     fn = lib.hmvec_nfw_uk_f64 if tier == "exact" else lib.hmvec_nfw_uk_f32
     err = fn(ks.data_ptr(), scales.data_ptr(), cs.data_ptr(), out.data_ptr(),
@@ -151,7 +165,8 @@ def _launch_nfw_contract(ks, scales, cs, a, b, out=None):
         return s1.zero_(), s2.zero_()
     if nz > _MAX_GRID_Y:
         raise ValueError(f"nfw_contract takes at most {_MAX_GRID_Y} "
-                         f"redshifts, got {nz}")
+                         f"redshifts (a batch folds into them), got {nz}")
+    _check_contiguous(ks=ks, scales=scales, cs=cs, a=a, b=b)
     lib = load_library()
     err = lib.hmvec_nfw_contract(
         ks.data_ptr(), scales.data_ptr(), cs.data_ptr(), a.data_ptr(),
@@ -160,6 +175,21 @@ def _launch_nfw_contract(ks, scales, cs, a, b, out=None):
     _raise_on_error(err, "nfw_contract")
     nfw_contract.launches += 1
     return s1, s2
+
+
+def _fold(t, bdim, batch_size):
+    """t with its mapped dimension ``bdim`` (None: unmapped, so repeated)
+    folded into its first dimension: (B, n, ...) -> (B n, ...), contiguous
+    as the launch wants it."""
+    t = (t.expand(batch_size, *t.shape) if bdim is None
+         else t.movedim(bdim, 0))
+    return t.reshape(batch_size * t.shape[1], *t.shape[2:]).contiguous()
+
+
+def _refuse_mapped_ks(k_bd, what):
+    if k_bd is not None:
+        raise NotImplementedError(f"{what} under vmap takes one ks for "
+                                  f"every mapped element")
 
 
 class _NfwUk(torch.autograd.Function):
@@ -193,6 +223,17 @@ class _NfwUk(torch.autograd.Function):
         if t_cs is not None:
             out = out + du_dc * t_cs[:, None]
         return out.to(ctx.out_dtype)
+
+    @staticmethod
+    def vmap(info, in_dims, ks, scales, cs, tier):
+        """torch.func.vmap: the mapped dimension folds into the rows,
+        (B, rows) -> B rows, so the kernel runs once for the batch."""
+        k_bd, s_bd, c_bd, _ = in_dims
+        _refuse_mapped_ks(k_bd, "nfw_uk")
+        n = info.batch_size
+        out = _NfwUk.apply(ks, _fold(scales, s_bd, n), _fold(cs, c_bd, n),
+                           tier)
+        return out.reshape(n, -1, out.shape[-1]), 0
 
 
 class _NfwContract(torch.autograd.Function):
@@ -242,6 +283,18 @@ class _NfwContract(torch.autograd.Function):
         if t_b is not None:
             t2 = t2 + (t_b[..., None] * u).sum(1)
         return t1, t2
+
+    @staticmethod
+    def vmap(info, in_dims, ks, scales, cs, a, b):
+        """torch.func.vmap: the mapped dimension folds into z,
+        (B, nz, nm) -> (B nz, nm), so the kernel runs once for the batch."""
+        _refuse_mapped_ks(in_dims[0], "nfw_contract")
+        n = info.batch_size
+        s1, s2 = _NfwContract.apply(
+            ks, *(_fold(t, bd, n) for t, bd in zip((scales, cs, a, b),
+                                                   in_dims[1:])))
+        return ((s1.reshape(n, -1, s1.shape[-1]),
+                 s2.reshape(n, -1, s2.shape[-1])), (0, 0))
 
 
 def _nfw_uk(tier, ks, scales, cs):

@@ -11,7 +11,12 @@ from ..utils.weights import trapz_weights
 
 def trapz(y, x=None, *, weights=None, dim=-1):
     """np.trapezoid along ``dim`` with a static (numpy) grid ``x``, or a
-    precomputed weight vector."""
+    precomputed weight vector, or a 1-d tensor ``x`` on y's device (the
+    JAX package's ``trapz_traced``: the pairwise form, differentiable in
+    the grid)."""
+    if weights is None and isinstance(x, torch.Tensor):
+        y = torch.movedim(y, dim, -1)
+        return ((y[..., 1:] + y[..., :-1]) * torch.diff(x) / 2.0).sum(dim=-1)
     if weights is None:
         weights = trapz_weights(np.asarray(x))
     w = torch.as_tensor(np.asarray(weights), dtype=y.dtype, device=y.device)

@@ -37,6 +37,18 @@ def invert_monotone(func, targets, lo, hi, num_iter: int = 90,
     return _bisect(lo, hi, lambda y: func(y) > targets, num_iter)
 
 
+def vectorized_bisection_search(x, inv_func, ybounds,
+                                monotonicity="increasing", rtol=1e-4,
+                                verbose=False, hang_check_num_iter=20):
+    """Solve inv_func(y) = x for y in ybounds, with the signature of the
+    JAX package's wrapper over ``invert_monotone``.  The fixed 90 halvings
+    converge further than any ``rtol``, so ``rtol``, ``verbose`` and
+    ``hang_check_num_iter`` are accepted and unused."""
+    del rtol, verbose, hang_check_num_iter
+    return invert_monotone(inv_func, x, ybounds[0], ybounds[1],
+                           increasing=(monotonicity == "increasing"))
+
+
 def solve_bisection_root(f, lo, hi, num_iter: int = 90):
     """Find f(y) = 0 for f monotone-decreasing elementwise on [lo, hi]."""
     # decreasing: f(mid) > 0 means the root lies to the right of mid

@@ -16,7 +16,16 @@ the M200 conversion and the numeric Battaglia gas-profile transform, whose
 resample step runs a hand-written CUDA kernel on the card
 (ops/resample_kernels.py).
 
-Not ported yet: ``make_batched_fn`` and the Limber, HOD and kSZ pipelines.
+``make_lensing_cls_fn`` builds params -> (C_kk, Pmm), the Limber
+projection of Pmm against the lensing window (models/limber.py), and
+``make_hod_fn`` params -> (Pgg, Pgm), with the HOD grid and its
+ngal -> mthresh bisection (models/hod.py).
+
+``make_batched_fn`` batches any of them over sets of parameters with
+``torch.func.vmap``; each hand-written kernel then runs once for the whole
+batch.
+
+Not ported yet: the kSZ pipelines.
 """
 
 from __future__ import annotations
@@ -25,11 +34,12 @@ import numpy as np
 import torch
 
 from .models import background as bgmod
+from .models import limber as limb
 from .models import linear_power as lpm
 from .models import mass_function as mfm
 from .models import power as pwr
 from .models import profiles as prof
-from .models.linear_power import _varies
+from .models.hod import build_hod
 from .models.mass_conversion import mdelta_from_mdelta
 from .ops.nfw_kernels import nfw_contract, nfw_uk
 from .ops.sine_transform import generic_profile_fft, profile_table
@@ -44,20 +54,21 @@ def _growth_mode_from(overrides, setting: str) -> str:
     """Resolve the growth-factor mode for one call.
 
     'auto': no w0/wa override -> the LCDM closed form.  A w0/wa that is
-    differentiated (requires grad or carries a forward-mode tangent) or
-    differs from the fiducial (-1, 0) -> 'ode', the integrated growing
-    mode (background.growth_table): the closed form's dD/dw0 is
-    identically zero.  Pass 'closed' or 'ode' to force one.
+    differentiated (requires grad or carries a forward-mode tangent),
+    batched (``make_batched_fn``) or differs from the fiducial (-1, 0) ->
+    'ode', the integrated growing mode (background.growth_table): the
+    closed form's dD/dw0 is identically zero.  Pass 'closed' or 'ode' to
+    force one.
     """
     if setting != "auto":
         return setting
     o = overrides or {}
-    for key, fid in (("w0", -1.0), ("wa", 0.0)):
-        if key in o:
-            v = o[key]
-            if _varies(v) or float(v) != fid:
-                return "ode"
-    return "closed"
+    return bgmod.growth_mode_for({k: o[k] for k in ("w0", "wa") if k in o})
+
+
+def _check_nfw_tier(fast):
+    if fast not in (False, True, "exact"):
+        raise ValueError(f"fast must be False, True or 'exact', got {fast!r}")
 
 
 def _resolve_device(device) -> torch.device:
@@ -199,8 +210,7 @@ def make_pmm_fn(zs, ks, ms, *, device, mass_function: str = "sheth-torman",
         (-1, 0) or differentiated, then the integrated growth), 'closed'
         or 'ode'.
     """
-    if fast not in (False, True, "exact"):
-        raise ValueError(f"fast must be False, True or 'exact', got {fast!r}")
+    _check_nfw_tier(fast)
     dev = _resolve_device(device)
     defaults = merge_params(static_params)
     grids = _Grids(zs, ks, ms, defaults, uk_subsample, dev)
@@ -220,11 +230,93 @@ def make_pmm_fn(zs, ks, ms, *, device, mass_function: str = "sheth-torman",
         return pwr.power_total(tr, tr, nzm, bh, grids.ms, grids.ks, pzk,
                                rho_m0, p["kstar_damping"])
 
+    pmm.device = dev
     return pmm
+
+
+def make_lensing_cls_fn(zs, ks, ms, ells, zsource: float = 1100.0, *, device,
+                        mass_function: str = "sheth-torman",
+                        mdef: str = "vir", accuracy: str = "medium",
+                        fast=False, growth: str = "auto"):
+    """Build params -> (C_kk, Pmm): the halo-model lensing convergence
+    spectrum at the multipoles ``ells`` for a source at ``zsource``,
+    shape (nl,), and the Pmm (nz, nk) it projects (bench config 4 of the
+    JAX package).  float64 tensors on ``device``.
+
+    fast: the NFW stage, as in ``make_pmm_fn``.  The assembly stays
+    float64 in every tier (the JAX package's ``fast_assembly`` exists for
+    the TPU's emulated float64 and is not ported).
+    """
+    _check_nfw_tier(fast)
+    dev = _resolve_device(device)
+    defaults = merge_params()
+    grids = _Grids(zs, ks, ms, defaults, None, dev)
+    ells_t = grids.tensor(ells)
+    engine = lpm.EHEngine()
+
+    def cls_fn(overrides=None):
+        ov = to_torch_params(overrides, dev)
+        p = {**defaults, **ov}
+        bg, pzk, nzm, bh, rho_m0, uk = _stages(
+            p, grids, mass_function, mdef, accuracy, engine,
+            fast_nfw=fast, growth_mode=_growth_mode_from(ov, growth))
+        tr = pwr.MatterTracer(uk=uk)
+        pmm = pwr.power_total(tr, tr, nzm, bh, grids.ms, grids.ks, pzk,
+                              rho_m0, p["kstar_damping"])
+        ckk = limb.C_kk(bg, ells_t, grids.zs, grids.ks, pmm, lzs1=zsource,
+                        lzs2=zsource)
+        return ckk, pmm
+
+    cls_fn.device = dev
+    return cls_fn
+
+
+def make_hod_fn(zs, ks, ms, ngal, *, device,
+                mass_function: str = "sheth-torman", mdef: str = "vir",
+                accuracy: str = "medium", fast=False, growth: str = "auto"):
+    """Build params -> (Pgg, Pgm): the HOD galaxy auto spectrum and its
+    cross with matter, each (nz, nk) float64 on ``device``, for the galaxy
+    number densities ``ngal`` (nz,) in 1/Mpc^3 (bench config 3 of the JAX
+    package).  Every call solves ngal -> the stellar-mass threshold by a
+    fixed-count bisection (hod_bisection_num_iter rounds, 90 by default),
+    which passes no derivative to the threshold.
+
+    fast: the NFW stage, as in ``make_pmm_fn``; the assembly stays float64.
+    """
+    _check_nfw_tier(fast)
+    dev = _resolve_device(device)
+    defaults = merge_params()
+    grids = _Grids(zs, ks, ms, defaults, None, dev)
+    ngal_t = grids.tensor(ngal)
+    engine = lpm.EHEngine()
+
+    def hod_fn(overrides=None):
+        ov = to_torch_params(overrides, dev)
+        p = {**defaults, **ov}
+        _, pzk, nzm, bh, rho_m0, uk = _stages(
+            p, grids, mass_function, mdef, accuracy, engine,
+            fast_nfw=fast, growth_mode=_growth_mode_from(ov, growth))
+        hp = {k: p[k] for k in p if k.startswith("hod_")}
+        grid = build_hod(grids.zs, grids.ms, nzm, bh, hp, ngal=ngal_t)
+        tg = pwr.HODTracer(Nc=grid.Nc, Ns=grid.Ns, NsNsm1=grid.NsNsm1,
+                           NcNs=grid.NcNs, ngal=grid.ngal, bg=grid.bg,
+                           us=uk, uc=None)
+        tn = pwr.MatterTracer(uk=uk)
+        pgg = pwr.power_total(tg, tg, nzm, bh, grids.ms, grids.ks, pzk,
+                              rho_m0, p["kstar_damping"])
+        pgm = pwr.power_total(tg, tn, nzm, bh, grids.ms, grids.ks, pzk,
+                              rho_m0, p["kstar_damping"])
+        return pgg, pgm
+
+    hod_fn.device = dev
+    return hod_fn
 
 
 _ELECTRON_GRID_KEYS = ("electron_density_profile_integral_numxs",
                        "electron_density_profile_integral_xmax")
+# parameters that shape a grid or a loop: never batched
+_STATIC_PARAMS = (*_SIGMA2_KEYS, *_ELECTRON_GRID_KEYS,
+                  "hod_bisection_num_iter")
 
 
 def _gas_profile(p, g: _Grids, bg, mdef, fit):
@@ -329,6 +421,7 @@ def make_electron_fn(zs, ks, ms, *, device, family: str = "AGN",
                               rho_m0, p["kstar_damping"])
         return pee, pme
 
+    electron.device = dev
     return electron
 
 
@@ -392,6 +485,7 @@ def _make_pmm_fused_fn(grids: _Grids, mass_function, mdef, accuracy, engine,
         e = s2 + 1.0 - c_z[:, None]
         return s1 * damping[None, :] + pzk * e**2
 
+    pmm.device = grids.device
     return pmm
 
 
@@ -410,6 +504,64 @@ def nfw_stage_inputs(zs, ks, ms, overrides=None, *, device,
         {**defaults, **ov}, grids, mass_function, mdef, accuracy,
         lpm.EHEngine(), _growth_mode_from(ov, "auto"))
     return grids.ks, scales, cs, a_zm, b_zm
+
+
+def make_batched_fn(fn, param_names, base: dict | None = None,
+                    out_dtype=None):
+    """Batch a pipeline function over sets of cosmological parameters:
+    MCMC chains, emulator training sets and grid scans evaluate one
+    static-grid pipeline at many cosmologies.
+
+    fn: a ``make_*_fn`` product (overrides dict -> tensor or tuple of
+        tensors); the batch runs on its device.
+    param_names: the parameter keys varied across the batch.  Parameters
+        that shape a grid (sigma2_*, the electron sample grid, the
+        bisection's trip count) are static and are refused here.
+    base: fixed overrides applied to every batch element.
+    out_dtype: optional torch dtype that every leaf of the result is cast
+        to (float32 halves the result's bytes at ~6e-8 relative).
+
+    Returns batched(theta), with theta a (B, len(param_names)) array or
+    tensor, or a dict of (B,) leaves, and every leaf of the result with a
+    leading B.  The batch is ``torch.func.vmap`` of the per-cosmology
+    function, so every stage runs once on tensors with a batch dimension
+    and each hand-written kernel is launched once for the whole batch
+    (its vmap rule folds the batch into its rows).  A parameter in
+    ``param_names`` counts as varying at build time: a batch over mnu or
+    H0 takes the neutrino ratio, one over w0 or wa the integrated growth.
+    """
+    names = tuple(param_names)
+    static = [k for k in names if k in _STATIC_PARAMS]
+    if static:
+        raise ValueError(f"{static} shape a grid and cannot vary across a "
+                         f"batch: pass them as static_params or in base")
+    base = dict(base or {})
+    dev = getattr(fn, "device", None)
+
+    def one(theta_row):
+        ov = dict(base)
+        for i, k in enumerate(names):
+            ov[k] = theta_row[i]
+        out = fn(ov)
+        if out_dtype is None:
+            return out
+        if isinstance(out, tuple):
+            return tuple(o.to(out_dtype) for o in out)
+        return out.to(out_dtype)
+
+    def batched(theta):
+        if isinstance(theta, dict):
+            theta = torch.stack(
+                [torch.as_tensor(theta[k], dtype=_F64, device=dev)
+                 for k in names], dim=-1)
+        else:
+            theta = torch.as_tensor(theta, device=dev).to(_F64)
+        if theta.dim() != 2 or theta.shape[1] != len(names):
+            raise ValueError(f"theta must be (B, {len(names)}), got "
+                             f"{tuple(theta.shape)}")
+        return torch.func.vmap(one)(theta)
+
+    return batched
 
 
 def fisher_jacobian(fn, params0: dict, param_names, *, device):

@@ -1,7 +1,7 @@
 """Write the golden files that hold the PyTorch port to the JAX package.
 
 Each runs an all-float64 JAX pipeline on the CPU at bench config 1's full
-width (20 z x 200 m x 1001 k) for three cosmologies:
+width (20 z x 200 m x 1001 k), configs 1 to 4 for three cosmologies:
 
   * the bench overrides (bench.py, config 1);
   * the same with (omch2, As) = (0.11, 2.0e-9);
@@ -24,11 +24,28 @@ hmvec_tpu_torch/data/pmm_config1_w0wa_golden.npz with Pmm of shape
 (3, 20, 1001) and the forward-mode fisher_jacobian over (omch2, w0, wa) at
 the bench cosmology, (20, 1001, 3) (~30 s).
 
+--config 3: make_hod_fn(ngal = 1e-4 per z, fast=False, growth="closed"),
+bench config 3 -> hmvec_tpu_torch/data/hod_config3_golden.npz with Pgg and
+Pgm of shape (3, 20, 1001) and ngal (~15 s).
+
+--config 4: make_lensing_cls_fn(ells = geomspace(30, 3000, 60), zsource =
+1100, fast=False, growth="closed"), bench config 4 ->
+hmvec_tpu_torch/data/lensing_config4_golden.npz with C_kk (3, 60), Pmm
+(3, 20, 1001), ells and zsource (~10 s).
+
+--config b: the batch-serving lines of bench.py.  Single float64 calls of
+make_pmm_fn(fast=False, growth="closed") at rows 0, 7, 15 of the B = 16
+theta (omch2 0.11-0.13, As 2.0e-9-2.4e-9, linearly spaced), and of the same
+with static_params={"sigma2_numks": 1250} and uk_subsample=(0.2, 4) at
+rows 0, 63, 127 of the B = 128 theta ->
+hmvec_tpu_torch/data/pmm_batch_golden.npz with pmm_b16 and pmm_bN, each
+(3, 20, 1001), their rows and both thetas (~15 s).
+
 The machine with the GPU has no JAX, so chip_smoke.py compares the port
 against these files.  Each run writes only its own file.
 
 Run from the repository root:
-    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w]
+    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b]
 """
 
 from __future__ import annotations
@@ -44,8 +61,18 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 DATA = REPO / "hmvec_tpu_torch" / "data"
 OUT = {"1": DATA / "pmm_config1_golden.npz",
        "2": DATA / "electron_config2_golden.npz",
-       "1w": DATA / "pmm_config1_w0wa_golden.npz"}
+       "1w": DATA / "pmm_config1_w0wa_golden.npz",
+       "3": DATA / "hod_config3_golden.npz",
+       "4": DATA / "lensing_config4_golden.npz",
+       "b": DATA / "pmm_batch_golden.npz"}
 NXS, XMAX = 4096, 20          # bench.py config 2
+NGAL = 1e-4                   # bench.py config 3, per z
+ELLS, ZSOURCE = np.geomspace(30, 3000, 60), 1100.0   # bench.py config 4
+# bench.py's batch lines: (B, the rows kept, make_pmm_fn's serving options)
+BATCHES = {"b16": (16, (0, 7, 15), {}),
+           "bN": (128, (0, 63, 127),
+                  {"static_params": {"sigma2_numks": 1250},
+                   "uk_subsample": (0.2, 4)})}
 JAC_NAMES = {"2": ("omch2", "As"), "1w": ("omch2", "w0", "wa")}
 
 BENCH_OVERRIDES = {
@@ -64,6 +91,27 @@ def config1_grids():
             np.geomspace(1e-4, 100, 1001))
 
 
+def batch_theta(B):
+    """bench.py's (B, 2) batch of (omch2, As)."""
+    return np.column_stack([np.linspace(0.11, 0.13, B),
+                            np.linspace(2.0e-9, 2.4e-9, B)])
+
+
+def write_batch_golden(jpl, jnp, zs, ms, ks):
+    arrays = {}
+    for name, (B, rows, kw) in BATCHES.items():
+        fn = jpl.make_pmm_fn(zs, ks, ms, fast=False, growth="closed", **kw)
+        theta = batch_theta(B)
+        arrays[f"theta_{name}"] = theta
+        arrays[f"rows_{name}"] = np.asarray(rows)
+        arrays[f"pmm_{name}"] = np.stack([
+            np.asarray(fn({"omch2": jnp.asarray(theta[r, 0]),
+                           "As": jnp.asarray(theta[r, 1])})) for r in rows])
+        print(f"{name}: rows {rows}, pmm[:, 0, 0] = "
+              f"{arrays[f'pmm_{name}'][:, 0, 0]!r}")
+    return arrays
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(OUT), default="1")
@@ -76,7 +124,15 @@ def main():
     from hmvec_tpu import pipeline as jpl
 
     zs, ms, ks = config1_grids()
+    path = OUT[args.config]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if args.config == "b":
+        np.savez_compressed(path, zs=zs, ms=ms, ks=ks, param_names=np.asarray(
+            ("omch2", "As")), **write_batch_golden(jpl, jnp, zs, ms, ks))
+        print(f"wrote {path.relative_to(REPO)} ({path.stat().st_size} bytes)")
+        return
     variants = VARIANTS
+    extra = {}
     if args.config == "1":
         fn = jpl.make_pmm_fn(zs, ks, ms, fast=False, growth="closed")
         keys = ("pmm",)
@@ -84,6 +140,16 @@ def main():
         fn = jpl.make_pmm_fn(zs, ks, ms, fast=False, growth="ode")
         keys = ("pmm",)
         variants = VARIANTS_W0WA
+    elif args.config == "3":
+        extra = {"ngal": np.full(zs.size, NGAL)}
+        fn = jpl.make_hod_fn(zs, ks, ms, extra["ngal"], fast=False,
+                             growth="closed")
+        keys = ("pgg", "pgm")
+    elif args.config == "4":
+        extra = {"ells": ELLS, "zsource": ZSOURCE}
+        fn = jpl.make_lensing_cls_fn(zs, ks, ms, ELLS, zsource=ZSOURCE,
+                                     fast=False, growth="closed")
+        keys = ("ckk", "pmm")
     else:
         fn = jpl.make_electron_fn(zs, ks, ms, nxs=NXS, xmax=XMAX, fast=False,
                                   growth="closed")
@@ -97,7 +163,7 @@ def main():
         outs.append([np.asarray(o) for o in
                      (out if isinstance(out, tuple) else (out,))])
         print(f"{var or 'bench'}: " + ", ".join(
-            f"{k}[0, 0] = {o[0, 0]!r}" for k, o in zip(keys, outs[-1])))
+            f"{k}.flat[0] = {o.flat[0]!r}" for k, o in zip(keys, outs[-1])))
     arrays = {k: np.stack([o[i] for o in outs]) for i, k in enumerate(keys)}
     if args.config in JAC_NAMES:
         jac_names = JAC_NAMES[args.config]
@@ -107,8 +173,7 @@ def main():
             arrays[f"jac_{k}"] = np.asarray(jac)
     if args.config == "2":
         arrays.update(nxs=NXS, xmax=XMAX)
-    path = OUT[args.config]
-    path.parent.mkdir(parents=True, exist_ok=True)
+    arrays.update(extra)
     np.savez_compressed(path, zs=zs, ms=ms, ks=ks,
                         param_names=np.asarray(names),
                         param_values=np.asarray(values, dtype=np.float64),

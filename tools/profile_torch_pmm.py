@@ -1,5 +1,6 @@
-"""Where the time of one config-1 Pmm call and one config-2 electron call
-goes on the GPU.
+"""Where the time of one call of each pipeline of the PyTorch port goes on
+the GPU: config 1 (Pmm), config 2 (electron), config 3 (HOD), config 4
+(Limber) and the batch-serving lines.
 
 For each NFW path of hmvec_tpu_torch.pipeline.make_pmm_fn (plain, exact,
 fast, fused) and each tier of make_electron_fn (electron_plain,
@@ -12,13 +13,20 @@ synchronisations (scalar reads of device tensors), and the kernels that
 took the most device time.  The exact path is measured once more as
 "exact_ode": the same function at (w0, wa) = (-1.1, 0.3), which takes the
 integrated growth (background.growth_table) in place of the closed form.
+The same is measured for make_hod_fn and make_lensing_cls_fn (hod,
+hod_fast, limber, limber_fast; ngal, ells and the source redshift from
+their golden files) and for the batched calls b16, bN and bNf of
+make_batched_fn (bench.py's batch lines, theta from pmm_batch_golden.npz),
+with the wall time per cosmology and the peak memory allocated.
 
 For the electron tiers it then runs the call's layers one at a time --
 the halo-model stages through the NFW profile, the M200 bisection, the
 profile sampling and its DFT, the resample, the two spectra's assembly --
 and reports each layer's wall time (median of 10), device time and
 launches; the DFT is the share of the sampling layer's device time spent
-in kernels named *fft*.
+in kernels named *fft*.  The HOD and Limber calls get the same: the stages,
+the HOD grid with its ngal bisection and the two spectra's assembly; the
+stages with the Pmm assembly and the Limber projection.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -45,6 +53,11 @@ PATHS = {"plain": {"fast": False}, "exact": {"fast": "exact"},
 E_PATHS = {"electron_plain": False, "electron_fast": True}
 W0WA = {"w0": -1.1, "wa": 0.3}     # a cosmology on the integrated growth
 NXS, XMAX = 4096, 20.0
+SERVING = {"static_params": {"sigma2_numks": 1250}, "uk_subsample": (0.2, 4)}
+# batch line: (theta of, make_pmm_fn options, float32 output)
+BATCHES = {"b16": ("b16", {"fast": True}, False),
+           "bN": ("bN", {"fast": True, **SERVING}, True),
+           "bNf": ("bN", {"fused_serving": True, **SERVING}, True)}
 
 
 def _median_wall_ms(fn, n=10, warmup=3):
@@ -105,10 +118,32 @@ def main() -> int:
                                           device=dev, nxs=NXS, xmax=XMAX,
                                           fast=fast)
                 for path, fast in E_PATHS.items()})
+    data = ROOT / "hmvec_tpu_torch" / "data"
+    gh = np.load(data / "hod_config3_golden.npz")
+    gl = np.load(data / "lensing_config4_golden.npz")
+    gb = np.load(data / "pmm_batch_golden.npz")
+    for tier, fast in (("", False), ("_fast", True)):
+        fns[f"hod{tier}"] = pl.make_hod_fn(g["zs"], g["ks"], g["ms"],
+                                           gh["ngal"], device=dev, fast=fast)
+        fns[f"limber{tier}"] = pl.make_lensing_cls_fn(
+            g["zs"], g["ks"], g["ms"], gl["ells"], float(gl["zsource"]),
+            device=dev, fast=fast)
     calls = {path: (fn, ov) for path, fn in fns.items()}
     calls["exact_ode"] = (fns["exact"], {**ov, **W0WA})
+    batch_size = {}
+    for line, (tkey, kw, f32) in BATCHES.items():
+        theta = gb[f"theta_{tkey}"]
+        batch_size[line] = theta.shape[0]
+        calls[line] = (pl.make_batched_fn(
+            pl.make_pmm_fn(g["zs"], g["ks"], g["ms"], device=dev, **kw),
+            tuple(gb["param_names"].tolist()),
+            out_dtype=torch.float32 if f32 else None), theta)
     for path, (fn, ov_) in calls.items():
-        wall, walls = _median_wall_ms(lambda: fn(ov_))
+        n = 5 if path in batch_size else 10
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        wall, walls = _median_wall_ms(lambda: fn(ov_), n=n)
+        peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
         _, prof = _trace(lambda: fn(ov_))
         kernels = _kernels(prof)
         device_ms = sum(_device_us(e) for e in kernels) / 1e3
@@ -119,14 +154,22 @@ def main() -> int:
                    walls, n=4),
                "device_ms": device_ms, "busy_share": device_ms / wall,
                "kernel_launches": len(kernels), "host_syncs": d2h,
+               "peak_mib": peak_mib,
                "top_kernels": [{"name": e.key[:90],
                                 "device_ms": _device_us(e) / 1e3,
                                 "calls": e.count} for e in top
                                if _device_us(e) > 0]}
+        per = ""
+        if path in batch_size:
+            rep["batch"] = batch_size[path]
+            rep["wall_ms_per_cosmology"] = wall / batch_size[path]
+            per = (f" = {rep['wall_ms_per_cosmology']!r} ms per cosmology of "
+                   f"{batch_size[path]}")
         report["paths"][path] = rep
-        print(f"[{path}] wall {wall!r} ms (median of 10), device "
+        print(f"[{path}] wall {wall!r} ms (median of {n}){per}, device "
               f"{device_ms!r} ms in {len(kernels)} kernels, busy share "
-              f"{rep['busy_share']!r}, host syncs {d2h} ({card})")
+              f"{rep['busy_share']!r}, host syncs {d2h}, peak "
+              f"{peak_mib:.1f} MiB allocated ({card})")
         for t in rep["top_kernels"]:
             print(f"    {t['device_ms']:.4f} ms  x{t['calls']:<4d} "
                   f"{t['name']}")
@@ -139,6 +182,14 @@ def main() -> int:
                   f"{rep['kernel_launches']} kernels" + (
                       f", of which fft {rep['fft_device_ms']!r} ms"
                       if "fft_device_ms" in rep else "") + f" ({card})")
+    report["hod_layers"] = hod_layers(pl, g, ov, dev, gh["ngal"])
+    report["limber_layers"] = limber_layers(pl, g, ov, dev, gl["ells"],
+                                            float(gl["zsource"]))
+    for what in ("hod", "limber"):
+        for name, rep in report[f"{what}_layers"].items():
+            print(f"[{what}_fast / {name}] wall {rep['wall_ms']!r} ms (median "
+                  f"of 10), device {rep['device_ms']!r} ms in "
+                  f"{rep['kernel_launches']} kernels ({card})")
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(report, indent=1))
@@ -190,11 +241,90 @@ def electron_layers(pl, g, ov, dev, fast):
                 pwr.power_total(tn, te, nzm, bh, grids.ms, grids.ks, pzk,
                                 rho_m0, p["kstar_damping"]))
 
+    return _run_layers((("stages through NFW", stages),
+                        ("M200 bisection", bisection),
+                        ("sampling + DFT", sampling), ("resample", resample),
+                        ("assembly", assembly)))
+
+
+def _fast_stages(pl, g, ov, dev):
+    """(p, grids, stages) of one fast-tier call at the overrides ov:
+    stages() runs pipeline._stages as the make_*_fn functions do."""
+    from hmvec_tpu_torch.models import linear_power as lpm
+    from hmvec_tpu_torch.params import merge_params, to_torch_params
+
+    defaults = merge_params()
+    grids = pl._Grids(g["zs"], g["ks"], g["ms"], defaults, None, dev)
+    p = {**defaults, **to_torch_params(ov, dev)}
+    engine = lpm.EHEngine()
+    return p, grids, lambda: pl._stages(p, grids, "sheth-torman", "vir",
+                                        "medium", engine, fast_nfw=True,
+                                        growth_mode="closed")
+
+
+def hod_layers(pl, g, ov, dev, ngal):
+    """The layers of one make_hod_fn(fast=True) call run one at a time."""
+    from hmvec_tpu_torch.models import power as pwr
+    from hmvec_tpu_torch.models.hod import build_hod
+
+    p, grids, run_stages = _fast_stages(pl, g, ov, dev)
+    ngal_t = grids.tensor(ngal)
+    hp = {k: p[k] for k in p if k.startswith("hod_")}
+    st = {}
+
+    def stages():
+        st["stages"] = run_stages()
+
+    def hod_grid():
+        _, _, nzm, bh, _, _ = st["stages"]
+        st["grid"] = build_hod(grids.zs, grids.ms, nzm, bh, hp, ngal=ngal_t)
+
+    def assembly():
+        _, pzk, nzm, bh, rho_m0, uk = st["stages"]
+        gr = st["grid"]
+        tg = pwr.HODTracer(Nc=gr.Nc, Ns=gr.Ns, NsNsm1=gr.NsNsm1,
+                           NcNs=gr.NcNs, ngal=gr.ngal, bg=gr.bg, us=uk)
+        tn = pwr.MatterTracer(uk=uk)
+        return (pwr.power_total(tg, tg, nzm, bh, grids.ms, grids.ks, pzk,
+                                rho_m0, p["kstar_damping"]),
+                pwr.power_total(tg, tn, nzm, bh, grids.ms, grids.ks, pzk,
+                                rho_m0, p["kstar_damping"]))
+
+    return _run_layers((("stages through NFW", stages),
+                        ("HOD grid + ngal bisection", hod_grid),
+                        ("assembly", assembly)))
+
+
+def limber_layers(pl, g, ov, dev, ells, zsource):
+    """The layers of one make_lensing_cls_fn(fast=True) call run one at a
+    time."""
+    from hmvec_tpu_torch.models import limber as limb
+    from hmvec_tpu_torch.models import power as pwr
+
+    p, grids, run_stages = _fast_stages(pl, g, ov, dev)
+    ells_t = grids.tensor(ells)
+    st = {}
+
+    def stages_and_pmm():
+        bg, pzk, nzm, bh, rho_m0, uk = run_stages()
+        tr = pwr.MatterTracer(uk=uk)
+        st["bg"] = bg
+        st["pmm"] = pwr.power_total(tr, tr, nzm, bh, grids.ms, grids.ks, pzk,
+                                    rho_m0, p["kstar_damping"])
+
+    def projection():
+        return limb.C_kk(st["bg"], ells_t, grids.zs, grids.ks, st["pmm"],
+                         lzs1=zsource, lzs2=zsource)
+
+    return _run_layers((("stages + Pmm assembly", stages_and_pmm),
+                        ("Limber projection", projection)))
+
+
+def _run_layers(layers):
+    """{name: wall (median of 10), device time and launches} of each
+    (name, fn) run in turn."""
     out = {}
-    for name, fn in (("stages through NFW", stages),
-                     ("M200 bisection", bisection),
-                     ("sampling + DFT", sampling), ("resample", resample),
-                     ("assembly", assembly)):
+    for name, fn in layers:
         wall, _ = _median_wall_ms(fn)
         _, prof = _trace(fn)
         kernels = _kernels(prof)
