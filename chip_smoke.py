@@ -27,7 +27,14 @@ launch of each NFW kernel per batched call, the launches of a batched
 call beside a single call's, latency per cosmology and peak memory.  The
 hod and limber phases drive config 3, make_hod_fn (Pgg, Pgm; ngal 1e-4
 per z), and config 4, make_lensing_cls_fn (C_kk at 60 ells, Pmm; source
-at z = 1100), plain and fast, against their golden files.
+at z = 1100), plain and fast, against their golden files.  The massfn
+phase drives config 1 with each further mass function (Tinker, Tinker
+2008, Press-Schechter, Despali), plain and fast, against its golden file.
+The ksz phase drives config 5: make_ksz_snr_fn at the bench shape (z 0.55,
+10 Gpc^3, 500 masses, 100/101/102 kL/kS/mu bins, nxs 4096) against its
+golden snr, Nvv and vrec, the Jacobian of snr over (omch2, As), the four-bin
+make_ksz_survey_fn (nxs 2048), and a B = 16 batch over (omch2, As) against
+its single calls, each with one launch of the float64 resample kernel.
 
 It differentiates both paths, and times the kernels, at one cosmology's
 shapes and at the batches', and the end-to-end calls.
@@ -82,6 +89,8 @@ GOLDEN_W = DATA / "pmm_config1_w0wa_golden.npz"
 GOLDEN_B = DATA / "pmm_batch_golden.npz"
 GOLDEN_H = DATA / "hod_config3_golden.npz"
 GOLDEN_L = DATA / "lensing_config4_golden.npz"
+GOLDEN_K = DATA / "ksz_config5_golden.npz"
+GOLDEN_M = DATA / "pmm_massfn_golden.npz"
 
 # kernel vs plain version on the card (absolute on u; relative on S1, S2;
 # the resample kernel repeats the plain version's float64 operations in
@@ -107,6 +116,11 @@ MAX_GROWTH_TABLE_LAUNCHES = 2500
 ODE_PATHS = ("plain", "exact", "fused")
 # configs 3 and 4 against their golden files, by NFW tier
 GATE_TIER = {"plain": 1e-10, "fast": 1e-5}
+# config 5 (kSZ) against its golden file: snr, Nvv, vrec and the survey
+GATE_KSZ = 1e-10
+KSZ_BATCH = 16
+# the mass-function modes of config 1 by NFW tier: (fast, gate)
+MASSFN_TIERS = {"plain": (False, 1e-10), "fast": (True, 1e-5)}
 # a batched call against the port's own single calls, row by row: the same
 # arithmetic per element, whatever the batch
 GATE_BATCH_VS_SINGLE = 1e-12
@@ -136,7 +150,8 @@ KERNEL_ROWS = (
      ("fused", "ode_fused", "bNf")),
     ("pair_lerp_f64", "resample_kernels",
      "hmvec_tpu/ops/pallas_resample.py:110",
-     ("electron_plain", "electron_plain_b2")),
+     ("electron_plain", "electron_plain_b2", "ksz", "ksz_survey",
+      "ksz_b16")),
     ("pair_lerp_f32", "resample_kernels",
      "hmvec_tpu/ops/pallas_resample.py:110",
      ("electron_fast", "electron_fast_b2")),
@@ -859,6 +874,106 @@ def main() -> int:
               f"clock to synchronize, median of 10), {n_l} launches and "
               f"{n_sync} host reads per call (torch.profiler), peak "
               f"{peak:.1f} MiB allocated ({card})")
+    # ---- phase 4e: config 1 with every further mass function -------------
+    gm = np.load(GOLDEN_M)
+    for key in ("zs", "ks", "ms"):
+        check(np.array_equal(g[key], gm[key]), f"golden files share {key}")
+    check(dict(zip(gm["param_names"].tolist(),
+                   map(float, gm["param_values"]))) == cosmos[0],
+          "the mass-function golden file is at the bench cosmology")
+    for i, mode in enumerate(gm["modes"].tolist()):
+        for tier, (fast, gate) in MASSFN_TIERS.items():
+            fn = pl.make_pmm_fn(zs, ks_np, ms, device=dev, fast=fast,
+                                mass_function=mode)
+            launches[f"massfn_{mode}_{tier}"] = drive(
+                f"massfn {mode} {tier}", fn, {"pmm": gm["pmm"][i:i + 1]},
+                gate, cosmos=cosmos[:1])
+
+    # ---- phase 4f: config 5, the kSZ forecast -----------------------------
+    gk = np.load(GOLDEN_K)
+    cosmos_k = [dict(zip(gk["param_names"].tolist(), map(float, row)))
+                for row in gk["param_values"]]
+    kcfg = {k: int(gk[k]) for k in ("num_kL_bins", "num_kS_bins",
+                                     "num_mu_bins")}
+    cls_t = torch.as_tensor(gk["cls"], device=dev)
+    kfn = pl.make_ksz_snr_fn(float(gk["z"]), float(gk["volume_gpc3"]),
+                             float(gk["ngal_mpc3"]), device=dev, ms=gk["ms"],
+                             nxs=int(gk["nxs"]), xmax=float(gk["xmax"]),
+                             growth="closed", **kcfg)
+    one_k = pl.bind_args(kfn, cls_t)
+    sfn = pl.make_ksz_survey_fn(gk["zcents"].size, device=dev, ms=gk["ms"],
+                                nxs=int(gk["survey_nxs"]),
+                                xmax=float(gk["xmax"]), growth="closed",
+                                **kcfg)
+
+    def survey(ov):
+        return sfn(ov, gk["zcents"], gk["vols_gpc3"], gk["ngals"], cls_t)
+
+    one_lerp = {name: int(name == "pair_lerp_f64") for name in wrappers}
+    for path, fn, want in (
+            ("ksz", one_k, {"snr": gk["snr"], "nvv": gk["nvv"],
+                            "vrec": gk["vrec"]}),
+            ("ksz_survey", survey, {"total": gk["total"],
+                                    "per_bin": gk["per_bin"],
+                                    "bgal": gk["bgal"]})):
+        launches[path] = drive(path, fn, want, GATE_KSZ, cosmos=cosmos_k)
+        check(launches[path] == {k: v * len(cosmos_k)
+                                 for k, v in one_lerp.items()},
+              f"{path}: one launch of pair_lerp_f64 per call, got "
+              f"{launches[path]}")
+    jac_names_k = tuple(gk["jac_names"].tolist())
+    t0 = time.perf_counter()
+    kjac = pl.fisher_jacobian(lambda ov: kfn(ov, cls_t)[0], cosmos_k[0],
+                              jac_names_k, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = kjac.cpu().numpy()
+    check(got.shape == gk["jac_snr"][0].shape
+          and bool(np.all(np.isfinite(got))), "ksz jacobian")
+    for col, pname in enumerate(jac_names_k):
+        e = abs(float(got[col]) / float(gk["jac_snr"][0][col]) - 1.0)
+        check(e <= GATE_JAC_REL, f"d snr / d {pname}: {e!r}")
+        print(f"[grad] fisher_jacobian ksz d snr / d {pname}: {got[col]!r}, "
+              f"rel err vs golden {e!r} (gate {GATE_JAC_REL})")
+    print(f"[grad] fisher_jacobian ksz over {jac_names_k} in {dt:.2f} s")
+    # a B = 16 batch over (omch2, As): every row against its single call
+    theta_k = gb["theta_b16"][:KSZ_BATCH]
+    bk = pl.make_batched_fn(one_k, names_b)
+    bk(theta_k[:2])
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = bk(theta_k)
+    torch.cuda.synchronize()
+    launches["ksz_b16"] = read_counts()
+    check(launches["ksz_b16"] == one_lerp,
+          f"ksz_b16: one launch of pair_lerp_f64, got {launches['ksz_b16']}")
+    e = max(rel_rows(o[i], s_)
+            for i, row in enumerate(theta_k.tolist())
+            for o, s_ in zip(outs, kfn(dict(zip(names_b, row)), cls_t)))
+    check(all(bool(torch.isfinite(o).all()) for o in outs)
+          and e <= GATE_BATCH_VS_SINGLE, f"ksz_b16 vs single calls: {e!r}")
+    print(f"[batch] ksz_b16 (B = {KSZ_BATCH}): every row vs its single call "
+          f"{e!r} (gate {GATE_BATCH_VS_SINGLE}); kernel launches of the "
+          f"batched call {launches['ksz_b16']}")
+    del outs
+    ksz_stats = {}
+    for path, fn, nb in (("ksz", lambda: one_k(cosmos_k[0]), 1),
+                         ("ksz_survey", lambda: survey(cosmos_k[0]), 1),
+                         ("ksz_b16", lambda: bk(theta_k), KSZ_BATCH)):
+        n_l, n_sync = traced(fn)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_ms = host_ms(fn, n=5 if nb > 1 else 10)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        ksz_stats[path] = {"ms": t_ms, "ms_per_cosmology": t_ms / nb,
+                           "launches": n_l, "host_reads": n_sync,
+                           "peak_mib": peak}
+        print(f"[time] {path}: {t_ms!r} ms per call (host clock to "
+              f"synchronize, median of {5 if nb > 1 else 10}), "
+              f"{t_ms / nb!r} ms per cosmology, {n_l} launches and {n_sync} "
+              f"host reads per call (torch.profiler), peak {peak:.1f} MiB "
+              f"allocated ({card})")
+
     for name, _, _, paths in KERNEL_ROWS:
         for path in paths:
             check(launches[path][name] > 0, f"{name} launched on {path}")
@@ -1013,6 +1128,43 @@ def main() -> int:
               f"({card})")
         del s_b, c_b, a_b, b_b, flat_s, flat_c
         torch.cuda.empty_cache()
+    # the float64 resample kernel at the kSZ shapes: the single bin's
+    # (500 rows x 2,049 kt -> 101 k) and the four-bin survey's (2,000 rows x
+    # 1,025 kt; the kernel's vmap rule folds the bins into its rows)
+    ksz_rows = []
+    ks_ksz = np.geomspace(0.1, 10.0, kcfg["num_kS_bins"])
+    for line, zs_l, nxs_l in (
+            ("ksz", np.array([float(gk["z"])]), int(gk["nxs"])),
+            ("ksz_survey", gk["zcents"], int(gk["survey_nxs"]))):
+        u, s_, k_, dkt = pl.electron_stage_inputs(
+            zs_l, ks_ksz, gk["ms"], cosmos_k[0], device=dev, nxs=nxs_l,
+            xmax=float(gk["xmax"]))
+        got = rk.pair_lerp_f64(u, s_, k_, dkt)
+        torch.cuda.synchronize()
+        e = (got - rk.pair_lerp_plain(u, s_, k_, dkt)).abs().max().item()
+        check(e <= GATE_LERP, f"pair_lerp_f64 at {line}'s shape: {e!r}")
+        t_k = device_ms(lambda: rk.pair_lerp_f64(u, s_, k_, dkt))
+        t_p = device_ms(lambda: rk.pair_lerp_plain(u, s_, k_, dkt))
+        i0 = torch.floor(k_ * s_.reshape(-1)[:, None] / dkt).clamp(
+            1, u.shape[-1] - 2).long()
+        idx = torch.cat([i0, i0 + 1], dim=1)
+        u2 = u.reshape(-1, u.shape[-1])
+        t_g = device_ms(lambda: torch.gather(u2, 1, idx))
+        nbytes, ops = pair_lerp_work(u, s_, k_, dkt)
+        b_ms, b_by = bound(nbytes, ops)
+        shape = f"{s_.numel()} x {u.shape[-1]} kt -> {k_.numel()} k"
+        ksz_rows.append({"line": line, "shape": shape, "max_err": e,
+                         "ms": t_k, "plain_ms": t_p, "gather_ms": t_g,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "launches": launches[line]["pair_lerp_f64"]})
+        print(f"[time] pair_lerp_f64 at {line}'s shape {shape}: {t_k!r} ms "
+              f"(device time, CUDA-graph replays of 25 calls), plain version "
+              f"{t_p!r} ms, torch.gather of the 2 nk samples {t_g!r} ms, "
+              f"bound {b_ms!r} ms by {b_by} ({nbytes} bytes, ops {ops}), "
+              f"time / bound {t_k / b_ms!r}; max err vs the plain version "
+              f"{e!r} (gate {GATE_LERP}); "
+              f"{launches[line]['pair_lerp_f64']} launches on the path "
+              f"({card})")
     for path, fn in {**fns, **efns}.items():
         torch.cuda.reset_peak_memory_stats(dev)
         t_ms = host_ms(lambda: fn(cosmos[0]))
@@ -1036,10 +1188,13 @@ def main() -> int:
             row["bare_ms"] = bare_ms[name]
         if name in batch_rows:
             row["batch"] = batch_rows[name]
+        if name == "pair_lerp_f64":
+            row["ksz"] = ksz_rows
         kernels.append(row)
     check(all(math.isfinite(k["ms"]) and math.isfinite(k["plain_ms"])
               and math.isfinite(k["bound_ms"]) for k in kernels), "timings")
     print("[batch] " + json.dumps(batch_stats))
+    print("[ksz] " + json.dumps(ksz_stats))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ numeric profile transform have hand-written CUDA kernels for Hopper
 built with nvcc at first use.
 
 Entry points, in ``hmvec_tpu_torch.pipeline``: ``make_pmm_fn``,
-``make_electron_fn``, ``make_hod_fn``, ``make_lensing_cls_fn``, and
-``make_batched_fn``, which batches any of them over sets of parameters.
+``make_electron_fn``, ``make_hod_fn``, ``make_lensing_cls_fn``,
+``make_ksz_snr_fn``, ``make_ksz_survey_fn``, and ``make_batched_fn``,
+which batches any of them over sets of parameters.
 """

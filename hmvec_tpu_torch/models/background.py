@@ -7,6 +7,7 @@ Massive neutrinos count as matter in the background.
 For w0/wa backgrounds the growing mode is integrated (``growth_table``,
 fixed-step RK4 in ln a) and read by cubic Hermite (``growth_eval``);
 ``mode="ode"`` of ``growth_unnormalized`` / ``d_growth`` selects it.
+``growth_rate_f`` gives f = dlnD/dlna in either mode.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.special import hyp2f1_growth
+from ..ops.special import hyp2f1_growth, hyp2f1_growth_and_slope
 from ..utils.weights import gauss_legendre
 
 CSPEED_KMS = 299792.458
@@ -233,6 +234,32 @@ def d_growth(bg: BackgroundParams, a, norm: str = "anorm",
     if norm == "anorm":
         return val * d1
     raise ValueError(norm)
+
+
+def growth_rate_f(bg: BackgroundParams, z, mode: str = "closed",
+                  table=None):
+    """f(z) = dlnD/dlna, shape (nz,).
+
+    ``mode="closed"``: the derivative of the Heath form
+    D = sqrt(1 + x^3) 2F1(x^3) a, x^3 = (oml/omm) a^3, in closed form,
+    f = 1 + (3/2) x^3 / (1 + x^3) + 3 x^3 2F1'(x^3) / 2F1(x^3), with
+    2F1' the derivative of the same Chebyshev fit (what autodiff of log D
+    over ln a gives, and it nests in any autodiff mode and in vmap).
+    ``mode="ode"``: f from ``table`` (built here when None) by
+    ``growth_eval``; a call that already holds its table passes it.
+    """
+    z = torch.atleast_1d(_on_device(bg, z))
+    a = 1.0 / (1.0 + z)
+    if mode == "ode":
+        if table is None:
+            table = growth_table(bg)
+        return growth_eval(table, a)[1]
+    if mode != "closed":
+        raise ValueError(mode)
+    x = (bg.oml0 / bg.omm0) ** (1.0 / 3.0) * a
+    x3 = x**3
+    f2, df2 = hyp2f1_growth_and_slope(x3)
+    return 1.0 + 1.5 * x3 / (1.0 + x3) + 3.0 * x3 * df2 / f2
 
 
 # ---------------------------------------------------------------------------

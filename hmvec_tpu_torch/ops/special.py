@@ -6,7 +6,8 @@
   with a per-element coefficient select over three domains, plus the
   asymptotic tail above x = 40.
 * ``hyp2f1_growth``: 2F1(5/6, 3/2; 11/6; -y) for the Heath growth integral,
-  four split-domain Chebyshev fits in w = y/(1+y) (``_hyp_coeffs``).
+  four split-domain Chebyshev fits in w = y/(1+y) (``_hyp_coeffs``), and
+  ``hyp2f1_growth_and_slope``, the same with its derivative in y.
 * ``Wkr``: the top-hat window with the small-kR Taylor switch.
 
 Every function is differentiable through autograd (reverse and forward
@@ -127,16 +128,10 @@ def sici(x):
     return sici_with_trig(xs, torch.sin(xs), torch.cos(xs))
 
 
-def hyp2f1_growth(y):
-    """2F1(5/6, 3/2; 11/6; -y) for y >= 0 (Heath growth integral).
-
-    One Clenshaw recurrence with a four-way coefficient select over the
-    w = y/(1+y) domains of tools/gen_hyp_coeffs.py; w clamps at
-    HYP_W_MAX beyond y ~ 32 (omm < ~0.03 at a = 1)."""
-    # work on a 1-d view: indexing the tables with a 0-d index tensor would
-    # read it back to the host (a device sync per coefficient)
-    shape = y.shape
-    y = y.reshape(-1)
+def _hyp_domain(y):
+    """(w, dom, lo, hi, t) of the Chebyshev fits at y, on a 1-d view:
+    indexing the tables with a 0-d index tensor would read it back to the
+    host (a device sync per coefficient)."""
     w = torch.clamp(y / (1.0 + y), 0.0, float(_hc.HYP_W_MAX))
     his = [float(h) for h in _hc.HYP_DOM_HI]
     los = [float(v) for v in _hc.HYP_DOM_LO]
@@ -145,14 +140,49 @@ def hyp2f1_growth(y):
     lo_t = torch.as_tensor(los, dtype=_F64, device=w.device)[dom]
     hi_t = torch.as_tensor(his, dtype=_F64, device=w.device)[dom]
     t = (2.0 * w - (lo_t + hi_t)) / (hi_t - lo_t)
+    return w, dom, lo_t, hi_t, t
 
-    tab = _table("hyp", w.device)
+
+def hyp2f1_growth(y):
+    """2F1(5/6, 3/2; 11/6; -y) for y >= 0 (Heath growth integral).
+
+    One Clenshaw recurrence with a four-way coefficient select over the
+    w = y/(1+y) domains of tools/gen_hyp_coeffs.py; w clamps at
+    HYP_W_MAX beyond y ~ 32 (omm < ~0.03 at a = 1)."""
+    shape = y.shape
+    _, dom, _, _, t = _hyp_domain(y.reshape(-1))
+    tab = _table("hyp", t.device)
     b0 = torch.zeros_like(t)
     b1 = torch.zeros_like(t)
     t2x = 2.0 * t
     for k in range(tab.shape[0] - 1, -1, -1):
         b0, b1 = t2x * b0 - b1 + tab[k][dom], b0
     return (b0 - t * b1).reshape(shape)
+
+
+def hyp2f1_growth_and_slope(y):
+    """(F, dF/dy) of ``hyp2f1_growth``: the derivative of the same
+    Chebyshev fit, carried through its Clenshaw recurrence beside the
+    value (the derivative that autodiff of ``hyp2f1_growth`` gives, as a
+    closed form that nests in any autodiff mode and in vmap).  Zero where
+    w is clamped."""
+    shape = y.shape
+    y = y.reshape(-1)
+    w, dom, lo_t, hi_t, t = _hyp_domain(y)
+    tab = _table("hyp", t.device)
+    b0 = torch.zeros_like(t)
+    b1 = torch.zeros_like(t)
+    d0 = torch.zeros_like(t)
+    d1 = torch.zeros_like(t)
+    t2x = 2.0 * t
+    for k in range(tab.shape[0] - 1, -1, -1):
+        b0, b1, d0, d1 = (t2x * b0 - b1 + tab[k][dom], b0,
+                          2.0 * b0 + t2x * d0 - d1, d0)
+    f = b0 - t * b1
+    df_dt = d0 - b1 - t * d1
+    dw_dy = torch.where(w < float(_hc.HYP_W_MAX), 1.0 / (1.0 + y) ** 2, 0.0)
+    return f.reshape(shape), (df_dt * 2.0 / (hi_t - lo_t) * dw_dy).reshape(
+        shape)
 
 
 def Wkr_taylor(kR):

@@ -361,7 +361,7 @@ def test_vmap_rules_under_both_autodiff_modes():
         scales, vectorize=True, strategy="forward-mode")
     want = torch.autograd.functional.jacobian(
         lambda s: nk.nfw_uk_plain(ks, s.reshape(-1), cs.reshape(-1)).reshape(
-            3, 6, -1), scales)
+            3, 6, -1), scales, vectorize=True)
     assert jac.shape == want.shape and _rel(jac[want != 0],
                                             want[want != 0]) <= 1e-10
 

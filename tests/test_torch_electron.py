@@ -13,6 +13,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_jax import jacobian_columns, jax_jvp, jvp_value
 from hmvec_tpu import pipeline as jpipe
 from hmvec_tpu.models import mass_conversion as jmc
 from hmvec_tpu.models import profiles as jprof
@@ -226,11 +227,20 @@ def test_generic_profile_fft_matches_jax():
 
 
 @pytest.fixture(scope="module")
-def jax_electron():
-    fn = jpipe.make_electron_fn(ZS, KS, MS, nxs=NXS, xmax=XMAX,
+def jax_electron_jvp():
+    """JAX's make_electron_fn(growth="closed") at P0 and its Jacobian
+    over NAMES there, from one compile."""
+    fn = jpipe.make_electron_fn(ZS, KS, MS, nxs=NXS, xmax=XMAX, jit=False,
                                 growth="closed")
-    return [np.asarray(o) for o in
-            fn({k: jnp.asarray(v) for k, v in P0.items()})]
+    jvp = jax_jvp(fn, NAMES)
+    theta = [P0[k] for k in NAMES]
+    return ([np.asarray(o) for o in jvp_value(jvp, theta)],
+            jacobian_columns(jvp, theta, len(NAMES)))
+
+
+@pytest.fixture(scope="module")
+def jax_electron(jax_electron_jvp):
+    return jax_electron_jvp[0]
 
 
 @pytest.mark.parametrize("fast, gate", [(False, 1e-10), (True, 1e-5)],
@@ -271,13 +281,11 @@ def torch_electron_jac():
             tpipe.fisher_jacobian(fn, P0, NAMES, device="cpu")]
 
 
-def test_electron_fisher_jacobian_matches_jax(torch_electron_jac):
+def test_electron_fisher_jacobian_matches_jax(torch_electron_jac,
+                                              jax_electron_jvp):
     """Forward mode on both sides, float64: <= 1e-9 relative, per column
     (d/d omch2 and d/d As) of both spectra."""
-    jfn = jpipe.make_electron_fn(ZS, KS, MS, nxs=NXS, xmax=XMAX,
-                                 growth="closed")
-    want = jpipe.fisher_jacobian(jfn, P0, NAMES)
-    for got, w in zip(torch_electron_jac, want):
+    for got, w in zip(torch_electron_jac, jax_electron_jvp[1]):
         w = np.asarray(w)
         assert got.shape == w.shape == (ZS.size, KS.size, 2)
         for col in range(2):

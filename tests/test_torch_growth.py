@@ -17,6 +17,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax.numpy as jnp
 
+from _torch_jax import jacobian_columns, jax_jvp, jvp_value
 from hmvec_tpu import pipeline as jpipe
 from hmvec_tpu.models import background as jbg
 from hmvec_tpu.params import merge_params as jmerge
@@ -33,6 +34,9 @@ NAMES = ("omch2", "w0", "wa")
 PMM_PATHS = {"plain": {}, "exact": {"fast": "exact"}, "fast": {"fast": True},
              "fused": {"fused_serving": True}}
 NXS, XMAX = 256, 10
+# the electron tests' grid
+ZS_E, KS_E, MS_E = (np.array([0.5, 2.0]), np.geomspace(1e-3, 10, 24),
+                    np.geomspace(1e11, 1e16, 12))
 GOLDEN_W = (pathlib.Path(tpipe.__file__).parent / "data"
             / "pmm_config1_w0wa_golden.npz")
 
@@ -155,11 +159,17 @@ def test_one_growth_table_per_call(monkeypatch, make):
 
 
 @pytest.fixture(scope="module")
-def jax_pmm():
-    fn = jpipe.make_pmm_fn(ZS, KS, MS, fast=False)
-    return {c: np.asarray(fn({k: jnp.asarray(v)
-                              for k, v in _overrides(c).items()}))
-            for c in ("w0", "w0wa")}
+def jax_pmm_jvp():
+    """JAX's make_pmm_fn (plain, growth 'auto') as jvp over NAMES, one
+    compile: Pmm at each (w0, wa) of W0WA and the Jacobian at P0."""
+    return jax_jvp(jpipe.make_pmm_fn(ZS, KS, MS, fast=False, jit=False),
+                   NAMES)
+
+
+@pytest.fixture(scope="module")
+def jax_pmm(jax_pmm_jvp):
+    return {c: np.asarray(jvp_value(jax_pmm_jvp, [P0["omch2"], *W0WA[c]]))
+            for c in W0WA}
 
 
 @pytest.mark.parametrize("cosmo", ["w0", "w0wa"])
@@ -177,9 +187,8 @@ def test_pmm_ode_forced_at_lcdm(jax_pmm):
     """growth='ode' at LCDM is JAX's growth='ode' to rounding and the
     closed form to the integration's 1e-7; w0 = -0.9 moves the spectrum."""
     fn = tpipe.make_pmm_fn(ZS, KS, MS, device="cpu", growth="ode")
-    jfn = jpipe.make_pmm_fn(ZS, KS, MS, fast=False, growth="ode")
     out = fn({})
-    assert _rel(out, jfn({})) <= 1e-10
+    assert _rel(out, jax_pmm["lcdm"]) <= 1e-10
     closed = tpipe.make_pmm_fn(ZS, KS, MS, device="cpu", growth="closed")({})
     assert _rel(out, closed.numpy()) <= 1e-7
     assert _rel(out, jax_pmm["w0"]) > 1e-3
@@ -187,19 +196,16 @@ def test_pmm_ode_forced_at_lcdm(jax_pmm):
 
 @pytest.mark.parametrize("fast, gate", [(False, 1e-10), (True, 1e-5)],
                          ids=["plain", "fast"])
-def test_electron_w0wa_matches_jax(fast, gate):
+def test_electron_w0wa_matches_jax(jax_electron_jvp, fast, gate):
     """Pee and Pme with w0/wa overrides: <= 1e-10 with float64 sampling,
     <= 1e-5 with the float32 sampling of fast=True (the tiers' gates of
     tests/test_torch_electron.py)."""
-    zs, ks, ms = np.array([0.5, 2.0]), np.geomspace(1e-3, 10, 24), \
-        np.geomspace(1e11, 1e16, 12)
     ov = _overrides("w0wa")
-    jfn = jpipe.make_electron_fn(zs, ks, ms, nxs=NXS, xmax=XMAX)
-    want = jfn({k: jnp.asarray(v) for k, v in ov.items()})
-    fn = tpipe.make_electron_fn(zs, ks, ms, nxs=NXS, xmax=XMAX, device="cpu",
-                                fast=fast)
+    want = jvp_value(jax_electron_jvp, [P0["omch2"], *W0WA["w0wa"]])
+    fn = tpipe.make_electron_fn(ZS_E, KS_E, MS_E, nxs=NXS, xmax=XMAX,
+                                device="cpu", fast=fast)
     for got, w in zip(fn(ov), want):
-        assert got.shape == (zs.size, ks.size)
+        assert got.shape == (ZS_E.size, KS_E.size)
         assert _rel(got, w) <= gate
 
 
@@ -220,12 +226,11 @@ def torch_jac():
     return tpipe.fisher_jacobian(fn, P0, NAMES, device="cpu").numpy()
 
 
-def test_fisher_jacobian_w0wa_matches_jax(torch_jac):
+def test_fisher_jacobian_w0wa_matches_jax(torch_jac, jax_pmm_jvp):
     """Forward mode over (omch2, w0, wa) at the LCDM fiducial: a
     differentiated w0/wa resolves to the integrated growth, whose w0 and wa
     columns are not zero (the closed form's are)."""
-    jfn = jpipe.make_pmm_fn(ZS, KS, MS, fast=False)
-    want = np.asarray(jpipe.fisher_jacobian(jfn, P0, NAMES))
+    want, = jacobian_columns(jax_pmm_jvp, [P0[k] for k in NAMES], 3)
     assert torch_jac.shape == want.shape == (ZS.size, KS.size, 3)
     assert np.all(np.isfinite(torch_jac))
     for col in range(3):
@@ -252,14 +257,20 @@ def test_reverse_gradient_in_w0wa_matches_forward(torch_jac, name):
     assert abs(float(g) / want - 1.0) <= 1e-10
 
 
-def test_electron_fisher_jacobian_w0_matches_jax():
-    zs, ks, ms = np.array([0.5, 2.0]), np.geomspace(1e-3, 10, 12), \
-        np.geomspace(1e11, 1e16, 8)
+@pytest.fixture(scope="module")
+def jax_electron_jvp():
+    """JAX's make_electron_fn (growth 'auto') as jvp over NAMES on the
+    electron grid, one compile."""
+    return jax_jvp(jpipe.make_electron_fn(ZS_E, KS_E, MS_E, nxs=NXS,
+                                           xmax=XMAX, jit=False), NAMES)
+
+
+def test_electron_fisher_jacobian_w0_matches_jax(jax_electron_jvp):
     names = ("omch2", "w0")
     p0 = {"omch2": 0.1198, "w0": -1.0}
-    jfn = jpipe.make_electron_fn(zs, ks, ms, nxs=NXS, xmax=XMAX)
-    want = jpipe.fisher_jacobian(jfn, p0, names)
-    fn = tpipe.make_electron_fn(zs, ks, ms, nxs=NXS, xmax=XMAX, device="cpu")
+    want = jacobian_columns(jax_electron_jvp, [P0[k] for k in NAMES], 2)
+    fn = tpipe.make_electron_fn(ZS_E, KS_E, MS_E, nxs=NXS, xmax=XMAX,
+                                device="cpu")
     got = tpipe.fisher_jacobian(fn, p0, names, device="cpu")
     for g, w in zip(got, want):
         assert np.min(np.abs(g.numpy()[..., 1])) > 0.0

@@ -10,6 +10,7 @@ import torch
 
 try:
     import jax.numpy as jnp
+    from _torch_jax import jacobian_columns, jax_jvp, jvp_value
     from hmvec_tpu import pipeline as jpipe
     from hmvec_tpu.models import hod as jhod
     from hmvec_tpu.models import power as jpwr
@@ -64,7 +65,7 @@ def mass_function():
 
     p = merge_params()
     grids = tpipe._Grids(ZS, KS, MS, p, None, torch.device("cpu"))
-    _, _, nzm, bh, _, _ = tpipe._stages(
+    _, _, nzm, bh, _, _, _ = tpipe._stages(
         {**p, **to_torch_params(PARAMS, "cpu")}, grids, "sheth-torman",
         "vir", "medium", EHEngine(), profile="inputs")
     return nzm.numpy(), bh.numpy()
@@ -288,13 +289,27 @@ def test_hod_tracer_terms_match_jax(mass_function):
 
 
 @pytest.fixture(scope="module")
-def jax_hod():
-    fn = jpipe.make_hod_fn(ZS, KS, MS, NGAL, growth="closed")
-    jac = jpipe.fisher_jacobian(fn, {"omch2": 0.1198, "As": 2.2e-9},
-                                ("omch2", "As"))
-    return ([np.asarray(o) for o in
-             fn({k: jnp.asarray(v) for k, v in PARAMS.items()})],
-            [np.asarray(j) for j in jac])
+def jax_hod_at():
+    """JAX's make_hod_fn over the parameters of PARAMS, one compile:
+    (Pgg, Pgm) and their Jacobian over the first n parameters at the
+    defaults with the given overrides."""
+    fn = jpipe.make_hod_fn(ZS, KS, MS, NGAL, jit=False, growth="closed")
+    jvp = jax_jvp(fn, tuple(PARAMS))
+
+    def at(overrides, n=0):
+        theta = [{**jdefaults, **overrides}[k] for k in PARAMS]
+        return ([np.asarray(o) for o in jvp_value(jvp, theta)],
+                jacobian_columns(jvp, theta, n) if n else None)
+
+    return at
+
+
+@pytest.fixture(scope="module")
+def jax_hod(jax_hod_at):
+    """JAX's (Pgg, Pgm) at PARAMS and their Jacobian over (omch2, As)
+    at the fiducial cosmology."""
+    return (jax_hod_at(PARAMS)[0],
+            jax_hod_at({"omch2": 0.1198, "As": 2.2e-9}, 2)[1])
 
 
 @pytest.mark.parametrize("fast", [False, True, "exact"],
@@ -310,7 +325,7 @@ def test_hod_fn_matches_jax(jax_hod, fast):
 def test_hod_fn_hod_parameters_and_options():
     fn = tpipe.make_hod_fn(ZS, KS, MS, NGAL, device="cpu")
     ov = {**PARAMS, "hod_alphasat": 1.1, "hod_sig_log_mstellar": 0.25}
-    want = jpipe.make_hod_fn(ZS, KS, MS, NGAL, jit=False, growth="closed")(
+    want = jpipe.make_hod_fn(ZS, KS, MS, NGAL, growth="closed")(
         {k: jnp.asarray(v) for k, v in ov.items()})
     for got, w in zip(fn(ov), want):
         assert _rel(got, w) <= 1e-10
@@ -346,17 +361,18 @@ def test_hod_threshold_carries_no_derivative(mass_function):
     assert bool(torch.isfinite(om.grad)) and om.grad != 0
 
 
-def test_hod_fn_batched_at_two():
+def test_hod_fn_batched_at_two(jax_hod_at):
+    """Each row of a B = 2 batch against the port's single call (1e-12)
+    and the JAX package's (1e-10)."""
     fn = tpipe.make_hod_fn(ZS, KS, MS, NGAL, device="cpu")
     theta = np.array([[0.11, 2.0e-9], [0.13, 2.4e-9]])
     out = tpipe.make_batched_fn(fn, ("omch2", "As"))(theta)
-    jfn = jpipe.make_hod_fn(ZS, KS, MS, NGAL, jit=False, growth="closed")
-    want = jpipe.make_batched_fn(jfn, ("omch2", "As"))(jnp.asarray(theta))
+    for o in out:
+        assert o.shape == (2, ZS.size, KS.size)
     for i, (om, As) in enumerate(theta):
-        for o, s in zip(out, fn({"omch2": om, "As": As})):
-            assert _rel(o[i], s) <= 1e-12
-    for o, w in zip(out, want):
-        assert o.shape == (2, ZS.size, KS.size) and _rel(o, w) <= 1e-10
+        ov = {"omch2": om, "As": As}
+        for o, s, w in zip(out, fn(ov), jax_hod_at(ov)[0]):
+            assert _rel(o[i], s) <= 1e-12 and _rel(o[i], w) <= 1e-10
 
 
 @pytest.mark.gpu

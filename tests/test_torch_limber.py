@@ -9,7 +9,9 @@ import pytest
 import torch
 
 try:
+    import jax
     import jax.numpy as jnp
+    from _torch_jax import jacobian_columns, jax_jvp, jvp_value
     from hmvec_tpu import pipeline as jpipe
     from hmvec_tpu.models import background as jbg
     from hmvec_tpu.models import limber as jlimb
@@ -92,8 +94,6 @@ def test_distances_match_jax(name):
 
 def test_distance_derivative_matches_jax():
     """d chi(z) / d H0 through autograd against jax.grad."""
-    import jax
-
     ov = {**PARAMS}
     h0 = torch.tensor(PARAMS["H0"], dtype=torch.float64, requires_grad=True)
     tb = tbg.background({**merge_params(), **to_torch_params(ov, "cpu"),
@@ -203,14 +203,17 @@ def test_every_c_ell_matches_jax(table, name):
         "C_ky": (("C_ky", (zs, ks)), dict(lzs1=1100.0)),
         "C_yy": (("C_yy", (zs, ks)), {}),
     }
-    for what, ((fname, grids), kw) in cases.items():
-        if "gzs" in kw:
-            gz = kw.pop("gzs")
-            got = getattr(tlimb, fname)(tb, ELLS, *grids, pt, gz, **kw)
-            want = getattr(jlimb, fname)(jb, ELLS, *grids, pj, gz, **kw)
-        else:
-            got = getattr(tlimb, fname)(tb, ELLS, *grids, pt, **kw)
-            want = getattr(jlimb, fname)(jb, ELLS, *grids, pj, **kw)
+
+    def each(mod, b, pzk):
+        # the galaxy redshifts are the argument after the table
+        for (fname, grids), kw in cases.values():
+            kw = dict(kw)
+            gz = (kw.pop("gzs"),) if "gzs" in kw else ()
+            yield getattr(mod, fname)(b, ELLS, *grids, pzk, *gz, **kw)
+
+    # the JAX side compiled once (op by op it costs seconds per case)
+    wants = jax.jit(lambda p: list(each(jlimb, jb, p)))(pj)
+    for what, got, want in zip(cases, each(tlimb, tb, pt), wants):
         assert got.shape == (ELLS.size,), what
         assert _rel(got, want) <= 1e-10, what
     # a precomputed window is taken as it is
@@ -221,13 +224,28 @@ def test_every_c_ell_matches_jax(table, name):
 
 
 @pytest.fixture(scope="module")
-def jax_cls():
-    fn = jpipe.make_lensing_cls_fn(ZS, KS, MS, ELLS, growth="closed")
-    jac = jpipe.fisher_jacobian(fn, {"omch2": 0.1198, "As": 2.2e-9},
-                                ("omch2", "As"))
-    return ([np.asarray(o) for o in
-             fn({k: jnp.asarray(v) for k, v in PARAMS.items()})],
-            [np.asarray(j) for j in jac])
+def jax_cls_at():
+    """JAX's make_lensing_cls_fn over the parameters of PARAMS, one
+    compile: (C_kk, Pmm) and their Jacobian over the first n parameters
+    at the defaults with the given overrides."""
+    fn = jpipe.make_lensing_cls_fn(ZS, KS, MS, ELLS, jit=False,
+                                   growth="closed")
+    jvp = jax_jvp(fn, tuple(PARAMS))
+
+    def at(overrides, n=0):
+        theta = [jmerge(overrides)[k] for k in PARAMS]
+        return ([np.asarray(o) for o in jvp_value(jvp, theta)],
+                jacobian_columns(jvp, theta, n) if n else None)
+
+    return at
+
+
+@pytest.fixture(scope="module")
+def jax_cls(jax_cls_at):
+    """JAX's (C_kk, Pmm) at PARAMS and their Jacobian over (omch2, As)
+    at the fiducial cosmology."""
+    return (jax_cls_at(PARAMS)[0],
+            jax_cls_at({"omch2": 0.1198, "As": 2.2e-9}, 2)[1])
 
 
 @pytest.mark.parametrize("fast", [False, True, "exact"],
@@ -244,7 +262,7 @@ def test_lensing_cls_matches_jax(jax_cls, fast):
 def test_lensing_cls_source_redshift_and_options(jax_cls):
     near = tpipe.make_lensing_cls_fn(ZS, KS, MS, ELLS, 2.0, device="cpu")
     want = jpipe.make_lensing_cls_fn(ZS, KS, MS, ELLS, zsource=2.0,
-                                     jit=False, growth="closed")(
+                                     growth="closed")(
         {k: jnp.asarray(v) for k, v in PARAMS.items()})
     ckk, _ = near(PARAMS)
     assert _rel(ckk, want[0]) <= 1e-10
@@ -273,19 +291,18 @@ def test_lensing_cls_reverse_mode():
     assert bool(torch.isfinite(om.grad)) and om.grad != 0
 
 
-def test_lensing_cls_batched_at_two():
+def test_lensing_cls_batched_at_two(jax_cls_at):
+    """Each row of a B = 2 batch over (omch2, H0) against the port's
+    single call (1e-12) and the JAX package's (1e-10)."""
     fn = tpipe.make_lensing_cls_fn(ZS, KS, MS, ELLS, device="cpu")
     theta = np.array([[0.11, 66.0], [0.13, 71.0]])
     ckk, pmm = tpipe.make_batched_fn(fn, ("omch2", "H0"))(theta)
     assert ckk.shape == (2, ELLS.size) and pmm.shape == (2, ZS.size, KS.size)
     for i, (om, h0) in enumerate(theta):
-        single = fn({"omch2": om, "H0": h0})
-        assert _rel(ckk[i], single[0]) <= 1e-12
-        assert _rel(pmm[i], single[1]) <= 1e-12
-    jfn = jpipe.make_lensing_cls_fn(ZS, KS, MS, ELLS, jit=False,
-                                    growth="closed")
-    want = jpipe.make_batched_fn(jfn, ("omch2", "H0"))(jnp.asarray(theta))
-    assert _rel(ckk, want[0]) <= 1e-10 and _rel(pmm, want[1]) <= 1e-10
+        ov = {"omch2": om, "H0": h0}
+        single, want = fn(ov), jax_cls_at(ov)[0]
+        for o, s, w in zip((ckk, pmm), single, want):
+            assert _rel(o[i], s) <= 1e-12 and _rel(o[i], w) <= 1e-10
 
 
 @pytest.mark.gpu

@@ -71,7 +71,7 @@ def test_fused_matches_jax_interpret():
     old = jpipe._FUSED_INTERPRET
     jpipe._FUSED_INTERPRET = True
     try:
-        jfn = jpipe.make_pmm_fn(zs, ks, ms, growth="closed", jit=False,
+        jfn = jpipe.make_pmm_fn(zs, ks, ms, growth="closed",
                                 fused_serving=True)
         want = np.asarray(jfn({"omch2": jnp.asarray(0.1198)}))
     finally:
@@ -137,7 +137,7 @@ def test_growth_mode_resolution():
 def test_unsupported_options_raise():
     with pytest.raises(NotImplementedError):
         tpipe.make_pmm_fn(ZS, KS, MS, device="cpu",
-                          mass_function="tinker")({})
+                          mass_function="tinker2010")({})
     with pytest.raises(ValueError):
         tpipe.make_pmm_fn(ZS, KS, MS, device="cpu", fast="f16")
     with pytest.raises(TypeError):

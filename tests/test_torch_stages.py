@@ -168,6 +168,11 @@ def test_unported_modes_raise():
     # the integrated growth answers where it used to be refused
     _close(tbg.d_growth(t.bg, _t([0.5]), mode="ode"),
            jbg.d_growth(j.bg, jnp.asarray([0.5]), mode="ode"), rtol=1e-10)
+    # so do the Tinker modes (held against JAX in
+    # tests/test_torch_mass_function.py); an unknown mode raises, as in JAX
     s2 = torch.full((3, 24), 0.5, dtype=torch.float64)
+    nzm, bh = tmf.mass_function_grid(s2, t.zs, t.ms, 1.0, "tinker", t.p)
+    assert nzm.shape == bh.shape == (3, 24)
+    assert bool(torch.isfinite(nzm).all() and torch.isfinite(bh).all())
     with pytest.raises(NotImplementedError):
-        tmf.mass_function_grid(s2, t.zs, t.ms, 1.0, "tinker", t.p)
+        tmf.mass_function_grid(s2, t.zs, t.ms, 1.0, "tinker2010", t.p)

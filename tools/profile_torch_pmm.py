@@ -1,6 +1,6 @@
 """Where the time of one call of each pipeline of the PyTorch port goes on
 the GPU: config 1 (Pmm), config 2 (electron), config 3 (HOD), config 4
-(Limber) and the batch-serving lines.
+(Limber), config 5 (kSZ) and the batch-serving lines.
 
 For each NFW path of hmvec_tpu_torch.pipeline.make_pmm_fn (plain, exact,
 fast, fused) and each tier of make_electron_fn (electron_plain,
@@ -17,7 +17,10 @@ The same is measured for make_hod_fn and make_lensing_cls_fn (hod,
 hod_fast, limber, limber_fast; ngal, ells and the source redshift from
 their golden files) and for the batched calls b16, bN and bNf of
 make_batched_fn (bench.py's batch lines, theta from pmm_batch_golden.npz),
-with the wall time per cosmology and the peak memory allocated.
+with the wall time per cosmology and the peak memory allocated, and for
+config 5 (ksz: make_ksz_snr_fn at the bench shape; ksz_survey: the
+four-bin make_ksz_survey_fn; ksz_b16: a batch of 16 cosmologies of
+make_ksz_snr_fn; shapes, bins and cosmology from ksz_config5_golden.npz).
 
 For the electron tiers it then runs the call's layers one at a time --
 the halo-model stages through the NFW profile, the M200 bisection, the
@@ -130,7 +133,23 @@ def main() -> int:
             device=dev, fast=fast)
     calls = {path: (fn, ov) for path, fn in fns.items()}
     calls["exact_ode"] = (fns["exact"], {**ov, **W0WA})
-    batch_size = {}
+    batch_size = {"ksz_b16": 16}
+    gk = np.load(data / "ksz_config5_golden.npz")
+    kcfg = {k: int(gk[k]) for k in ("num_kL_bins", "num_kS_bins",
+                                     "num_mu_bins")}
+    cls = torch.as_tensor(gk["cls"], device=dev)
+    ksz = pl.bind_args(pl.make_ksz_snr_fn(
+        float(gk["z"]), float(gk["volume_gpc3"]), float(gk["ngal_mpc3"]),
+        device=dev, ms=gk["ms"], nxs=int(gk["nxs"]), xmax=float(gk["xmax"]),
+        growth="closed", **kcfg), cls)
+    survey = pl.make_ksz_survey_fn(
+        gk["zcents"].size, device=dev, ms=gk["ms"], nxs=int(gk["survey_nxs"]),
+        xmax=float(gk["xmax"]), growth="closed", **kcfg)
+    calls["ksz"] = (ksz, ov)
+    calls["ksz_survey"] = (lambda o: survey(o, gk["zcents"], gk["vols_gpc3"],
+                                            gk["ngals"], cls), ov)
+    calls["ksz_b16"] = (pl.make_batched_fn(ksz, ("omch2", "As")),
+                        gb["theta_b16"])
     for line, (tkey, kw, f32) in BATCHES.items():
         theta = gb[f"theta_{tkey}"]
         batch_size[line] = theta.shape[0]
@@ -220,7 +239,8 @@ def electron_layers(pl, g, ov, dev, fast):
                                   growth_mode="closed")
 
     def bisection():
-        st["gas"] = pl._gas_profile(p, grids, st["stages"][0], "vir", fit)
+        st["gas"] = pl._gas_profile(p, grids.zs, grids.ms, st["stages"].bg,
+                                     "vir", fit)
 
     def sampling():
         rhofunc, cmaxs, rgs = st["gas"]
@@ -233,7 +253,7 @@ def electron_layers(pl, g, ov, dev, fast):
         st["uk_e"] = uk if norm is None else uk * norm[..., None]
 
     def assembly():
-        _, pzk, nzm, bh, rho_m0, uk_nfw = st["stages"]
+        _, pzk, nzm, bh, rho_m0, uk_nfw, _ = st["stages"]
         te = pwr.MatterTracer(uk=st["uk_e"])
         tn = pwr.MatterTracer(uk=uk_nfw)
         return (pwr.power_total(te, te, nzm, bh, grids.ms, grids.ks, pzk,
@@ -276,11 +296,11 @@ def hod_layers(pl, g, ov, dev, ngal):
         st["stages"] = run_stages()
 
     def hod_grid():
-        _, _, nzm, bh, _, _ = st["stages"]
+        _, _, nzm, bh, _, _, _ = st["stages"]
         st["grid"] = build_hod(grids.zs, grids.ms, nzm, bh, hp, ngal=ngal_t)
 
     def assembly():
-        _, pzk, nzm, bh, rho_m0, uk = st["stages"]
+        _, pzk, nzm, bh, rho_m0, uk, _ = st["stages"]
         gr = st["grid"]
         tg = pwr.HODTracer(Nc=gr.Nc, Ns=gr.Ns, NsNsm1=gr.NsNsm1,
                            NcNs=gr.NcNs, ngal=gr.ngal, bg=gr.bg, us=uk)
@@ -306,7 +326,7 @@ def limber_layers(pl, g, ov, dev, ells, zsource):
     st = {}
 
     def stages_and_pmm():
-        bg, pzk, nzm, bh, rho_m0, uk = run_stages()
+        bg, pzk, nzm, bh, rho_m0, uk, _ = run_stages()
         tr = pwr.MatterTracer(uk=uk)
         st["bg"] = bg
         st["pmm"] = pwr.power_total(tr, tr, nzm, bh, grids.ms, grids.ks, pzk,
