@@ -35,6 +35,14 @@ The ksz phase drives config 5: make_ksz_snr_fn at the bench shape (z 0.55,
 golden snr, Nvv and vrec, the Jacobian of snr over (omch2, As), the four-bin
 make_ksz_survey_fn (nxs 2048), and a B = 16 batch over (omch2, As) against
 its single calls, each with one launch of the float64 resample kernel.
+The class phase drives the class API: the README's example
+(hmvec_tpu_torch.HaloModel at 20 x 200 x 1001 with the Battaglia gas and
+pressure profiles, an HOD and the fast NFW profile) against its golden
+file, with one launch of the fast NFW kernel and one of the float64
+resample kernel per numeric profile, and the class kSZ forecast
+(get_ksz_snr at config 5) against make_ksz_snr_fn and its golden file;
+with the build's and each spectrum's latency, launches, host reads and
+peak memory, and both kernels' times at the class's shapes.
 
 It differentiates both paths, and times the kernels, at one cosmology's
 shapes and at the batches', and the end-to-end calls.
@@ -91,6 +99,7 @@ GOLDEN_H = DATA / "hod_config3_golden.npz"
 GOLDEN_L = DATA / "lensing_config4_golden.npz"
 GOLDEN_K = DATA / "ksz_config5_golden.npz"
 GOLDEN_M = DATA / "pmm_massfn_golden.npz"
+GOLDEN_C = DATA / "class_config1_golden.npz"
 
 # kernel vs plain version on the card (absolute on u; relative on S1, S2;
 # the resample kernel repeats the plain version's float64 operations in
@@ -119,6 +128,15 @@ GATE_TIER = {"plain": 1e-10, "fast": 1e-5}
 # config 5 (kSZ) against its golden file: snr, Nvv, vrec and the survey
 GATE_KSZ = 1e-10
 KSZ_BATCH = 16
+# the class API: the README's spectra (name -> get_power's arguments)
+# against the JAX class's golden file, plain and through the fast NFW
+# kernel; the class kSZ forecast against the port's own pipeline at the
+# JAX package's class-vs-fused gate (tests/test_ksz_fused.py)
+CLASS_SPECTRA = {"pmm": ("nfw", None), "pgg": ("g", None),
+                 "pge": ("g", "e"), "pee": ("e", "e"), "pyy": ("y", "y")}
+GATE_CLASS = 1e-10
+GATE_CLASS_FAST = 1e-5
+GATE_KSZ_CLASS_VS_FN = 1e-12
 # the mass-function modes of config 1 by NFW tier: (fast, gate)
 MASSFN_TIERS = {"plain": (False, 1e-10), "fast": (True, 1e-5)}
 # a batched call against the port's own single calls, row by row: the same
@@ -143,7 +161,8 @@ E_PATHS = {"electron_plain": {"fast": False}, "electron_fast": {"fast": True}}
 # launch it
 KERNEL_ROWS = (
     ("nfw_uk_fast", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:321",
-     ("fast", "electron_fast", "b16", "bN", "hod_fast", "limber_fast")),
+     ("fast", "electron_fast", "b16", "bN", "hod_fast", "limber_fast",
+      "class")),
     ("nfw_uk_exact", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:800",
      ("exact", "ode_exact", "b16_exact")),
     ("nfw_contract", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:388",
@@ -151,7 +170,7 @@ KERNEL_ROWS = (
     ("pair_lerp_f64", "resample_kernels",
      "hmvec_tpu/ops/pallas_resample.py:110",
      ("electron_plain", "electron_plain_b2", "ksz", "ksz_survey",
-      "ksz_b16")),
+      "ksz_b16", "class", "class_ksz")),
     ("pair_lerp_f32", "resample_kernels",
      "hmvec_tpu/ops/pallas_resample.py:110",
      ("electron_fast", "electron_fast_b2")),
@@ -974,6 +993,186 @@ def main() -> int:
               f"host reads per call (torch.profiler), peak {peak:.1f} MiB "
               f"allocated ({card})")
 
+    # ---- phase 4g: the class API ------------------------------------------
+    from hmvec_tpu_torch import HaloModel, get_ksz_snr
+
+    gc = np.load(GOLDEN_C)
+    for key in ("zs", "ks", "ms"):
+        check(np.array_equal(g[key], gc[key]), f"golden files share {key}")
+    cosmo_c = dict(zip(gc["param_names"].tolist(),
+                       map(float, gc["param_values"])))
+    check(cosmo_c == cosmos[0], "the class golden file is at the bench "
+          "cosmology")
+
+    def build_class():
+        """The README's example at bench width, with its fast NFW profile."""
+        hm = HaloModel(zs, ks_np, ms=ms, params=cosmo_c, device=dev)
+        hm.add_battaglia_profile("e", family="AGN")
+        hm.add_battaglia_pres_profile("y")
+        hm.add_hod("g", ngal=gc["ngal"])
+        hm.add_nfw_profile("nfw_fast", fast=True)
+        return hm
+
+    # the main path of the phase: counts set to 0 just before, read after
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    hm = build_class()
+    torch.cuda.synchronize()
+    launches["class"] = read_counts()
+    class_peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    want_class = {name: {"nfw_uk_fast": 1, "pair_lerp_f64": 2}.get(name, 0)
+                  for name in wrappers}
+    check(launches["class"] == want_class,
+          f"class build: one nfw_uk_fast launch and one pair_lerp_f64 per "
+          f"numeric profile (2), got {launches['class']}")
+    spectra = {key: hm.get_power(*names)
+               for key, names in CLASS_SPECTRA.items()}
+    spectra["pmm_fast"] = hm.get_power("nfw_fast")
+    torch.cuda.synchronize()
+    for key, out in spectra.items():
+        want = gc[key.replace("_fast", "")]
+        gate = GATE_CLASS_FAST if key.endswith("_fast") else GATE_CLASS
+        check(out.is_cuda and out.dtype == torch.float64
+              and out.shape == want.shape
+              and bool(torch.isfinite(out).all()), f"class {key} output")
+        e = float(np.max(np.abs(out.cpu().numpy() / want - 1.0)))
+        check(e <= gate, f"class {key} vs golden: {e!r} > {gate}")
+        print(f"[class] README example {key} at 20x200x1001: max rel err vs "
+              f"the JAX class's golden {e!r} (gate {gate})")
+    print(f"[class] build launches {launches['class']}")
+    # the class's own kernel inputs: B1's rows and B4a's gas table
+    cs_c = hm.concentration()
+    rss_c = hm.rvir(hm.ms[None, :], hm.zs[:, None]) / cs_c
+    s_c = (rss_c * (1.0 + hm.zs)[:, None]).reshape(-1).contiguous()
+    c_c = cs_c.reshape(-1).contiguous()
+    u_b1 = nk.nfw_uk_fast(hm.ks, s_c, c_c)
+    torch.cuda.synchronize()
+    e_b1 = (u_b1.double() - nk.nfw_uk_plain(hm.ks, s_c, c_c)).abs().max()
+    e_b1 = e_b1.item()
+    check(e_b1 <= GATE_UK["fast"], f"nfw_uk_fast at the class's rows: {e_b1!r}")
+    check(torch.equal(u_b1.reshape(hm.uk_profiles["nfw_fast"].shape)
+                      .to(torch.float64), hm.uk_profiles["nfw_fast"]),
+          "the class's fast profile is the kernel's output")
+    nxs_e = int(hm.p["electron_density_profile_integral_numxs"])
+    xmax_e = float(hm.p["electron_density_profile_integral_xmax"])
+    u_e, s_e, k_e, dkt_e = pl.electron_stage_inputs(
+        zs, ks_np, ms, cosmo_c, device=dev, nxs=nxs_e, xmax=xmax_e)
+    got_e = rk.pair_lerp_f64(u_e, s_e, k_e, dkt_e)
+    torch.cuda.synchronize()
+    e_b4 = (got_e - rk.pair_lerp_plain(u_e, s_e, k_e, dkt_e)).abs().max()
+    e_b4 = e_b4.item()
+    check(e_b4 <= GATE_LERP, f"pair_lerp_f64 at the class's gas table: "
+          f"{e_b4!r}")
+    e_tab = ((got_e - hm.uk_profiles["e"]).abs().max()
+             / got_e.abs().max()).item()
+    check(e_tab <= 1e-12, f"the class's gas profile vs the pipeline's "
+          f"table through the kernel: {e_tab!r}")
+    print(f"[class] nfw_uk_fast vs nfw_uk_plain at the class's "
+          f"{s_c.numel()} x {hm.ks.numel()}: max abs err {e_b1!r} (gate "
+          f"{GATE_UK['fast']}); pair_lerp_f64 vs pair_lerp_plain at the gas "
+          f"table {tuple(u_e.shape)} -> {k_e.numel()} k: max abs err "
+          f"{e_b4!r} (gate {GATE_LERP}); the class's gas profile within "
+          f"{e_tab!r} of that resample (relative to its largest value)")
+    # the class kSZ forecast at config 5 (the ksz phase's widths)
+    cos_k0 = cosmos_k[0]
+    reset_counts()
+    snr_c, fksz = get_ksz_snr(
+        float(gk["volume_gpc3"]), float(gk["z"]), float(gk["ngal_mpc3"]),
+        gk["cls"], params=cos_k0, ms=gk["ms"],
+        electron_profile_nxs=int(gk["nxs"]),
+        electron_profile_xmax=float(gk["xmax"]), device=dev, **kcfg)
+    nvv_c = fksz.Nvv(0, gk["cls"])
+    torch.cuda.synchronize()
+    launches["class_ksz"] = read_counts()
+    check(launches["class_ksz"] == one_lerp,
+          f"class kSZ: one pair_lerp_f64 launch, got {launches['class_ksz']}")
+    snr_f, nvv_f, vrec_f = kfn(cos_k0, cls_t)
+    for key, got, fn_v, gold in (
+            ("snr", snr_c, snr_f, gk["snr"][0]),
+            ("nvv", nvv_c, nvv_f, gk["nvv"][0]),
+            ("vrec", fksz.vrec, vrec_f, gk["vrec"][0])):
+        check(got.is_cuda and bool(torch.isfinite(got).all())
+              and got.shape == fn_v.shape, f"class ksz {key} output")
+        e_fn = (got / fn_v - 1.0).abs().max().item()
+        e_gold = float(np.max(np.abs(got.cpu().numpy() / gold - 1.0)))
+        check(e_fn <= GATE_KSZ_CLASS_VS_FN,
+              f"class ksz {key} vs make_ksz_snr_fn: {e_fn!r}")
+        check(e_gold <= GATE_KSZ, f"class ksz {key} vs golden: {e_gold!r}")
+        print(f"[class] get_ksz_snr {key}: max rel diff vs make_ksz_snr_fn "
+              f"{e_fn!r} (gate {GATE_KSZ_CLASS_VS_FN}), vs golden {e_gold!r} "
+              f"(gate {GATE_KSZ})")
+    del fksz, spectra
+    # latency, launches, host reads and peak memory of the build and of
+    # each spectrum
+    n_b, sync_b = traced(build_class)
+    t_build = host_ms(build_class, n=10, warmup=1)
+    class_stats = {"build": {"ms": t_build, "launches": n_b,
+                             "host_reads": sync_b, "peak_mib": class_peak}}
+    print(f"[time] class build (HaloModel + 4 profiles + HOD) at "
+          f"20x200x1001: {t_build!r} ms (host clock to synchronize, median "
+          f"of 10), {n_b} launches and {sync_b} host reads (torch.profiler), "
+          f"peak {class_peak:.1f} MiB allocated ({card})")
+    for key, names in {**CLASS_SPECTRA, "pmm_fast": ("nfw_fast", None)}.items():
+        n_l, n_sync = traced(lambda: hm.get_power(*names))
+        t_p = host_ms(lambda: hm.get_power(*names), n=10)
+        class_stats[f"get_power {key}"] = {"ms": t_p, "launches": n_l,
+                                           "host_reads": n_sync}
+        print(f"[time] class get_power{names}: {t_p!r} ms (host clock to "
+              f"synchronize, median of 10), {n_l} launches and {n_sync} host "
+              f"reads (torch.profiler) ({card})")
+    ksz_build = lambda: get_ksz_snr(
+        float(gk["volume_gpc3"]), float(gk["z"]), float(gk["ngal_mpc3"]),
+        gk["cls"], params=cos_k0, ms=gk["ms"],
+        electron_profile_nxs=int(gk["nxs"]),
+        electron_profile_xmax=float(gk["xmax"]), device=dev, **kcfg)
+    n_k, sync_k = traced(ksz_build)
+    t_k = host_ms(ksz_build, n=10, warmup=1)
+    class_stats["get_ksz_snr"] = {"ms": t_k, "launches": n_k,
+                                  "host_reads": sync_k}
+    print(f"[time] class get_ksz_snr at config 5: {t_k!r} ms (host clock to "
+          f"synchronize, median of 10), {n_k} launches and {sync_k} host "
+          f"reads (torch.profiler) ({card})")
+    # both kernels at the class's shapes: device time, plain version,
+    # torch.gather of the same samples (B4a), bound
+    t_b1 = device_ms(lambda: nk.nfw_uk_fast(hm.ks, s_c, c_c))
+    tp_b1 = device_ms(lambda: nk.nfw_uk_plain(hm.ks, s_c, c_c))
+    b1_bytes = (8 * (hm.ks.numel() + 2 * s_c.numel())
+                + 4 * s_c.numel() * hm.ks.numel())
+    b1_ms, b1_by = bound(b1_bytes, nfw_ops(hm.ks, s_c, c_c, "fast"))
+    t_b4 = device_ms(lambda: rk.pair_lerp_f64(u_e, s_e, k_e, dkt_e))
+    tp_b4 = device_ms(lambda: rk.pair_lerp_plain(u_e, s_e, k_e, dkt_e))
+    i0_e = torch.floor(k_e * s_e.reshape(-1)[:, None] / dkt_e).clamp(
+        1, u_e.shape[-1] - 2).long()
+    idx_e = torch.cat([i0_e, i0_e + 1], dim=1)
+    u2_e = u_e.reshape(-1, u_e.shape[-1])
+    tg_b4 = device_ms(lambda: torch.gather(u2_e, 1, idx_e))
+    b4_bytes, b4_ops = pair_lerp_work(u_e, s_e, k_e, dkt_e)
+    b4_ms, b4_by = bound(b4_bytes, b4_ops)
+    class_rows = {
+        "nfw_uk_fast": {"shape": f"{s_c.numel()} x {hm.ks.numel()}",
+                        "max_err": e_b1, "ms": t_b1, "plain_ms": tp_b1,
+                        "bound_ms": b1_ms, "bound_by": b1_by,
+                        "launches": launches["class"]["nfw_uk_fast"]},
+        "pair_lerp_f64": {"shape": f"{s_e.numel()} x {u_e.shape[-1]} kt -> "
+                                   f"{k_e.numel()} k",
+                          "max_err": e_b4, "ms": t_b4, "plain_ms": tp_b4,
+                          "gather_ms": tg_b4, "bound_ms": b4_ms,
+                          "bound_by": b4_by,
+                          "launches": launches["class"]["pair_lerp_f64"]},
+    }
+    for name, row in class_rows.items():
+        print(f"[time] {name} at the class's shape {row['shape']}: "
+              f"{row['ms']!r} ms (device time, CUDA-graph replays of 25 "
+              f"calls), plain version {row['plain_ms']!r} ms"
+              + (f", torch.gather of the 2 nk samples {row['gather_ms']!r} "
+                 f"ms" if "gather_ms" in row else "")
+              + f", bound {row['bound_ms']!r} ms by {row['bound_by']}, time "
+              f"/ bound {row['ms'] / row['bound_ms']!r}; "
+              f"{row['launches']} launches in the class build ({card})")
+    del hm, u_b1, u_e, got_e, u2_e, idx_e, i0_e
+    torch.cuda.empty_cache()
+
     for name, _, _, paths in KERNEL_ROWS:
         for path in paths:
             check(launches[path][name] > 0, f"{name} launched on {path}")
@@ -1190,11 +1389,14 @@ def main() -> int:
             row["batch"] = batch_rows[name]
         if name == "pair_lerp_f64":
             row["ksz"] = ksz_rows
+        if name in class_rows:
+            row["class"] = class_rows[name]
         kernels.append(row)
     check(all(math.isfinite(k["ms"]) and math.isfinite(k["plain_ms"])
               and math.isfinite(k["bound_ms"]) for k in kernels), "timings")
     print("[batch] " + json.dumps(batch_stats))
     print("[ksz] " + json.dumps(ksz_stats))
+    print("[class] " + json.dumps(class_stats))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,53 @@ numeric profile transform have hand-written CUDA kernels for Hopper
 (``ops.nfw_kernels``, ``ops.resample_kernels``; sources in ``csrc/``),
 built with nvcc at first use.
 
-Entry points, in ``hmvec_tpu_torch.pipeline``: ``make_pmm_fn``,
-``make_electron_fn``, ``make_hod_fn``, ``make_lensing_cls_fn``,
-``make_ksz_snr_fn``, ``make_ksz_survey_fn``, and ``make_batched_fn``,
-which batches any of them over sets of parameters.
+The class API (``Cosmology``, ``HaloModel``, ``kSZ`` and the kSZ
+forecasts) takes ``device="cuda"`` by default; ``device="cpu"`` runs every
+kernel's plain version.  The pipelines, in ``hmvec_tpu_torch.pipeline``
+(``make_pmm_fn``, ``make_electron_fn``, ``make_hod_fn``,
+``make_lensing_cls_fn``, ``make_ksz_snr_fn``, ``make_ksz_survey_fn``, and
+``make_batched_fn``, which batches any of them over sets of parameters),
+take ``device=`` explicitly.
+
+The public names of ``hmvec_tpu`` whose modules are still to be ported
+are listed in ROADMAP.md (A9) and the README.
 """
+
+from .params import battaglia_defaults, default_params, merge_params  # noqa: F401
+from .models.cosmology import Cosmology, a2z, get_eds_model  # noqa: F401
+from .models.halo_model import HaloModel  # noqa: F401
+from .models.ksz import (  # noqa: F401
+    Ngg, Nvv, Nvv_core_integral, chi, chi_ion, get_interpolated_cls,
+    get_kmin, get_ksz_auto_signal_mafry, get_ksz_auto_squeezed,
+    get_ksz_snr, get_ksz_snr_survey, get_ksz_template_signal_snapshot,
+    get_survey_volume, kSZ, ksz_radial_function, ne0_shaw, pge_err_core)
+from .models.power import (  # noqa: F401
+    exclusion_correction, total_matter_galaxy_power_spectrum,
+    total_matter_power_spectrum)
+from .models.profiles import (  # noqa: F401
+    Fcon, P_e, P_e_generic, P_e_generic_x, battaglia_gas_fit,
+    concentration_bhattacharya, duffy_concentration, rho_einasto_x, rho_gas,
+    rho_gas_generic, rho_gas_generic_x, rho_nfw, rho_nfw_x, rhoscale_nfw)
+from .models.mass_conversion import (  # noqa: F401
+    mdelta_from_mdelta, mdelta_from_mdelta_unvectorized)
+from .models.mass_function import (  # noqa: F401
+    NlnMsub, R_from_M, bias_tinker, f_nu, simple_f_nu)
+from .models.hod import (  # noqa: F401
+    Mhalo_stellar, Mhalo_stellar_core, Mstellar_halo, avg_Nc, avg_NcNs,
+    avg_Ns, avg_NsNsm1, avg_nc_zheng05, avg_ns_zheng05, build_hod_zheng05,
+    hod_default_mfunc, ngal_from_mthresh)
+from .models.limber import limber_integral  # noqa: F401
+from .models.linear_power import EHEngine, TabulatedEngine  # noqa: F401
+from .ops.special import Wkr, Wkr_taylor  # noqa: F401
+from .ops.rootfind import invert_monotone, vectorized_bisection_search  # noqa: F401
+from .ops.quadrature import interp  # noqa: F401
+from .ops.sine_transform import (  # noqa: F401
+    analytic_fft_integral, fft_integral, generic_profile_fft, uk_brute_force,
+    uk_fft)
+from .ops.fftlog import correlation_function  # noqa: F401
+from .pipeline import (  # noqa: F401
+    fisher_jacobian, make_batched_fn, make_electron_fn, make_hod_fn,
+    make_ksz_snr_fn, make_ksz_survey_fn, make_lensing_cls_fn, make_pmm_fn)
+
+# the reference's tinker.py module-level name
+bias = bias_tinker

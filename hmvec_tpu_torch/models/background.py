@@ -187,6 +187,27 @@ def sigma_crit(bg: BackgroundParams, zlens, zsource):
     return cval**2 * Ds / 4.0 / math.pi / Gval / Dd / Dds
 
 
+def redshift_at_comoving_radial_distance(bg: BackgroundParams, chi,
+                                         zmax: float = 1e4,
+                                         num_iter: int = 80):
+    """z(chi): chi(z) inverted by fixed-count bisection on [0, zmax], then
+    one Newton step z = z_b - (chi(z_b) - chi) dz/dchi at the detached
+    bisection root z_b, which carries the implicit-function derivative
+    dz/dtheta = -(dchi/dtheta) / (dchi/dz) through autograd (the JAX
+    package's form; the bisection alone selects among constants)."""
+    chi = _on_device(bg, chi)
+    lo = torch.zeros_like(chi)
+    hi = torch.full_like(chi, zmax)
+    with torch.no_grad():
+        for _ in range(num_iter):
+            mid = (lo + hi) / 2.0
+            too_far = comoving_radial_distance(bg, mid) > chi
+            lo, hi = torch.where(too_far, lo, mid), torch.where(too_far, mid, hi)
+    z_bis = ((lo + hi) / 2.0).detach()
+    return z_bis - (comoving_radial_distance(bg, z_bis) - chi) * h_of_z(bg,
+                                                                        z_bis)
+
+
 def rho_critical_z(bg: BackgroundParams, z):
     """Critical density in Msun/Mpc^3."""
     return hubble_parameter(bg, z) ** 2 * _RHO_CRIT_FACTOR

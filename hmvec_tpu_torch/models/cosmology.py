@@ -1,0 +1,378 @@
+"""The user-facing Cosmology class on float64 tensors (port of
+hmvec_tpu/models/cosmology.py).
+
+A plain class over the staged functions of the port (background,
+transfer, linear_power, limber) with the JAX class's method names and
+signatures.  Everything it stores is a float64 tensor on one device, the
+card unless ``device="cpu"`` is given; a ``device="cuda"`` without a card
+raises.  Arguments may be Python numbers, numpy arrays or tensors; results
+are tensors on the instance's device.
+
+The scalars the JAX class reads back as Python floats (h, omm0, omk0,
+oml0, ombh2, as8, YHe) are formed here on the host from the parameters,
+with the background's own arithmetic, so building an instance reads
+nothing back from the card; only a tensor parameter (moved to the
+instance's device as ``params.to_torch_params`` moves it), or the sigma8 /
+S8 rescale of As, is read back.
+
+The methods whose module is still to be ported raise NotImplementedError
+naming its group of ROADMAP A9 (``DEFERRED``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..params import merge_params, to_torch_params
+from . import background as bgmod
+from . import limber as limb
+from . import linear_power as lpm
+from .transfer import transfer_eh98
+
+_F64 = torch.float64
+
+
+def _deferred(name: str, group: str):
+    """A method that raises NotImplementedError until ``group`` is ported."""
+
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{type(self).__name__}.{name} needs the {group} group of "
+            f"ROADMAP A9, which is not ported yet")
+
+    method.__name__ = name
+    method.__doc__ = f"Not ported yet: lands with the {group} group of A9."
+    method.deferred_group = group
+    return method
+
+
+# Cosmology methods whose module is still in A9, by group
+DEFERRED = {
+    "P_mm_1loop": "spt",
+    "get_rsd_multipoles": "rsd/tns/spt",
+    "C_II": "ia", "C_kI": "ia", "C_gI": "ia", "shear_cls_with_ia": "ia",
+    "C_gg_mag": "ia", "C_kg_mag": "ia",
+    "C_gg_exact": "fftlog/nonlimber", "C_kg_exact": "fftlog/nonlimber",
+    "C_gg_hybrid": "fftlog/nonlimber", "C_kk_hybrid": "fftlog/nonlimber",
+    "C_kk_exact": "fftlog/nonlimber",
+    "conformal_time": "distances_ext", "get_tau_star": "distances_ext",
+    "z_of_tau": "distances_ext", "get_bao_rs_dV": "distances_ext",
+    "cmb_lensing_limber": "distances_ext",
+    "get_cmb_cls": "boltz/lensed", "cmb_lensing_kk_exact": "boltz/lensed",
+}
+# ``P_mm_nonlinear`` and ``get_pk_interpolator(nonlinear=True)`` raise for
+# every engine but a tabulated one, through ``_get_matter_power``
+NONLINEAR_GROUP = "halofit/hmcode"
+
+
+def a2z(a):
+    """Scale factor -> redshift."""
+    return 1.0 / torch.atleast_1d(torch.as_tensor(a, dtype=_F64)) - 1.0
+
+
+def get_eds_model(fb=0.15, H0=68.0, YHe=0.25):
+    """Einstein-de Sitter params from baryon fraction + H0."""
+    om = 1.0
+    h0 = H0 / 100.0
+    return {"omch2": (1 - fb) * om * h0**2, "ombh2": fb * om * h0**2,
+            "H0": H0, "mnu": 0.0, "YHe": YHe}
+
+
+def _host(v) -> float:
+    """A parameter as a Python float; a tensor is read back."""
+    return float(v.detach()) if isinstance(v, torch.Tensor) else float(v)
+
+
+def _host_background(p):
+    """(omm0, omk0, oml0, ombh2) on the host with the arithmetic of
+    ``background.background``."""
+    h = _host(p["H0"]) / 100.0
+    omch2 = _host(p["omch2"])
+    if p.get("omm") is not None:
+        omch2 = _host(p["omm"]) * h**2 - _host(p["ombh2"])
+    omm0 = (omch2 + _host(p["ombh2"])) / h**2
+    omk0 = _host(p["omk"])
+    return omm0, omk0, 1.0 - omm0 - omk0, _host(p["ombh2"])
+
+
+class Cosmology:
+    def __init__(self, params=None, halofit=None, engine="eh",
+                 accuracy="medium", pk_table=None, cls_table=None,
+                 growth="auto", engine_opts=None, device="cuda"):
+        # imported here: the pipeline module imports models.ksz, which
+        # imports this module
+        from ..pipeline import _resolve_device
+
+        self.device = _resolve_device(device)
+        self.accuracy = accuracy
+        self.p = merge_params(params)
+        # a tensor parameter goes to the instance's device in float64 and
+        # keeps its autograd history
+        self.p.update(to_torch_params(
+            {k: v for k, v in (params or {}).items()
+             if isinstance(v, torch.Tensor)}, self.device))
+        self.growth_mode = (bgmod.growth_mode_for(self.p)
+                            if growth == "auto" else growth)
+        self.params = self.p
+        self.engine_name = engine if isinstance(engine, str) else \
+            getattr(engine, "name", "custom")
+        self._engine_opts = engine_opts
+        self.halofit = halofit
+        self.cls_table = dict(cls_table) if cls_table is not None else None
+        if params and "theta100" in params:
+            raise NotImplementedError(
+                "theta100 needs the distances_ext group of ROADMAP A9 "
+                "(solve_h0_from_theta100), which is not ported yet; pass H0")
+        self.engine = lpm.make_engine(engine, pk_table)
+        self.bg = bgmod.background(self.p, self.device)
+
+        # sigma8 / S8: P_lin is linear in As, so As is rescaled to the
+        # requested amplitude (one read of sigma8 back to the host)
+        if params and ("sigma8" in params or "S8" in params):
+            h = _host(self.p["H0"]) / 100.0
+            omm0 = _host_background(self.p)[0]
+            target = (params["sigma8"] if "sigma8" in params
+                      else params["S8"] / np.sqrt(omm0 / 0.3))
+            ks_s2 = lpm.sigma2_k_grid(self.p)
+            z0 = self._t([0.0])
+            spzk = self.engine.plin(self.bg, z0, self._t(ks_s2),
+                                    accuracy="medium",
+                                    growth_mode=self.growth_mode)
+            s2 = lpm.sigma2_R(self.bg, self._t([8.0 / h]), z0, spzk, ks_s2,
+                              self.p["Wkr_taylor_switch"])
+            sigma8_now = float(torch.sqrt(s2[0, 0]))
+            self.p["As"] = self.p["As"] * (target / sigma8_now) ** 2
+            self.bg = bgmod.background(self.p, self.device)
+        self.h = _host(self.p["H0"]) / 100.0
+        self.omm0, self.omk0, self.oml0, self.ombh2 = _host_background(self.p)
+        self.as8 = _host(self.p.get("as8", 1.0))
+        self.YHe = _host(self.p.get("Yp", 0.24))
+
+    def _t(self, x):
+        """x as a float64 tensor on the instance's device."""
+        return torch.as_tensor(x, dtype=_F64, device=self.device)
+
+    # ---- background ----
+    def hubble_parameter(self, z):
+        return bgmod.hubble_parameter(self.bg, self._t(z))
+
+    def h_of_z(self, z):
+        return bgmod.h_of_z(self.bg, self._t(z))
+
+    def comoving_radial_distance(self, z):
+        return bgmod.comoving_radial_distance(self.bg, self._t(z))
+
+    def angular_diameter_distance(self, z1, z2=None):
+        return bgmod.angular_diameter_distance(
+            self.bg, self._t(z1), None if z2 is None else self._t(z2))
+
+    def redshift_at_comoving_radial_distance(self, chi, zmax=1e4):
+        return bgmod.redshift_at_comoving_radial_distance(
+            self.bg, self._t(chi), zmax)
+
+    def sigma_crit(self, zlens, zsource):
+        return bgmod.sigma_crit(self.bg, self._t(zlens), self._t(zsource))
+
+    def rho_critical_z(self, z):
+        return bgmod.rho_critical_z(self.bg, self._t(z))
+
+    def rho_matter_z(self, z):
+        return bgmod.rho_matter_z(self.bg, self._t(z))
+
+    def omz(self, z):
+        return bgmod.omz(self.bg, self._t(z))
+
+    # ---- growth ----
+    def D_growth_approx(self, a):
+        return bgmod.growth_unnormalized(self.bg, self._t(a))
+
+    def D_growth(self, a, type="anorm", exact=False):
+        """D(a) normalized by ``type`` ('anorm' or 'z0norm'); exact=True
+        forces the integrated growing mode, else the instance's mode."""
+        mode = "ode" if exact else self.growth_mode
+        return bgmod.d_growth(self.bg, self._t(a), norm=type, mode=mode)
+
+    def D_growth_exact_arbitrary_norm(self, a):
+        """The unnormalized integrated growing mode (D -> a in matter
+        domination)."""
+        return bgmod.growth_unnormalized(self.bg, self._t(a), mode="ode")
+
+    def get_growth_rate_f(self, zs):
+        return bgmod.growth_rate_f(self.bg, self._t(zs),
+                                   mode=self.growth_mode)
+
+    def bias_fnl(self, bg_bias, fnl, z, ks, deltac=1.42):
+        """Scale-dependent local-fNL bias b + fnl 2 deltac (b - 1) / alpha."""
+        beta = 2.0 * deltac * (bg_bias - 1.0)
+        a = 1.0 / (1.0 + self._t(z))
+        ks = self._t(ks)
+        alpha = ((2.0 * ks**2 * self.Tk(ks, "eisenhu_osc"))
+                 / (3.0 * self.bg.omm0 * bgmod.h_of_z(self.bg, 0.0) ** 2)
+                 * bgmod.d_growth(self.bg, a, norm="anorm",
+                                  mode=self.growth_mode))
+        return bg_bias + fnl * (beta / alpha)
+
+    def alpha_fnl(self, zs, ks, deltac=None):
+        """alpha(z, k) of the fNL bias relation on the (nz, nk) grid."""
+        del deltac
+        zs = torch.atleast_1d(self._t(zs))
+        ks = self._t(ks)
+        D = bgmod.d_growth(self.bg, 1.0 / (1.0 + zs), norm="anorm",
+                           mode=self.growth_mode)
+        return ((2.0 * ks**2 * self.Tk(ks, "eisenhu_osc"))[None, :]
+                / (3.0 * self.bg.omm0 * bgmod.h_of_z(self.bg, 0.0) ** 2)
+                * D[:, None])
+
+    # ---- linear power ----
+    def Tk(self, ks, type="eisenhu_osc"):
+        return transfer_eh98(self.bg, self._t(ks), type)
+
+    def P_lin(self, ks, zs, knorm=1e-4, kmax=None):
+        del knorm, kmax
+        return self.engine.plin(self.bg, self._t(zs), self._t(ks),
+                                accuracy="medium",
+                                growth_mode=self.growth_mode)
+
+    def P_lin_slow(self, ks, zs, kmax=None):
+        del kmax
+        return self.engine.plin(self.bg, self._t(zs), self._t(ks),
+                                accuracy="high"
+                                if self.engine.name == "tabulated"
+                                else "medium",
+                                growth_mode=self.growth_mode)
+
+    def P_lin_approx(self, ks, zs, type="eisenhu_osc"):
+        return lpm.plin_approx(self.bg, self._t(zs), self._t(ks), type,
+                               growth_mode=self.growth_mode)
+
+    def P_mm_linear(self, zs, ks):
+        """Linear matter power on (zs, ks)."""
+        return self._get_matter_power(zs, ks, nonlinear=False)
+
+    def P_mm_nonlinear(self, ks, zs, halofit_version="mead"):
+        """Nonlinear matter power on (zs, ks): a tabulated engine's
+        nonlinear table; the halofit/hmcode models are not ported yet."""
+        old = self.halofit
+        self.halofit = halofit_version
+        try:
+            return self._get_matter_power(zs, ks, nonlinear=True)
+        finally:
+            self.halofit = old
+
+    def get_pk_interpolator(self, zs, kmax, var="weyl", nonlinear=False,
+                            return_z_k=False, k_per_logint=None,
+                            log_interp=True, extrap_kmax=None):
+        """A P(z, k) evaluator with the reference's interface: an object
+        whose ``.P(zs, ks, grid=True)`` evaluates 'total' (matter), 'cb'
+        (cold matter, linear) or 'weyl' (the Weyl-potential spectrum by
+        the Poisson relation) exactly on the requested points."""
+        del k_per_logint, log_interp, extrap_kmax
+        cosmo = self
+
+        class _PK:
+            def P(self, pzs, pks, grid=True):
+                pzs = torch.atleast_1d(cosmo._t(pzs))
+                pks = torch.atleast_1d(cosmo._t(pks))
+                if var == "cb":
+                    if nonlinear:
+                        raise NotImplementedError(
+                            "var='cb' nonlinear needs a cb table; use "
+                            "var='total' or linear")
+                    p = cosmo.engine.plin(cosmo.bg, pzs, pks,
+                                          accuracy="medium",
+                                          growth_mode=cosmo.growth_mode,
+                                          component="cb")
+                else:
+                    p = cosmo._get_matter_power(pzs, pks,
+                                                nonlinear=nonlinear)
+                if var == "weyl":
+                    h0i = cosmo.bg.H0 / bgmod.CSPEED_KMS
+                    pref = (1.5 * cosmo.bg.omm0 * h0i**2
+                            * (1.0 + pzs))[:, None] ** 2
+                    p = pref * p / pks[None, :] ** 4
+                if not grid:
+                    p = torch.diagonal(p)
+                return p
+
+        pk = _PK()
+        if return_z_k:
+            zarr = np.atleast_1d(np.asarray(zs, dtype=np.float64))
+            karr = np.geomspace(1e-4, float(kmax), 256)
+            return pk, zarr, karr
+        return pk
+
+    def _get_matter_power(self, zs, ks, nonlinear=False):
+        zs, ks = self._t(zs), self._t(ks)
+        if nonlinear:
+            if self.engine.name == "tabulated":
+                return self.engine.pzk_grid(self.bg, zs, ks, nonlinear=True)
+            raise NotImplementedError(
+                f"nonlinear matter power (halofit={self.halofit!r}) needs "
+                f"the {NONLINEAR_GROUP} group of ROADMAP A9, which is not "
+                f"ported yet; a TabulatedEngine with a nonlinear table "
+                f"serves it")
+        return self.engine.pzk_grid(self.bg, zs, ks, nonlinear=False,
+                                    growth_mode=self.growth_mode)
+
+    def get_sigma2_R(self, R, zs, kmin=None, kmax=None, numks=None):
+        """sigma^2(z, R), shape (nz, nR)."""
+        p = dict(self.p)
+        for key, val in (("sigma2_kmin", kmin), ("sigma2_kmax", kmax),
+                         ("sigma2_numks", numks)):
+            if val is not None:
+                p[key] = val
+        ks_s2 = lpm.sigma2_k_grid(p)
+        zs = self._t(zs)
+        spzk = self.engine.plin(self.bg, zs, self._t(ks_s2),
+                                accuracy=self.accuracy,
+                                growth_mode=self.growth_mode)
+        R = torch.atleast_1d(self._t(R))
+        return lpm.sigma2_R(self.bg, R, zs, spzk, ks_s2,
+                            self.p["Wkr_taylor_switch"])
+
+    def get_sigma8(self, zs, kmin=1e-4, kmax=None, numks=1000):
+        r = self.get_sigma2_R(8.0 / self.p["H0"] * 100.0, zs,
+                              kmin=kmin, kmax=kmax, numks=numks)
+        return torch.sqrt(r[:, 0])
+
+    # ---- Limber projections (the limber module) ----
+    def lensing_window(self, ezs, zs, dndz=None):
+        return limb.lensing_window(self.bg, ezs, zs, dndz)
+
+    def C_kk(self, ells, zs, ks, Pmm, **kw):
+        return limb.C_kk(self.bg, ells, zs, ks, Pmm, **kw)
+
+    def C_kg(self, ells, zs, ks, Pgm, gzs, **kw):
+        return limb.C_kg(self.bg, ells, zs, ks, Pgm, gzs, **kw)
+
+    def C_gg(self, ells, zs, ks, Pgg, gzs, **kw):
+        return limb.C_gg(self.bg, ells, zs, ks, Pgg, gzs, **kw)
+
+    def C_gy(self, ells, zs, ks, Pgp, gzs, **kw):
+        return limb.C_gy(self.bg, ells, zs, ks, Pgp, gzs, **kw)
+
+    def C_ky(self, ells, zs, ks, Pym, **kw):
+        return limb.C_ky(self.bg, ells, zs, ks, Pym, **kw)
+
+    def C_yy(self, ells, zs, ks, Ppp, **kw):
+        return limb.C_yy(self.bg, ells, zs, ks, Ppp, **kw)
+
+    def get_Omega_nu(self):
+        """Massive-neutrino density fraction."""
+        return self.bg.omnu0
+
+    # ---- baryon combinators ----
+    def total_matter_power_spectrum(self, Pnn, Pne, Pee):
+        from .power import total_matter_power_spectrum
+        return total_matter_power_spectrum(self.p["omch2"], self.p["ombh2"],
+                                           Pnn, Pne, Pee)
+
+    def total_matter_galaxy_power_spectrum(self, Pgn, Pge):
+        from .power import total_matter_galaxy_power_spectrum
+        return total_matter_galaxy_power_spectrum(self.p["omch2"],
+                                                  self.p["ombh2"], Pgn, Pge)
+
+
+for _name, _group in DEFERRED.items():
+    setattr(Cosmology, _name, _deferred(_name, _group))

@@ -1,0 +1,484 @@
+"""The user-facing HaloModel class on float64 tensors (port of
+hmvec_tpu/models/halo_model.py).
+
+A plain class over the staged functions of the port, with the JAX class's
+method names and signatures: the linear power, the mass function and its
+bias on the instance's (zs, ms) grid, the registered profiles u(k | z, m)
+and HOD samples, and their 1-halo / 2-halo spectra.  Profiles go through
+the same kernels as the pipelines on the card: every numeric profile
+(``add_nfw_profile(numeric=True)``, Einasto, the Battaglia gas and
+pressure profiles) through ``generic_profile_fft`` and its float64
+resample kernel, ``add_nfw_profile(fast=True)`` through the fast-tier NFW
+kernel (``ops.nfw_kernels.nfw_uk_fast``).  The host keeps numpy copies of
+the grids (``zs_np``, ``ks_np``, ``ms_np``) for the static quadrature
+weights.
+
+The methods whose module is still to be ported raise NotImplementedError
+naming its group of ROADMAP A9 (``DEFERRED``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..ops.nfw_kernels import nfw_uk_fast
+from ..ops.sine_transform import generic_profile_fft
+from ..params import battaglia_defaults, scoped_override
+from ..utils.weights import trapz_weights
+from . import mass_function as mfm
+from . import power as pwr
+from . import profiles as prof
+from .cosmology import Cosmology, _deferred
+from .hod import build_hod, build_hod_zheng05
+from .mass_conversion import mdelta_from_mdelta
+
+_F64 = torch.float64
+
+
+def _require(ok: bool, message: str):
+    """The JAX class's argument checks, as errors that -O keeps."""
+    if not ok:
+        raise ValueError(message)
+
+
+def _numeric_params(p):
+    return {k: v for k, v in p.items() if isinstance(v, (int, float))}
+
+
+_HOD_PARAM_KEYS = [
+    "hod_sig_log_mstellar", "hod_bisection_search_min_log10mthresh",
+    "hod_bisection_search_max_log10mthresh", "hod_bisection_num_iter",
+    "hod_alphasat", "hod_Bsat", "hod_betasat", "hod_Bcut", "hod_betacut",
+    "hod_A_log10mthresh", "hod_Msat_override", "hod_Mcut_override",
+    "hod_zheng_log10Mmin", "hod_zheng_siglogm", "hod_zheng_log10M0",
+    "hod_zheng_log10M1", "hod_zheng_alpha",
+]
+
+# HaloModel methods whose module is still in A9, by group
+DEFERRED = {
+    "get_mean_compton_y": "pairwise", "get_tau_aperture": "pairwise",
+    "add_cib_tracer": "cib", "get_cib_mean_emissivity": "cib",
+    "get_cib_mean_intensity": "cib", "get_cib_cls": "cib",
+    "add_hi_tracer": "hi", "get_omega_hi": "hi", "get_hi_bias": "hi",
+    "get_p21": "hi",
+    "get_galaxy_rsd_multipoles": "rsd/tns/spt",
+    "get_bispectrum": "bispectrum", "get_angular_bispectrum": "bispectrum",
+    "cluster_counts_obs": "cluster_counts",
+    "cluster_counts_q_bins": "cluster_counts",
+    "cluster_counts_covariance": "cluster_counts",
+    "joint_counts_cl_cov": "cov", "get_cl_cov_t1h": "cov",
+    "get_cl_cov_ssc": "cov", "get_pk_covariance": "cov",
+    "sigma_1h_profiles": "cluster_lensing",
+    "kappa_1h_profiles": "cluster_lensing",
+    "kappa_2h_profiles": "cluster_lensing",
+}
+
+# the y-units of the pressure profile: Thomson cross-section [m^2],
+# electron mass [Msun] and c [m/s]
+_SIGMA_T = 6.6524587321e-29
+_M_ELECTRON_MSUN = 9.1093837015e-31 / 1.989e30
+_C_SI = 299792458.0
+
+
+class HaloModel(Cosmology):
+    def __init__(self, zs, ks, ms=None, params=None,
+                 mass_function="sheth-torman", halofit=None, mdef="vir",
+                 nfw_numeric=False, skip_nfw=False, accuracy="medium",
+                 engine="eh", pk_table=None, cls_table=None,
+                 concmode="duffy", tinker_delta=None, engine_opts=None,
+                 device="cuda"):
+        super().__init__(params=params, halofit=halofit, engine=engine,
+                         accuracy=accuracy, pk_table=pk_table,
+                         cls_table=cls_table, engine_opts=engine_opts,
+                         device=device)
+        self.zs_np = np.asarray(zs, dtype=np.float64)
+        self.ks_np = np.asarray(ks, dtype=np.float64)
+        self.zs = self._t(self.zs_np)
+        self.ks = self._t(self.ks_np)
+        self.mdef = mdef
+        self.mode = mass_function
+        self.concmode = concmode
+        # Tinker overdensity: None -> 200; a number -> that Delta wrt the
+        # mean matter density; "auto" -> the mdef's own overdensity
+        self.tinker_delta = tinker_delta
+        self.hods: dict = {}
+        self.uk_profiles: dict = {}
+        self.uk2_profiles: dict = {}   # <u^2> for c-scatter profiles
+        self.pk_profiles: dict = {}
+
+        if accuracy == "low":
+            self.Pzk = self.P_lin_approx(self.ks, self.zs)
+        else:
+            self.Pzk = self._get_matter_power(self.zs, self.ks,
+                                              nonlinear=False)
+        if halofit is not None:
+            self.nPzk = self._get_matter_power(self.zs, self.ks,
+                                               nonlinear=True)
+        if ms is not None:
+            self.init_mass_function(ms)
+        if not skip_nfw:
+            self.add_nfw_profile("nfw", numeric=nfw_numeric)
+
+    # ---- virial definitions ----
+    def deltav(self, z):
+        return mfm.deltav_bryan_norman(self.omz(z))
+
+    def rvir(self, m, z):
+        if self.mdef == "vir":
+            return mfm.R_from_M(m, self.rho_critical_z(z), self.deltav(z))
+        if self.mdef == "mean":
+            return mfm.R_from_M(m, self.rho_matter_z(z), 200.0)
+        raise ValueError(self.mdef)
+
+    def R_of_m(self, ms):
+        return mfm.R_from_M(self._t(ms), self.rho_matter_z(0.0), delta=1.0)
+
+    # ---- mass function ----
+    def get_sigma2(self):
+        return self.get_sigma2_R(self.R_of_m(self.ms), self.zs)
+
+    def _tinker_delta_grid(self):
+        """The ctor's ``tinker_delta`` as the overdensity (wrt the mean
+        matter density) of the Tinker mass function."""
+        td = self.tinker_delta
+        if td is None:
+            return 200.0
+        if isinstance(td, str):
+            if td != "auto":
+                raise ValueError(f"tinker_delta: {td!r}")
+            if self.mdef == "vir":
+                # Bryan-Norman Delta_v is wrt critical; the Tinker tables
+                # are wrt mean
+                return self.deltav(self.zs) / self.omz(self.zs)
+            return 200.0
+        return td
+
+    def init_mass_function(self, ms):
+        self.ms_np = np.asarray(ms, dtype=np.float64)
+        self.ms = self._t(self.ms_np)
+        self.sigma2 = self.get_sigma2()
+        self.nzm, self.bh = mfm.mass_function_grid(
+            self.sigma2, self.zs, self.ms, self.rho_matter_z(0.0), self.mode,
+            _numeric_params(self.p), self._tinker_delta_grid())
+
+    def get_nzm(self):
+        return self.nzm
+
+    def get_bh(self):
+        return self.bh
+
+    def concentration(self, mode=None):
+        """c(z, m): 'duffy' or 'bhattacharya'; the ctor's ``concmode`` by
+        default."""
+        if mode is None:
+            mode = self.concmode
+        if mode == "duffy":
+            return prof.concentration_duffy(self.ms, self.zs, self.mdef,
+                                            self.p, self.h)
+        if mode == "bhattacharya":
+            d = self.D_growth(1.0 / (1.0 + self.zs), type="z0norm")
+            return prof.concentration_bhattacharya(self.sigma2, d, self.mdef)
+        raise NotImplementedError(mode)
+
+    def _mass_weights(self, x=None):
+        """Trapezoid weights of the mass grid (or of the numpy grid x)."""
+        return self._t(trapz_weights(self.ms_np if x is None else x))
+
+    # ---- profiles ----
+    def _nfw_scales(self):
+        cs = self.concentration()
+        rvirs = self.rvir(self.ms[None, :], self.zs[:, None])
+        return cs, rvirs
+
+    def add_nfw_profile(self, name, numeric=False, nxs=None, xmax=None,
+                        ignore_existing=False, fast=False,
+                        conc_scatter=None):
+        """NFW u(k | z, m): analytic (Si/Ci); ``numeric=True`` by the sine
+        transform; ``fast=True`` by the fast-tier CUDA kernel (float32 u,
+        within 5e-6 of the analytic form; on CPU tensors the plain
+        version); ``conc_scatter`` = sigma_lnc registers <u> and <u^2>
+        under lognormal concentration scatter (analytic only)."""
+        if not ignore_existing:
+            _require(name not in self.uk_profiles,
+                     "Profile name already exists.")
+        if nxs is None:
+            nxs = self.p["nfw_integral_numxs"]
+        if xmax is None:
+            xmax = self.p["nfw_integral_xmax"]
+        cs, rvirs = self._nfw_scales()
+        rss = rvirs / cs
+        if conc_scatter is not None:
+            if numeric or fast:
+                raise ValueError("conc_scatter supports the analytic path")
+            uk, uk2 = prof.nfw_uk_scatter(self.ks, self.zs, cs, rvirs,
+                                          conc_scatter)
+            self.uk_profiles[name] = uk
+            self.uk2_profiles[name] = uk2
+            return self.ks, uk
+        if numeric:
+            _, uk = generic_profile_fft(
+                lambda x: prof.rho_nfw_x(x, rhoscale=1.0)[None, None, :],
+                cs, rss, self.zs, self.ks, xmax, int(nxs))
+        elif fast:
+            nz, nm = cs.shape
+            scales = (rss * (1.0 + self.zs)[:, None]).reshape(-1)
+            uk = nfw_uk_fast(self.ks, scales, cs.reshape(-1).contiguous())
+            uk = uk.reshape(nz, nm, -1).to(self.Pzk.dtype)
+        else:
+            uk = prof.nfw_uk_analytic(self.ks, self.zs, cs, rss)
+        self.uk_profiles[name] = uk
+        self.uk2_profiles.pop(name, None)  # re-registration drops scatter
+        return self.ks, uk
+
+    def add_einasto_profile(self, name, alpha=0.18, nxs=None, xmax=None,
+                            ignore_existing=False):
+        """Einasto u(k | z, m) by the sine transform, with the numeric NFW
+        path's conventions (r_s = r_vir / c, truncation at r_vir, mass
+        norm)."""
+        if not ignore_existing:
+            _require(name not in self.uk_profiles,
+                     "Profile name already exists.")
+        if nxs is None:
+            nxs = self.p["nfw_integral_numxs"]
+        if xmax is None:
+            xmax = self.p["nfw_integral_xmax"]
+        cs, rvirs = self._nfw_scales()
+        _, uk = generic_profile_fft(
+            lambda x: prof.rho_einasto_x(x, alpha=alpha)[None, None, :],
+            cs, rvirs / cs, self.zs, self.ks, xmax, int(nxs))
+        self.uk_profiles[name] = uk
+        self.uk2_profiles.pop(name, None)
+        return self.ks, uk
+
+    def _m200critz(self):
+        """self.ms as M200 wrt rho_crit(z), with R200 and rho_crit(z)."""
+        rhocritz = self.rho_critical_z(self.zs)
+        if self.mdef == "vir":
+            delta_rhos1 = rhocritz * self.deltav(self.zs)
+        else:
+            delta_rhos1 = self.rho_matter_z(self.zs) * 200.0
+        cs = self.concentration()
+        m200 = mdelta_from_mdelta(self.ms, cs, delta_rhos1, 200.0 * rhocritz)
+        r200 = mfm.R_from_M(m200, rhocritz[:, None], delta=200.0)
+        return m200, r200, rhocritz
+
+    def _battaglia_params(self, keys, family, param_override):
+        pparams = {k: self.p[k] for k in keys}
+        pparams.update(battaglia_defaults[family])
+        return scoped_override(
+            pparams, param_override,
+            set(pparams) | set(battaglia_defaults[family]), strict=False)
+
+    def add_battaglia_profile(self, name, family=None, param_override=None,
+                              nxs=None, xmax=None, ignore_existing=False):
+        """Battaglia 2016 gas density profile -> u(k | z, m)."""
+        if not ignore_existing:
+            _require(name not in self.uk_profiles,
+                     "Profile name already exists.")
+        _require(name != "nfw", "Name nfw is reserved.")
+        if nxs is None:
+            nxs = self.p["electron_density_profile_integral_numxs"]
+        if xmax is None:
+            xmax = self.p["electron_density_profile_integral_xmax"]
+        if family is None:
+            family = self.p["battaglia_gas_family"]
+        pparams = self._battaglia_params(("battaglia_gas_gamma",), family,
+                                         param_override)
+        m200, r200, rhocritz = self._m200critz()
+        rvirs = self.rvir(self.ms[None, :], self.zs[:, None])
+        omb = self.p["ombh2"] / self.h**2
+
+        def rhofunc(xs):
+            return prof.rho_gas_x(
+                xs[None, None, :], m200[..., None], self.zs[:, None, None],
+                omb, self.omm0, rhocritz[:, None, None],
+                pparams["battaglia_gas_gamma"], pparams)
+
+        rgs = r200 / 2.0  # x = r / (R200/2)
+        _, uk = generic_profile_fft(rhofunc, rvirs / rgs, rgs, self.zs,
+                                    self.ks, xmax, int(nxs))
+        self.uk_profiles[name] = uk
+        self.uk2_profiles.pop(name, None)
+        return self.ks, uk
+
+    def add_battaglia_pres_profile(self, name, family=None,
+                                   param_override=None, nxs=None, xmax=None,
+                                   ignore_existing=False):
+        """Battaglia pressure profile -> y-weighted p(k | z, m)."""
+        if not ignore_existing:
+            _require(name not in self.pk_profiles,
+                     "Profile name already exists.")
+        _require(name != "nfw", "Name nfw is reserved.")
+        if nxs is None:
+            nxs = self.p["electron_pressure_profile_integral_numxs"]
+        if xmax is None:
+            xmax = self.p["electron_pressure_profile_integral_xmax"]
+        if family is None:
+            family = self.p["battaglia_pres_family"]
+        pparams = self._battaglia_params(
+            ("battaglia_pres_gamma", "battaglia_pres_alpha"), family,
+            param_override)
+        m200, r200, rhocritz = self._m200critz()
+        rvirs = self.rvir(self.ms[None, :], self.zs[:, None])
+        omb = self.p["ombh2"] / self.h**2
+
+        def presfunc(xs):
+            return prof.pressure_x(
+                xs[None, None, :], m200[..., None], r200[..., None],
+                self.zs[:, None, None], omb, self.omm0,
+                rhocritz[:, None, None], pparams["battaglia_pres_alpha"],
+                pparams["battaglia_pres_gamma"], pparams)
+
+        _, pk = generic_profile_fft(presfunc, rvirs / r200, r200, self.zs,
+                                    self.ks, xmax, int(nxs),
+                                    do_mass_norm=False)
+        unit = (4.0 * math.pi * (_SIGMA_T / (_M_ELECTRON_MSUN * _C_SI**2))
+                * (r200**3 * ((1.0 + self.zs) ** 2
+                              / self.h_of_z(self.zs))[..., None])[..., None])
+        self.pk_profiles[name] = pk * unit
+        return self.ks, self.pk_profiles[name]
+
+    def get_tau_mean_hod(self, hod_name, tau_zm):
+        """HOD-weighted sample mean of a per-halo quantity q(z, m):
+        int dm n (Nc + Ns) q / ngal."""
+        h = self.hods[hod_name]
+        num = (self.nzm * (h["Nc"] + h["Ns"]) * self._t(tau_zm)) \
+            @ self._mass_weights()
+        return num / h["ngal"]
+
+    # ---- HOD ----
+    def add_hod(self, name, mthresh=None, ngal=None, corr="max",
+                satellite_profile_name="nfw", central_profile_name=None,
+                ignore_existing=False, param_override=None,
+                family="leauthaud"):
+        """family: 'leauthaud' (the Behroozi stellar-mass threshold HOD)
+        or 'zheng05' (the five-parameter Zheng et al 2005 HOD; ``ngal``
+        solves log10 Mmin, ``mthresh`` is ignored)."""
+        if not ignore_existing:
+            _require(name not in self.uk_profiles,
+                     "HOD name already used by profile.")
+            _require(name not in self.hods,
+                     "HOD with that name already exists.")
+        _require(satellite_profile_name in self.uk_profiles,
+                 f"Unknown satellite profile {satellite_profile_name!r}")
+        if central_profile_name is not None:
+            _require(central_profile_name in self.uk_profiles,
+                     f"Unknown central profile {central_profile_name!r}")
+        hp = {k: self.p[k] for k in _HOD_PARAM_KEYS if k in self.p}
+        hp = scoped_override(hp, param_override, set(_HOD_PARAM_KEYS),
+                             strict=True)
+        if family == "zheng05":
+            grid = build_hod_zheng05(self.zs, self.ms, self.nzm, self.bh,
+                                     hp, ngal=ngal, corr=corr)
+        elif family == "leauthaud":
+            grid = build_hod(self.zs, self.ms, self.nzm, self.bh, hp,
+                             mthresh=mthresh, ngal=ngal, corr=corr,
+                             Msat_override=hp.get("hod_Msat_override"),
+                             Mcut_override=hp.get("hod_Mcut_override"))
+        else:
+            raise ValueError(f"HOD family {family!r}: supported are "
+                             "'leauthaud' (reference) and 'zheng05'")
+        self.hods[name] = {
+            "Nc": grid.Nc, "Ns": grid.Ns, "NsNsm1": grid.NsNsm1,
+            "NcNs": grid.NcNs, "ngal": grid.ngal, "bg": grid.bg,
+            "satellite_profile": satellite_profile_name,
+            "central_profile": central_profile_name,
+            "log10mthresh": grid.log10mthresh,
+        }
+        return self.hods[name]
+
+    def get_bg(self, Nc, Ns, ngal):
+        return ((self.nzm * (Nc + Ns) * self.bh) @ self._mass_weights()) / ngal
+
+    def get_ngal(self, Nc, Ns):
+        return (self.nzm * (Nc + Ns)) @ self._mass_weights()
+
+    # ---- tracer resolution ----
+    def _tracer(self, name):
+        if name in self.hods:
+            h = self.hods[name]
+            uc = (None if h["central_profile"] is None
+                  else self.uk_profiles[h["central_profile"]])
+            return pwr.HODTracer(
+                Nc=h["Nc"], Ns=h["Ns"], NsNsm1=h["NsNsm1"], NcNs=h["NcNs"],
+                ngal=h["ngal"], bg=h["bg"],
+                us=self.uk_profiles[h["satellite_profile"]], uc=uc,
+                us2=self.uk2_profiles.get(h["satellite_profile"]))
+        if name in self.uk_profiles:
+            return pwr.MatterTracer(uk=self.uk_profiles[name],
+                                    uk2=self.uk2_profiles.get(name))
+        if name in self.pk_profiles:
+            return pwr.PressureTracer(pk=self.pk_profiles[name])
+        raise ValueError(f"Unknown tracer {name!r}")
+
+    # ---- spectra ----
+    def get_power_1halo(self, name="nfw", name2=None):
+        t1 = self._tracer(name)
+        t2 = t1 if name2 in (None, name) else self._tracer(name2)
+        return pwr.power_1halo(t1, t2, self.nzm, self.ms, self.ks,
+                               self.rho_matter_z(0.0),
+                               self.p["kstar_damping"])
+
+    def exclusion_radius(self):
+        """Bias-weighted mean comoving exclusion radius (nz,) [Mpc]:
+        (1+z) int n b (2 r_vir) dm / int n b dm."""
+        rvirs = self.rvir(self.ms[None, :], self.zs[:, None])
+        w = self.nzm * self.bh
+        tw = self._mass_weights(np.log(self.ms_np))[None, :]
+        num = torch.sum(tw * w * self.ms[None, :] * 2.0 * rvirs, dim=-1)
+        den = torch.sum(tw * w * self.ms[None, :], dim=-1)
+        return (1.0 + self.zs) * num / den
+
+    def get_power_2halo(self, name="nfw", name2=None, verbose=False,
+                        b1_in=None, b2_in=None, fnl=None, deltac=1.42,
+                        exclusion=None):
+        """2-halo spectrum; ``fnl`` threads the scale-dependent bias
+        through each leg; ``exclusion`` ('auto', a radius in Mpc or an
+        (nz,) array) adds the sharp halo-exclusion correction."""
+        del verbose
+        t1 = self._tracer(name)
+        t2 = t1 if name2 in (None, name) else self._tracer(name2)
+        alpha_zk = (self.alpha_fnl(self.zs, self.ks)
+                    if fnl is not None else None)
+        p2h = pwr.power_2halo(t1, t2, self.nzm, self.bh, self.ms, self.Pzk,
+                              self.rho_matter_z(0.0), b1_in, b2_in,
+                              fnl=fnl, alpha_zk=alpha_zk, deltac=deltac)
+        if exclusion is not None:
+            if isinstance(exclusion, str):
+                if exclusion != "auto":
+                    raise ValueError(
+                        f"exclusion: unknown option {exclusion!r} "
+                        "(use 'auto', a radius in Mpc, or an (nz,) array)")
+                r_excl = self.exclusion_radius()
+            else:
+                r_excl = exclusion
+            p2h = p2h + pwr.exclusion_correction(self.ks_np, p2h, r_excl)
+        return p2h
+
+    def get_power(self, name="nfw", name2=None, verbose=False, b1=None,
+                  b2=None, fnl=None, deltac=1.42, exclusion=None):
+        return (self.get_power_1halo(name, name2)
+                + self.get_power_2halo(name, name2, verbose, b1, b2,
+                                       fnl=fnl, deltac=deltac,
+                                       exclusion=exclusion))
+
+    def cluster_counts(self, mmin, fsky=1.0, mmax=None):
+        """(dN/dz, N_total) of halos above ``mmin`` (and below ``mmax``)
+        over the sky fraction ``fsky``: fsky 4 pi chi^2 / H int n dm,
+        trapezoid on this instance's grids."""
+        w = self._mass_weights()
+        mask = self.ms >= mmin
+        if mmax is not None:
+            mask = mask & (self.ms <= mmax)
+        n_of_z = (self.nzm * torch.where(mask, w, 0.0)[None, :]).sum(dim=-1)
+        chi = self.comoving_radial_distance(self.zs)
+        dvdz = 4.0 * math.pi * chi**2 / self.h_of_z(self.zs)
+        dndz = fsky * dvdz * n_of_z
+        return dndz, dndz @ self._t(trapz_weights(self.zs_np))
+
+
+for _name, _group in DEFERRED.items():
+    setattr(HaloModel, _name, _deferred(_name, _group))

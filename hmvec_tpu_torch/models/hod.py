@@ -3,8 +3,8 @@ halo-mass relation, on float64 tensors (port of hmvec_tpu/models/hod.py).
 
   * Behroozi et al. (arXiv:1001.0015, Table 2) M_halo(M*), two z regimes;
   * its inverse M*(M_halo) by sampling on a dense log grid and one
-    searchsorted + lerp per redshift row (``_interp_rows``, with
-    ``numpy.interp``'s end behaviour);
+    searchsorted + lerp per redshift row (``ops.quadrature.linear_interp``,
+    with ``numpy.interp``'s end behaviour);
   * <Nc> = (1/2)(1 - erf), <Ns> a power law with an exponential cutoff;
   * ngal -> log10 mthresh by fixed-count vectorized bisection
     (ops/rootfind.invert_monotone).  As in the JAX package the bisection
@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.quadrature import linear_interp
 from ..ops.rootfind import invert_monotone
 from .power import mass_weights
 
@@ -81,25 +82,6 @@ def mhalo_from_mstellar(zs, log10mstellar):
 _MSTAR_GRID = np.linspace(-18.0, 18.0, 4000)
 
 
-def _interp_rows(x, xp, fp):
-    """``numpy.interp(x[i], xp[i], fp)`` for every row i at once: x (n, nx)
-    and xp (n, ng) increasing along each row, fp (ng,).  Flat at fp[0] below
-    xp[i, 0] and at fp[-1] above xp[i, -1]; the lerp is written as
-    jax.numpy.interp writes it, so the two agree to rounding."""
-    ng = xp.shape[-1]
-    i = torch.searchsorted(xp, x.contiguous(), right=True).clamp(1, ng - 1)
-    x0, x1 = torch.gather(xp, -1, i - 1), torch.gather(xp, -1, i)
-    f0, f1 = fp[i - 1], fp[i]
-    dx = x1 - x0
-    # a zero-width interval takes its left value (and no NaN gradient)
-    eps = float(np.spacing(np.finfo(np.float64).eps))
-    dx0 = dx.abs() <= eps
-    f = torch.where(dx0, f0,
-                    f0 + ((x - x0) / torch.where(dx0, 1.0, dx)) * (f1 - f0))
-    f = torch.where(x < xp[..., :1], fp[0], f)
-    return torch.where(x > xp[..., -1:], fp[-1], f)
-
-
 def mstellar_from_mhalo(zs, log10mhalo):
     """log10 M*(M_halo): the Behroozi relation inverted on a dense grid,
     shape (nz, n) for log10mhalo (n,) or (1, n)."""
@@ -108,7 +90,7 @@ def mstellar_from_mhalo(zs, log10mhalo):
     mh = mhalo_from_mstellar(zs, grid[None, :])       # (nz, ngrid)
     lm = _t(log10mhalo, dev)
     mhal = lm.reshape(1, -1).expand(mh.shape[0], lm.shape[-1])
-    return _interp_rows(mhal, mh, grid)
+    return linear_interp(mhal, mh, grid)
 
 
 def avg_nc(log10mhalo, zs, log10mstellar_thresh, sig_log_mstellar):

@@ -1,27 +1,37 @@
 """1-halo / 2-halo power assembly on float64 tensors (port of
-hmvec_tpu/models/power.py for the matter and HOD tracers).
+hmvec_tpu/models/power.py for the matter, pressure and HOD tracers).
 
 The mass integrals are static trapezoid-weight reductions over the m axis.
 The 2-halo term applies the low-k consistency completion, so that
-P2h -> P_lin as k -> 0, and the 1-halo term is damped below k*.
+P2h -> P_lin as k -> 0, and the 1-halo term is damped below k*.  ``fnl``
+threads the local-fNL scale-dependent bias through each 2-halo leg, and
+``exclusion_correction`` is the Baldauf et al 2013 sharp halo exclusion.
 
 Deviation from the JAX package: the assembly always runs in float64.  The
 JAX ``fast_assembly`` option (float32 products and sums) exists because
 float64 is emulated on the TPU; a GPU has native float64, so the port has
-no such option.  ``MatterTracer`` and ``HODTracer`` are ported, without the
-concentration-scatter second moments (uk2, us2); the pressure and CIB
-tracers come with their slices.
+no such option.  The CIB tracer and its terms come with the cib group of
+ROADMAP A9.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
 class MatterTracer(NamedTuple):
-    uk: torch.Tensor  # (nz, nm, nk) normalized profile u(k | z, m)
+    uk: torch.Tensor  # (nz, nm, nk) normalized profile u(k | z, m), or <u>
+    # <u^2> under concentration scatter (profiles.nfw_uk_scatter): the
+    # 1-halo auto term uses it; cross and 2-halo terms are linear in u
+    uk2: Optional[torch.Tensor] = None
+
+
+class PressureTracer(NamedTuple):
+    pk: torch.Tensor  # (nz, nm, nk) pressure profile in y units
 
 
 class HODTracer(NamedTuple):
@@ -31,8 +41,9 @@ class HODTracer(NamedTuple):
     NcNs: torch.Tensor     # (nz, nm)
     ngal: torch.Tensor     # (nz,)
     bg: torch.Tensor       # (nz,)
-    us: torch.Tensor       # (nz, nm, nk) satellite profile
-    uc: Optional[torch.Tensor] = None  # central profile (None -> 1)
+    us: torch.Tensor       # (nz, nm, nk) satellite profile (<u> if scattered)
+    uc: Optional[torch.Tensor] = None   # central profile (None -> 1)
+    us2: Optional[torch.Tensor] = None  # <u^2> under concentration scatter
 
 
 def mass_weights(ms):
@@ -57,11 +68,20 @@ def _matter_term(t: MatterTracer, ms, rho_matter0, lowklim=False):
     return fac * t.uk
 
 
+def _pressure_term(t: PressureTracer, lowklim=False):
+    """The pressure profile; in the low-k limit its first k column."""
+    if lowklim:
+        return t.pk[:, :, :1].expand(t.pk.shape)
+    return t.pk
+
+
 def _hod_square_term(t: HODTracer):
-    """(2 uc us <NcNs> + <Ns(Ns-1)> us^2) / ngal^2, shape (nz, nm, nk)."""
+    """(2 uc us <NcNs> + <Ns(Ns-1)> us^2) / ngal^2, shape (nz, nm, nk); under
+    concentration scatter the satellite pair term takes <u^2>."""
     uc = 1.0 if t.uc is None else t.uc
+    us_sq = t.us**2 if t.us2 is None else t.us2
     return ((2.0 * uc * t.us * t.NcNs[..., None]
-             + t.NsNsm1[..., None] * t.us**2)
+             + t.NsNsm1[..., None] * us_sq)
             / t.ngal[..., None, None] ** 2)
 
 
@@ -81,16 +101,26 @@ def _term(tracer, ms, rho_matter0, lowklim=False):
         return _hod_term(tracer, lowklim)
     if isinstance(tracer, MatterTracer):
         return _matter_term(tracer, ms, rho_matter0, lowklim)
-    raise TypeError(f"only MatterTracer and HODTracer are ported, got "
-                    f"{type(tracer).__name__}")
+    if isinstance(tracer, PressureTracer):
+        return _pressure_term(tracer, lowklim)
+    raise TypeError(f"only MatterTracer, PressureTracer and HODTracer are "
+                    f"ported, got {type(tracer).__name__}")
 
 
 def one_halo_square_term(tracer1, tracer2, ms, rho_matter0):
     """The (z, m, k) pair term that power_1halo integrates.  One HOD sample
-    with itself keeps the factorial-moment form; two distinct tracers
-    factorize."""
+    with itself keeps the factorial-moment form, a scattered matter
+    profile with itself takes <u^2>, a pressure profile with itself its
+    square; two distinct tracers factorize."""
     if tracer1 is tracer2 and isinstance(tracer1, HODTracer):
         return _hod_square_term(tracer1)
+    if (tracer1 is tracer2 and isinstance(tracer1, MatterTracer)
+            and tracer1.uk2 is not None):
+        fac = ms[None, :, None] / rho_matter0
+        return fac * fac * tracer1.uk2
+    if (isinstance(tracer1, PressureTracer)
+            and isinstance(tracer2, PressureTracer)):
+        return _pressure_term(tracer1) ** 2
     return (_term(tracer1, ms, rho_matter0)
             * _term(tracer2, ms, rho_matter0))
 
@@ -105,21 +135,63 @@ def power_1halo(tracer1, tracer2, nzm, ms, ks, rho_matter0,
 
 
 def _leg(tracer, nzm, bh, ms, rho_matter0):
-    """(integral, consistency, b) for one 2-halo leg."""
+    """(integral, consistency, b) for one 2-halo leg.  A pressure leg takes
+    no consistency completion and b = 0, as in the reference."""
     weighted = nzm[..., None] * bh[..., None]
     integral = _mass_integral(weighted * _term(tracer, ms, rho_matter0), ms)
+    if isinstance(tracer, PressureTracer):
+        return integral, torch.zeros_like(integral), 0.0
     term0 = _term(tracer, ms, rho_matter0, lowklim=True)
     consistency = _mass_integral(weighted * term0, ms)
     b = tracer.bg[:, None] if isinstance(tracer, HODTracer) else 1.0
     return integral, consistency, b
 
 
-def power_2halo(tracer1, tracer2, nzm, bh, ms, pzk_lin, rho_matter0):
-    """P_2h(z, k) with the low-k consistency completion, shape (nz, nk)."""
+def _leg_fnl(tracer, nzm, bh, ms, rho_matter0):
+    """The (b - 1)-weighted 2-halo leg: the local-fNL response
+    db = 2 fnl deltac (b - 1) / alpha(z, k) (Dalal et al 2008) integrated
+    like b and completed at low k the same way.  A matter leg completes
+    to 0 (bias consistency minus mass conservation), an HOD leg to
+    bg - 1."""
+    integral, consistency, b = _leg(tracer, nzm, bh - 1.0, ms, rho_matter0)
+    if isinstance(tracer, HODTracer):
+        b = b - 1.0
+    elif not isinstance(tracer, PressureTracer):
+        b = 0.0
+    return integral, consistency, b
+
+
+def power_2halo(tracer1, tracer2, nzm, bh, ms, pzk_lin, rho_matter0,
+                b1_in=None, b2_in=None, fnl=None, alpha_zk=None,
+                deltac=1.42):
+    """P_2h(z, k) with the low-k consistency completion, shape (nz, nk).
+
+    b1_in, b2_in: a large-scale bias per z in place of a leg's completion.
+    fnl: the local primordial non-Gaussianity amplitude, threaded through
+    each leg's mass integral; it needs alpha_zk (nz, nk) from
+    ``Cosmology.alpha_fnl``."""
     i1, c1, b1 = _leg(tracer1, nzm, bh, ms, rho_matter0)
     i2, c2, b2 = _leg(tracer2, nzm, bh, ms, rho_matter0)
+    dev = pzk_lin.device
+    if b1_in is not None:
+        b1 = torch.as_tensor(b1_in, dtype=torch.float64,
+                             device=dev).reshape(-1, 1)
+    if b2_in is not None:
+        b2 = torch.as_tensor(b2_in, dtype=torch.float64,
+                             device=dev).reshape(-1, 1)
     e1 = i1 + b1 - c1
     e2 = i2 + b2 - c2
+    if fnl is not None:
+        if alpha_zk is None:
+            raise ValueError("fnl needs alpha_zk (Cosmology.alpha_fnl)")
+        pref = 2.0 * fnl * deltac / alpha_zk
+        if1, cf1, bf1 = _leg_fnl(tracer1, nzm, bh, ms, rho_matter0)
+        e1 = e1 + pref * (if1 + bf1 - cf1)
+        if tracer2 is tracer1:
+            if2, cf2, bf2 = if1, cf1, bf1
+        else:
+            if2, cf2, bf2 = _leg_fnl(tracer2, nzm, bh, ms, rho_matter0)
+        e2 = e2 + pref * (if2 + bf2 - cf2)
     return pzk_lin * e1 * e2
 
 
@@ -131,3 +203,60 @@ def power_total(tracer1, tracer2, nzm, bh, ms, ks, pzk_lin, rho_matter0,
             + power_2halo(tracer1, tracer2, nzm, bh, ms, pzk_lin,
                           rho_matter0))
 
+
+def exclusion_correction(ks, p2h_zk, r_excl_z):
+    """Baldauf et al 2013 sharp halo exclusion: Delta P (nz, nk) to add to
+    the 2-halo term,
+
+        -4 pi int_0^R (1 + xi_2h(r)) j0(kr) r^2 dr,
+
+    the '1' piece the analytic top-hat V_R 3 j1(kR)/(kR), the xi piece a
+    finite sum on the FFTLog xi grid of p2h_zk itself under a logistic edge
+    half a grid cell wide at r = R (which carries the d/dR edge term
+    through autograd).  ks (nk,): a log-uniform numpy grid (or tensor);
+    p2h_zk (nz, nk); r_excl_z: the comoving exclusion radius [Mpc],
+    scalar or (nz,)."""
+    from ..ops.fftlog import correlation_function
+
+    ks_np = (ks.detach().cpu().numpy() if isinstance(ks, torch.Tensor)
+             else np.asarray(ks, dtype=np.float64))
+    dln = np.diff(np.log(ks_np))
+    if not np.allclose(dln, dln[0], rtol=1e-6):
+        raise ValueError(
+            "exclusion_correction needs a log-uniform k grid (the xi "
+            "table comes from FFTLog); got non-uniform dlnk")
+    dev = p2h_zk.device
+    kt = torch.as_tensor(ks_np, device=dev)
+    rz = torch.atleast_1d(torch.as_tensor(r_excl_z, dtype=torch.float64,
+                                          device=dev))[:, None]
+    rs, xi = correlation_function(ks_np, p2h_zk)
+    dlnr = torch.log(rs[1] / rs[0])
+    w = torch.full_like(rs, 1.0) * dlnr
+    w = torch.cat([0.5 * dlnr.reshape(1), w[1:-1], 0.5 * dlnr.reshape(1)])
+    mask = torch.sigmoid((torch.log(rz) - torch.log(rs)[None, :])
+                         / (0.5 * dlnr))
+    j0_rk = torch.sinc((rs[:, None] * kt[None, :]) / math.pi)
+    xi_piece = 4.0 * math.pi * ((mask * xi * (w * rs**3)[None, :]) @ j0_rk)
+    x = rz * kt[None, :]
+    xs = torch.where(x > 1e-4, x, 1.0)
+    tophat = torch.where(x > 1e-4,
+                         3.0 * (torch.sin(xs) - xs * torch.cos(xs)) / xs**3,
+                         1.0 - x * x / 10.0)
+    vol_piece = (4.0 * math.pi / 3.0) * rz**3 * tophat
+    return -(xi_piece + vol_piece)
+
+
+def total_matter_power_spectrum(omch2, ombh2, Pnn, Pne, Pee):
+    """fc^2 Pnn + 2 fc fb Pne + fb^2 Pee."""
+    omtoth2 = omch2 + ombh2
+    fc = omch2 / omtoth2
+    fb = ombh2 / omtoth2
+    return fc**2 * Pnn + 2.0 * fc * fb * Pne + fb**2 * Pee
+
+
+def total_matter_galaxy_power_spectrum(omch2, ombh2, Pgn, Pge):
+    """fc Pgn + fb Pge."""
+    omtoth2 = omch2 + ombh2
+    fc = omch2 / omtoth2
+    fb = ombh2 / omtoth2
+    return fc * Pgn + fb * Pge

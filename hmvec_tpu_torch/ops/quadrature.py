@@ -1,12 +1,17 @@
-"""Static-weight quadrature and finite differences on tensors (port of
-hmvec_tpu/ops/quadrature.py)."""
+"""Static-weight quadrature, linear interpolation and finite differences on
+tensors (port of hmvec_tpu/ops/quadrature.py)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..utils.weights import trapz_weights
+from ..utils.weights import simpson_weights, trapz_weights
+
+
+def _weighted(y, weights, dim):
+    w = torch.as_tensor(np.asarray(weights), dtype=y.dtype, device=y.device)
+    return torch.movedim(y, dim, -1) @ w
 
 
 def trapz(y, x=None, *, weights=None, dim=-1):
@@ -15,12 +20,70 @@ def trapz(y, x=None, *, weights=None, dim=-1):
     JAX package's ``trapz_traced``: the pairwise form, differentiable in
     the grid)."""
     if weights is None and isinstance(x, torch.Tensor):
-        y = torch.movedim(y, dim, -1)
-        return ((y[..., 1:] + y[..., :-1]) * torch.diff(x) / 2.0).sum(dim=-1)
+        return trapz_traced(y, x, axis=dim)
     if weights is None:
         weights = trapz_weights(np.asarray(x))
-    w = torch.as_tensor(np.asarray(weights), dtype=y.dtype, device=y.device)
-    return torch.movedim(y, dim, -1) @ w
+    return _weighted(y, weights, dim)
+
+
+def trapz_traced(y, x, axis=-1):
+    """Trapezoid along ``axis`` over the grid ``x``, a 1-d tensor on y's
+    device (differentiable in the grid)."""
+    y = torch.movedim(y, axis, -1)
+    return ((y[..., 1:] + y[..., :-1]) * torch.diff(x) / 2.0).sum(dim=-1)
+
+
+def simpson(y, x=None, *, weights=None, axis=-1):
+    """scipy.integrate.simpson along ``axis`` with a static (numpy) grid
+    ``x`` or a precomputed weight vector."""
+    if weights is None:
+        weights = simpson_weights(np.asarray(x))
+    return _weighted(y, weights, axis)
+
+
+def linear_interp(x, xp, fp, left=None, right=None):
+    """``jax.numpy.interp(x, xp, fp, left, right)`` on tensors, with its
+    arithmetic: the interval from a right-sided search clipped to
+    [1, n - 1] (so a point on the last node takes the last interval),
+    fp[i-1] + (x - xp[i-1]) / dx * df with dx guarded where it is below
+    float64's smallest spacing, and ``left`` / ``right`` (default fp[0],
+    fp[-1]) where x < xp[0] or x > xp[-1].  fp: (n,) on x's device; xp:
+    (n,), or (rows, n) increasing along each row with x (rows, m), one
+    interpolation per row."""
+    x = torch.as_tensor(x, dtype=torch.float64, device=xp.device)
+    n = xp.shape[-1]
+    rows = xp.reshape(1, n) if xp.dim() == 1 else xp
+    xr = (x.reshape(1, -1) if xp.dim() == 1 else x).contiguous()
+    i = torch.searchsorted(rows, xr, right=True).clamp(1, n - 1)
+    x0, x1 = torch.gather(rows, -1, i - 1), torch.gather(rows, -1, i)
+    f0, f1 = fp[i - 1], fp[i]
+    dx = x1 - x0
+    # a zero-width interval takes its left value (and no NaN gradient)
+    eps = float(np.spacing(np.finfo(np.float64).eps))
+    dx0 = dx.abs() <= eps
+    f = torch.where(dx0, f0,
+                    f0 + ((xr - x0) / torch.where(dx0, 1.0, dx)) * (f1 - f0))
+    f = torch.where(xr < rows[:, :1], fp[0] if left is None else left, f)
+    f = torch.where(xr > rows[:, -1:], fp[-1] if right is None else right, f)
+    return f.reshape(x.shape)
+
+
+def interp(x, y, bounds_error=False, fill_value=0.0):
+    """Reference-signature 1-d linear interpolator factory: a callable
+    that evaluates ``linear_interp`` on the fixed table (x, y), a pair of
+    float64 tensors or arrays, with ``fill_value`` outside the range.
+    ``bounds_error=True`` is refused, as in the JAX package."""
+    if bounds_error:
+        raise NotImplementedError("bounds_error=True is not supported; "
+                                  "use fill_value instead")
+    dev = y.device if isinstance(y, torch.Tensor) else None
+    xt = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    yt = torch.as_tensor(y, dtype=torch.float64, device=xt.device)
+
+    def _eval(xn):
+        return linear_interp(xn, xt, yt, left=fill_value, right=fill_value)
+
+    return _eval
 
 
 def gradient(f, x, dim=-1):

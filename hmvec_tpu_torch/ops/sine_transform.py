@@ -84,6 +84,50 @@ def analytic_fft_integral(ks):
     return math.sqrt(math.pi / 2.0) * torch.exp(-(ks**2) / 2.0) * ks
 
 
+def uk_fft(rhofunc, rvir, dr: float = 0.001, rmax: float = 100):
+    """A validator: u(k) of a radial profile by the sine transform, with
+    the reference's conventions (radii arange(dr, rmax, dr), truncation at
+    rvir, trapezoid mass norm, step = extent / N).  rhofunc maps the radii
+    (a float64 tensor on rvir's device) to rho; rvir: a float64 tensor
+    (...,).  Returns (kts, u) with u (..., N//2 + 1)."""
+    rvir = torch.as_tensor(rvir, dtype=torch.float64)
+    rs = torch.as_tensor(np.arange(dr, rmax, dr), device=rvir.device)
+    rhos = rhofunc(rs)
+    theta = (rs <= rvir[..., None]).to(rhos.dtype)
+    integrand = rhos * theta
+    dx = torch.diff(rs)
+    prof = integrand * rs**2
+    m = ((prof[..., 1:] + prof[..., :-1]) * dx / 2.0).sum(dim=-1) * 4.0 * math.pi
+    n = rs.shape[-1]
+    step = (rs[-1] - rs[0]) / n
+    ukt = sine_dft(integrand * rs, step)
+    kts = (torch.arange(n // 2 + 1, dtype=torch.float64, device=rs.device)
+           * 2.0 * math.pi / (n * step))
+    uk = (4.0 * math.pi * ukt / torch.where(kts == 0, 1.0, kts)
+          / m[..., None])
+    return kts, uk
+
+
+def uk_brute_force(r, rho, rvir, ks):
+    """A validator: the profile transform by direct trapezoid quadrature,
+    with the reference's conventions (truncation r < rvir, trapezoid mass
+    norm).  r, rho: (nr,); ks: (nk,); returns (nk,)."""
+    r = torch.as_tensor(r, dtype=torch.float64)
+    rho = torch.as_tensor(rho, dtype=torch.float64, device=r.device)
+    ks = torch.as_tensor(ks, dtype=torch.float64, device=r.device)
+    w = (r < rvir).to(rho.dtype)
+    dx = torch.diff(r)
+
+    def trap(y):
+        return ((y[..., 1:] + y[..., :-1]) * dx / 2.0).sum(dim=-1)
+
+    m = trap(rho * w * r**2) * 4.0 * math.pi
+    sinkr = torch.sin(r[:, None] * ks[None, :])
+    integrand = (4.0 * math.pi * r[:, None] * sinkr * (rho * w)[:, None]
+                 / ks[None, :])
+    return trap(integrand.T) / m
+
+
 def resample_uniform_source(u, dkt, scales, ks, method: str = "auto"):
     """u (..., nkt) on the uniform grid kt_i = i dkt, read at the physical
     k grid kt / s of each row's scale s (scales (...,)) and interpolated

@@ -8,6 +8,9 @@
 * ``hyp2f1_growth``: 2F1(5/6, 3/2; 11/6; -y) for the Heath growth integral,
   four split-domain Chebyshev fits in w = y/(1+y) (``_hyp_coeffs``), and
   ``hyp2f1_growth_and_slope``, the same with its derivative in y.
+* ``j0``, ``j1`` and ``disk_window``: Bessel J0 from the JAX package's
+  Chebyshev fit below x = 8 and modulus/phase form above, J1 = -dJ0/dx as
+  the derivative of those fits, and the flat-sky disk window 2 J1(x)/x.
 * ``Wkr``: the top-hat window with the small-kR Taylor switch.
 
 Every function is differentiable through autograd (reverse and forward
@@ -183,6 +186,76 @@ def hyp2f1_growth_and_slope(y):
     dw_dy = torch.where(w < float(_hc.HYP_W_MAX), 1.0 / (1.0 + y) ** 2, 0.0)
     return f.reshape(shape), (df_dt * 2.0 / (hi_t - lo_t) * dw_dy).reshape(
         shape)
+
+
+def _clenshaw(coef, t):
+    """A Chebyshev series (numpy coefficients) at t in [-1, 1]."""
+    b0 = torch.zeros_like(t)
+    b1 = torch.zeros_like(t)
+    for c in coef[::-1]:
+        b0, b1 = 2.0 * t * b0 - b1 + float(c), b0
+    return b0 - t * b1
+
+
+def j0(x):
+    """Bessel J0(x) for x >= 0 (|J0| error ~4e-13): the Chebyshev fit in
+    (x/8)^2 for x <= 8 and the modulus/phase form beyond.  The clamps are
+    ``torch.where`` selects, so the branch taken gets the whole gradient
+    at the tie x = 8 (``j1`` is the derivative of this function)."""
+    x = torch.abs(torch.as_tensor(x, dtype=_F64))
+    inside = x <= 8.0
+    u = (torch.where(inside, x, 8.0) / 8.0) ** 2
+    small = _clenshaw(_sc.J0_SMALL, 2.0 * u - 1.0)
+    xl = torch.where(inside, 8.0, x)
+    t = 2.0 * (8.0 / xl) - 1.0
+    P = _clenshaw(_sc.J0_P, t)
+    Q = _clenshaw(_sc.J0_Q, t)
+    ph = xl - math.pi / 4.0
+    large = torch.sqrt(2.0 / (math.pi * xl)) * (P * torch.cos(ph)
+                                                + Q * torch.sin(ph))
+    return torch.where(inside, small, large)
+
+
+def _clenshaw_and_slope(coef, t):
+    """(f, df/dt) of a Chebyshev series at t: the derivative carried
+    through the Clenshaw recurrence beside the value."""
+    b0, b1 = torch.zeros_like(t), torch.zeros_like(t)
+    d0, d1 = torch.zeros_like(t), torch.zeros_like(t)
+    for c in coef[::-1]:
+        b0, b1, d0, d1 = (2.0 * t * b0 - b1 + float(c), b0,
+                          2.0 * b0 + 2.0 * t * d0 - d1, d0)
+    return b0 - t * b1, d0 - b1 - t * d1
+
+
+def j1(x):
+    """Bessel J1(x) = -dJ0/dx: the derivative of ``j0``'s own fits in
+    closed form (the derivative that autodiff of j0 gives, which is how
+    the JAX package takes it), with the same branch at x = 8."""
+    x = torch.as_tensor(x, dtype=_F64)
+    ax = torch.abs(x)
+    inside = ax <= 8.0
+    xs = torch.where(inside, ax, 8.0)
+    _, dsmall = _clenshaw_and_slope(_sc.J0_SMALL, 2.0 * (xs / 8.0) ** 2 - 1.0)
+    small = dsmall * xs / 16.0            # dt/dx = 4 x / 64
+    xl = torch.where(inside, 8.0, ax)
+    t = 2.0 * (8.0 / xl) - 1.0
+    P, dP = _clenshaw_and_slope(_sc.J0_P, t)
+    Q, dQ = _clenshaw_and_slope(_sc.J0_Q, t)
+    ph = xl - math.pi / 4.0
+    c, s = torch.cos(ph), torch.sin(ph)
+    dt = -16.0 / xl**2
+    large = torch.sqrt(2.0 / (math.pi * xl)) * (
+        -(P * c + Q * s) / (2.0 * xl) + dt * (dP * c + dQ * s)
+        - P * s + Q * c)
+    return -torch.sign(x) * torch.where(inside, small, large)
+
+
+def disk_window(x, taylor_switch=1e-3):
+    """Normalized flat-sky disk window W(x) = 2 J1(x)/x, W(0) = 1."""
+    x = torch.as_tensor(x, dtype=_F64)
+    small = torch.abs(x) < taylor_switch
+    xs = torch.where(small, 1.0, x)
+    return torch.where(small, 1.0 - x**2 / 8.0, 2.0 * j1(xs) / xs)
 
 
 def Wkr_taylor(kR):

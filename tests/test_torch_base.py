@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from hmvec_tpu import params as jparams
@@ -26,7 +27,7 @@ from hmvec_tpu_torch.ops.quadrature import trapz as ttrapz
 F64 = torch.float64
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -141,7 +142,8 @@ def test_sici_matches_jax():
                         [4.0, 4.0 + 1e-12, 10.0, 10.0 + 1e-12, 40.0,
                          40.0 + 1e-12]])
     si_t, ci_t = tspecial.sici(_t(x))
-    si_j, ci_j = jspecial.sici(jnp.asarray(x))
+    # the JAX side compiled once (op by op it takes seconds)
+    si_j, ci_j = jax.jit(jspecial.sici)(jnp.asarray(x))
     # absolute tolerance 1e-13: both evaluate the same tables in float64
     np.testing.assert_allclose(si_t.numpy(), np.asarray(si_j), rtol=0,
                                atol=1e-13)
@@ -152,7 +154,7 @@ def test_sici_matches_jax():
 def test_hyp2f1_growth_matches_jax():
     y = np.concatenate([[0.0], np.geomspace(1e-8, 60.0, 2001)])
     got = tspecial.hyp2f1_growth(_t(y)).numpy()
-    want = np.asarray(jspecial.hyp2f1_growth(jnp.asarray(y)))
+    want = np.asarray(jax.jit(jspecial.hyp2f1_growth)(jnp.asarray(y)))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-13)
 
 
@@ -182,8 +184,8 @@ def test_quadrature_matches_numpy_and_jax():
     x = np.sort(rng.uniform(0.0, 3.0, 41))
     f = rng.normal(size=(3, 41))
     np.testing.assert_allclose(tgradient(_t(f), _t(x)).numpy(),
-                               np.asarray(jgradient(jnp.asarray(f),
-                                                    jnp.asarray(x))),
+                               np.asarray(jax.jit(jgradient)(
+                                   jnp.asarray(f), jnp.asarray(x))),
                                rtol=1e-14, atol=1e-12)
     np.testing.assert_allclose(tgradient(_t(f), _t(x)).numpy(),
                                np.gradient(f, x, axis=-1), rtol=1e-12,

@@ -37,7 +37,7 @@ GOLDEN = (pathlib.Path(tpipe.__file__).parent / "data"
           / "electron_config2_golden.npz")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -87,14 +87,16 @@ def test_mdelta_from_mdelta_matches_jax():
     """The (z, m) grid solve and its broadcast variant: rtol 1e-13."""
     m1, c1, dr1, dr2 = _mass_inputs()
     got = tmc.mdelta_from_mdelta(_t(m1), _t(c1), _t(dr1), _t(dr2))
-    want = jmc.mdelta_from_mdelta(jnp.asarray(m1), jnp.asarray(c1),
-                                  jnp.asarray(dr1), jnp.asarray(dr2))
+    # the JAX side in one compiled program
+    want, want_u = jax.jit(lambda: (
+        jmc.mdelta_from_mdelta(jnp.asarray(m1), jnp.asarray(c1),
+                               jnp.asarray(dr1), jnp.asarray(dr2)),
+        jmc.mdelta_from_mdelta_unvectorized(
+            m1[None, :], c1, dr1[:, None], dr2[:, None])))()
     assert got.shape == (4, 11)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-13)
     got_u = tmc.mdelta_from_mdelta_unvectorized(
         _t(m1)[None, :], _t(c1), _t(dr1)[:, None], _t(dr2)[:, None])
-    want_u = jmc.mdelta_from_mdelta_unvectorized(
-        m1[None, :], c1, dr1[:, None], dr2[:, None])
     np.testing.assert_allclose(got_u.numpy(), np.asarray(want_u), rtol=1e-13)
     np.testing.assert_allclose(got_u.numpy(), got.numpy(), rtol=1e-13)
 
@@ -107,10 +109,10 @@ def test_mdelta_from_mdelta_passes_no_derivative():
     _, got = torch.func.jvp(
         lambda c: tmc.mdelta_from_mdelta(_t(m1), c, _t(dr1), _t(dr2)),
         (_t(c1),), (_t(tc),))
-    _, want = jax.jvp(
+    _, want = jax.jit(lambda: jax.jvp(
         lambda c: jmc.mdelta_from_mdelta(jnp.asarray(m1), c,
                                          jnp.asarray(dr1), jnp.asarray(dr2)),
-        (jnp.asarray(c1),), (jnp.asarray(tc),))
+        (jnp.asarray(c1),), (jnp.asarray(tc),)))()
     assert np.all(np.asarray(want) == 0.0)
     assert torch.all(got == 0.0)
 
@@ -135,8 +137,9 @@ def test_rho_gas_x_matches_jax():
     rtol 1e-6."""
     xs = np.linspace(0.0, 20.0, 513)[1:]
     m200, zs, rhocritz, fit = _gas_args()
-    want = np.asarray(_rho_gas(jprof, jnp.asarray(xs), jnp.asarray(m200),
-                               jnp.asarray(zs), jnp.asarray(rhocritz), fit))
+    want = np.asarray(jax.jit(lambda: _rho_gas(
+        jprof, jnp.asarray(xs), jnp.asarray(m200), jnp.asarray(zs),
+        jnp.asarray(rhocritz), fit))())
     got = _rho_gas(tprof, _t(xs), _t(m200), _t(zs), _t(rhocritz), fit)
     assert got.dtype == F64
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-13)
@@ -217,7 +220,7 @@ def test_generic_profile_fft_matches_jax():
         rho_gas_x = staticmethod(tprof.rho_gas_x)
         generic_profile_fft = staticmethod(tst.generic_profile_fft)
 
-    want = np.asarray(_profile(J, jnp.asarray))
+    want = np.asarray(jax.jit(lambda: _profile(J, jnp.asarray))())
     got = _profile(T, _t)
     assert got.shape == want.shape == (3, 12, 70) and got.dtype == F64
     assert np.abs(got.numpy() - want).max() <= 1e-12 * np.abs(want).max()

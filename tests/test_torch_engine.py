@@ -30,7 +30,7 @@ RNG = np.random.default_rng(23)
 T = torch.as_tensor
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)

@@ -17,7 +17,7 @@ P0 = {"omch2": 0.1198, "As": 2.2e-9}
 NAMES = ("omch2", "As")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)

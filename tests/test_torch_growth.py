@@ -41,7 +41,7 @@ GOLDEN_W = (pathlib.Path(tpipe.__file__).parent / "data"
             / "pmm_config1_w0wa_golden.npz")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)

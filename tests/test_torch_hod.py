@@ -9,6 +9,7 @@ import pytest
 import torch
 
 try:
+    import jax
     import jax.numpy as jnp
     from _torch_jax import jacobian_columns, jax_jvp, jvp_value
     from hmvec_tpu import pipeline as jpipe
@@ -36,7 +37,7 @@ THRESH = np.array([10.2, 10.5, 10.9])[:, None]
 T = torch.as_tensor
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -117,37 +118,44 @@ def test_interp_rows_is_numpy_interp():
     fp = np.sort(rng.uniform(0.0, 10.0, 50))
     x = rng.uniform(-4.0, 4.0, (4, 33))
     x[2, :3] = xp[2, [0, 17, -1]]             # on the nodes
-    got = thod._interp_rows(T(x), T(xp), T(fp))
+    got = thod.linear_interp(T(x), T(xp), T(fp))
     want = np.stack([np.interp(x[i], xp[i], fp) for i in range(4)])
     assert _close(got, want, 1e-13, 1e-13)
 
 
 def test_occupations_match_jax():
     sig = HP["hod_sig_log_mstellar"]
+
+    def jax_side():
+        # the JAX side in one compiled program (op by op its first call
+        # compiles each operation on its own, which takes seconds)
+        jNc = jhod.avg_nc(LOG10M, ZS, THRESH, sig)
+        jNs = jhod.avg_ns(LOG10M, ZS, THRESH, jNc, HP)
+        return (jNc, jNs,
+                jhod.avg_ns(LOG10M, ZS, THRESH, jNc, HP,
+                            Msat_override=3e13, Mcut_override=1e12),
+                jhod._default_mfunc(THRESH, 9.04, 0.74),
+                [(jhod.avg_nsnsm1(jNc, jNs, corr),
+                  jhod.avg_ncns(jNc, jNs, corr)) for corr in ("max", "min")])
+
+    jNc, jNs, jover, jmfunc, jpairs = jax.jit(jax_side)()
     Nc = thod.avg_nc(T(LOG10M), T(ZS), T(THRESH), sig)
-    jNc = jhod.avg_nc(LOG10M, ZS, THRESH, sig)
     assert Nc.shape == (ZS.size, MS.size)
     assert _close(Nc, jNc, 1e-10, 1e-300)
     Ns = thod.avg_ns(T(LOG10M), T(ZS), T(THRESH), Nc, HP)
-    jNs = jhod.avg_ns(LOG10M, ZS, THRESH, jNc, HP)
     assert _close(Ns, jNs, 1e-10, 1e-300)
     over = thod.avg_ns(T(LOG10M), T(ZS), T(THRESH), Nc, HP,
                        Msat_override=3e13, Mcut_override=1e12)
-    assert _close(over, jhod.avg_ns(LOG10M, ZS, THRESH, jNc, HP,
-                                    Msat_override=3e13, Mcut_override=1e12),
-                  1e-10, 1e-300)
+    assert _close(over, jover, 1e-10, 1e-300)
     flat = thod.avg_Ns(T(LOG10M), T(ZS), T(THRESH), sig_log_mstellar=sig,
                        alphasat=HP["hod_alphasat"], Bsat=HP["hod_Bsat"],
                        betasat=HP["hod_betasat"], Bcut=HP["hod_Bcut"],
                        betacut=HP["hod_betacut"])
     assert torch.equal(flat, Ns)
-    assert _rel(thod._default_mfunc(T(THRESH), 9.04, 0.74),
-                jhod._default_mfunc(THRESH, 9.04, 0.74)) <= 1e-13
-    for corr in ("max", "min"):
-        assert _close(thod.avg_nsnsm1(Nc, Ns, corr),
-                      jhod.avg_nsnsm1(jNc, jNs, corr), 1e-10, 1e-300)
-        assert _close(thod.avg_ncns(Nc, Ns, corr),
-                      jhod.avg_ncns(jNc, jNs, corr), 1e-10, 1e-300)
+    assert _rel(thod._default_mfunc(T(THRESH), 9.04, 0.74), jmfunc) <= 1e-13
+    for corr, (jnsnsm1, jncns) in zip(("max", "min"), jpairs):
+        assert _close(thod.avg_nsnsm1(Nc, Ns, corr), jnsnsm1, 1e-10, 1e-300)
+        assert _close(thod.avg_ncns(Nc, Ns, corr), jncns, 1e-10, 1e-300)
     with pytest.raises(ValueError):
         thod.avg_nsnsm1(Nc, Ns, "mean")
     with pytest.raises(ValueError):
@@ -188,24 +196,26 @@ def _grid_close(got, want, rtol=1e-10):
 
 def test_build_hod_matches_jax(mass_function):
     nzm, bh = mass_function
+    # the JAX side in one compiled program
+    want, want_ngal, want_min = jax.jit(lambda: [
+        jhod.build_hod(ZS, MS, jnp.asarray(nzm), jnp.asarray(bh), HP,
+                       mthresh=10.0 ** THRESH[:, 0]),
+        jhod.build_hod(ZS, MS, jnp.asarray(nzm), jnp.asarray(bh), HP,
+                       ngal=jnp.asarray(NGAL)),
+        jhod.build_hod(ZS, MS, jnp.asarray(nzm), jnp.asarray(bh), HP,
+                       ngal=jnp.asarray(NGAL), corr="min",
+                       Mcut_override=2e12)])()
     # from thresholds
     got = thod.build_hod(T(ZS), T(MS), T(nzm), T(bh), HP,
                          mthresh=T(10.0 ** THRESH[:, 0]))
-    want = jhod.build_hod(ZS, MS, jnp.asarray(nzm), jnp.asarray(bh), HP,
-                          mthresh=10.0 ** THRESH[:, 0])
     _grid_close(got, want)
     assert isinstance(got, thod.HODGrid) and got.log10mthresh.shape == (3, 1)
     # the ngal -> mthresh bisection: the same 90 halvings on both sides
     got = thod.build_hod(T(ZS), T(MS), T(nzm), T(bh), HP, ngal=T(NGAL))
-    want = jhod.build_hod(ZS, MS, jnp.asarray(nzm), jnp.asarray(bh), HP,
-                          ngal=jnp.asarray(NGAL))
-    _grid_close(got, want)
+    _grid_close(got, want_ngal)
     assert _rel(got.ngal, NGAL) <= 1e-9          # the solve found its target
     got_min = thod.build_hod(T(ZS), T(MS), T(nzm), T(bh), HP, ngal=T(NGAL),
                              corr="min", Mcut_override=2e12)
-    want_min = jhod.build_hod(ZS, MS, jnp.asarray(nzm), jnp.asarray(bh), HP,
-                              ngal=jnp.asarray(NGAL), corr="min",
-                              Mcut_override=2e12)
     _grid_close(got_min, want_min)
 
 

@@ -50,7 +50,7 @@ T = torch.as_tensor
 F64 = torch.float64
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)

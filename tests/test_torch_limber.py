@@ -35,7 +35,7 @@ BACKGROUNDS = {"flat": {}, "open": {"omk": 0.05}, "closed": {"omk": -0.04},
                "w0wa": {"w0": -0.9, "wa": 0.2}}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -70,26 +70,34 @@ def table():
             "sdndz": rng.uniform(0.2, 1.0, 8)}
 
 
+@jax.jit
+def _jax_distances(jb, z):
+    """The JAX side of test_distances_match_jax, compiled once for every
+    background (a BackgroundParams is an argument, not a constant)."""
+    chi = jbg.comoving_radial_distance(jb, z)
+    return (chi, jbg._curvature_comoving(jb, chi[1:]),
+            jbg.angular_diameter_distance(jb, z[1:]),
+            jbg.angular_diameter_distance(jb, 0.4, z[2:]),
+            jbg.sigma_crit(jb, z[1:3], 2.0))
+
+
 @pytest.mark.parametrize("name", list(BACKGROUNDS))
 def test_distances_match_jax(name):
     jb, tb = _backgrounds(BACKGROUNDS[name])
     z = np.array([0.0, 0.3, 1.0, 2.5, 1100.0])
     tz = torch.as_tensor(z)
     chi = tbg.comoving_radial_distance(tb, tz)
-    want = np.asarray(jbg.comoving_radial_distance(jb, z))
+    want, curv, da, da2, scrit = _jax_distances(jb, jnp.asarray(z))
+    want = np.asarray(want)
     assert chi[0] == 0.0 and _rel(chi[1:], want[1:]) <= 1e-12
     # a Python number and an (n, m) grid
     assert _rel(tbg.comoving_radial_distance(tb, 1.0), want[2]) <= 1e-12
     assert tbg.comoving_radial_distance(tb, tz[1:].reshape(2, 2)).shape == \
         (2, 2)
-    assert _rel(tbg._curvature_comoving(tb, chi[1:]),
-                jbg._curvature_comoving(jb, want[1:])) <= 1e-12
-    assert _rel(tbg.angular_diameter_distance(tb, tz[1:]),
-                jbg.angular_diameter_distance(jb, z[1:])) <= 1e-12
-    assert _rel(tbg.angular_diameter_distance(tb, 0.4, tz[2:]),
-                jbg.angular_diameter_distance(jb, 0.4, z[2:])) <= 1e-12
-    assert _rel(tbg.sigma_crit(tb, tz[1:3], 2.0),
-                jbg.sigma_crit(jb, z[1:3], 2.0)) <= 1e-12
+    assert _rel(tbg._curvature_comoving(tb, chi[1:]), curv) <= 1e-12
+    assert _rel(tbg.angular_diameter_distance(tb, tz[1:]), da) <= 1e-12
+    assert _rel(tbg.angular_diameter_distance(tb, 0.4, tz[2:]), da2) <= 1e-12
+    assert _rel(tbg.sigma_crit(tb, tz[1:3], 2.0), scrit) <= 1e-12
 
 
 def test_distance_derivative_matches_jax():
@@ -117,24 +125,28 @@ def test_trapz_on_a_tensor_grid_is_trapz_traced():
     assert torch.allclose(got0, got, rtol=1e-14)
 
 
+@jax.jit
+def _jax_windows(jb, ezs, szs, sdndz):
+    """The JAX side of test_lensing_window_matches_jax, compiled once."""
+    return ([jlimb.lensing_window(jb, ezs, zsrc) for zsrc in (1.3, 1100.0)]
+            + [jlimb.lensing_window(jb, ezs, szs, sdndz)])
+
+
 @pytest.mark.parametrize("name", ["flat", "open"])
 def test_lensing_window_matches_jax(table, name):
     jb, tb = _backgrounds(BACKGROUNDS[name])
     ezs = np.linspace(0.05, 2.6, 14)
+    wants = _jax_windows(jb, jnp.asarray(ezs), jnp.asarray(table["szs"]),
+                         jnp.asarray(table["sdndz"]))
     # a delta-function source inside the grid (zero beyond it), the CMB,
     # and a source distribution
-    for zsrc in (1.3, 1100.0):
-        got = tlimb.lensing_window(tb, ezs, zsrc)
-        want = np.asarray(jlimb.lensing_window(jb, ezs, zsrc))
+    gots = [tlimb.lensing_window(tb, ezs, zsrc) for zsrc in (1.3, 1100.0)]
+    gots.append(tlimb.lensing_window(tb, ezs, table["szs"], table["sdndz"]))
+    for got, want in zip(gots, wants):
+        want = np.asarray(want)
         assert np.array_equal(got.numpy() == 0.0, want == 0.0)
         nz = want != 0.0
         assert _rel(got.numpy()[nz], want[nz]) <= 1e-10
-    got = tlimb.lensing_window(tb, ezs, table["szs"], table["sdndz"])
-    want = np.asarray(jlimb.lensing_window(jb, ezs, table["szs"],
-                                           table["sdndz"]))
-    nz = want != 0.0
-    assert np.array_equal(got.numpy() == 0.0, want == 0.0)
-    assert _rel(got.numpy()[nz], want[nz]) <= 1e-10
 
 
 def test_interp_pzk_at_curve_matches_jax(table):
@@ -144,19 +156,17 @@ def test_interp_pzk_at_curve_matches_jax(table):
     zev = np.concatenate([table["zs"][[0, 3, -1]], [0.01, 0.77, 1.9, 2.9]])
     kev = np.exp(rng.uniform(np.log(3e-4), np.log(90.0), (11, zev.size)))
     kev[0, :3] = table["ks"][[0, 5, -1]]
+    # the JAX side compiled once, the one-redshift table too
+    wants = jax.jit(lambda: [jlimb.interp_pzk_at_curve(
+        table["zs"][:n], table["ks"], jnp.asarray(table["pzk"][:n]),
+        jnp.asarray(zev), jnp.asarray(kev)) for n in (None, 1)])()
     got = tlimb.interp_pzk_at_curve(t(table["zs"]), t(table["ks"]),
                                     t(table["pzk"]), t(zev), t(kev))
-    want = jlimb.interp_pzk_at_curve(table["zs"], table["ks"],
-                                     jnp.asarray(table["pzk"]),
-                                     jnp.asarray(zev), jnp.asarray(kev))
-    assert got.shape == (11, zev.size) and _rel(got, want) <= 1e-12
+    assert got.shape == (11, zev.size) and _rel(got, wants[0]) <= 1e-12
     # a one-redshift table
     got = tlimb.interp_pzk_at_curve(t(table["zs"][:1]), t(table["ks"]),
                                     t(table["pzk"][:1]), t(zev), t(kev))
-    want = jlimb.interp_pzk_at_curve(table["zs"][:1], table["ks"],
-                                     jnp.asarray(table["pzk"][:1]),
-                                     jnp.asarray(zev), jnp.asarray(kev))
-    assert _rel(got, want) <= 1e-12
+    assert _rel(got, wants[1]) <= 1e-12
 
 
 def test_limber_integral_matches_jax(table):
@@ -166,21 +176,33 @@ def test_limber_integral_matches_jax(table):
     w1, w2 = rng.uniform(0.1, 1.0, (2, gzs.size))
     hzs = rng.uniform(2e-4, 6e-4, gzs.size)
     chis = np.linspace(800.0, 4000.0, gzs.size)
+    # the JAX side compiled once, the scalar-window case too
+    wants = jax.jit(lambda: [
+        jlimb.limber_integral(ELLS, table["zs"], table["ks"],
+                              jnp.asarray(table["pzk"]), gzs, w1, w2, hzs,
+                              chis),
+        jlimb.limber_integral(ELLS, table["zs"], table["ks"],
+                              jnp.asarray(table["pzk"]), gzs[2], 1.0,
+                              w2[2], hzs[2], chis[2])])()
     got = tlimb.limber_integral(ELLS, table["zs"], table["ks"],
                                 t(table["pzk"]), gzs, t(w1), t(w2), t(hzs),
                                 t(chis))
-    want = jlimb.limber_integral(ELLS, table["zs"], table["ks"],
-                                 jnp.asarray(table["pzk"]), gzs, w1, w2, hzs,
-                                 chis)
-    assert got.shape == (ELLS.size,) and _rel(got, want) <= 1e-12
+    assert got.shape == (ELLS.size,) and _rel(got, wants[0]) <= 1e-12
     # scalar windows and a single redshift
     got = tlimb.limber_integral(ELLS, table["zs"], table["ks"],
                                 t(table["pzk"]), gzs[2], 1.0, t(w2[2]),
                                 t(hzs[2]), t(chis[2]))
-    want = jlimb.limber_integral(ELLS, table["zs"], table["ks"],
-                                 jnp.asarray(table["pzk"]), gzs[2], 1.0,
-                                 w2[2], hzs[2], chis[2])
-    assert _rel(got, want) <= 1e-12
+    assert _rel(got, wants[1]) <= 1e-12
+
+
+_C_ELL_EACH = {}
+
+
+@jax.jit
+def _jax_c_ells(jb, pzk):
+    """The JAX side of test_every_c_ell_matches_jax, compiled once for
+    both backgrounds (a BackgroundParams is an argument)."""
+    return list(_C_ELL_EACH["each"](jlimb, jb, pzk))
 
 
 @pytest.mark.parametrize("name", ["flat", "closed"])
@@ -211,8 +233,9 @@ def test_every_c_ell_matches_jax(table, name):
             gz = (kw.pop("gzs"),) if "gzs" in kw else ()
             yield getattr(mod, fname)(b, ELLS, *grids, pzk, *gz, **kw)
 
+    _C_ELL_EACH["each"] = each
     # the JAX side compiled once (op by op it costs seconds per case)
-    wants = jax.jit(lambda p: list(each(jlimb, jb, p)))(pj)
+    wants = _jax_c_ells(jb, pj)
     for what, got, want in zip(cases, each(tlimb, tb, pt), wants):
         assert got.shape == (ELLS.size,), what
         assert _rel(got, want) <= 1e-10, what

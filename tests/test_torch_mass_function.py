@@ -36,7 +36,7 @@ ST = {k: default_params[k] for k in ("st_A", "st_a", "st_p", "st_deltac")}
 T = torch.as_tensor
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)

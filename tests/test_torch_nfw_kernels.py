@@ -44,7 +44,7 @@ def _emulator():
     return mod
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -88,12 +88,14 @@ def _rows(zs, cs, rss):
 def test_plain_matches_jax_analytic(sweep):
     """nfw_uk_plain vs the JAX float64 profile: <= 1e-12 absolute (u is a
     sum of O(1) terms; both sides run the same float64 algorithm)."""
+    import jax
     import jax.numpy as jnp
     from hmvec_tpu.models.profiles import nfw_uk_analytic
 
     _, zs, cs, rss, ks = sweep
-    want = np.asarray(nfw_uk_analytic(jnp.asarray(ks), jnp.asarray(zs),
-                                      jnp.asarray(cs), jnp.asarray(rss)))
+    # one compiled program (op by op its first call takes seconds)
+    want = np.asarray(jax.jit(nfw_uk_analytic)(
+        jnp.asarray(ks), jnp.asarray(zs), jnp.asarray(cs), jnp.asarray(rss)))
     scales, c = _rows(zs, cs, rss)
     got = nk.nfw_uk_plain(_t(ks), _t(scales), _t(c)).numpy()
     assert np.abs(got.reshape(want.shape) - want).max() <= 1e-12

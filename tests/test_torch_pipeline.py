@@ -23,7 +23,7 @@ GOLDEN = (pathlib.Path(tpipe.__file__).parent / "data"
           / "pmm_config1_golden.npz")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)

@@ -21,7 +21,7 @@ from hmvec_tpu_torch.ops import sine_transform as st
 F64 = torch.float64
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -76,9 +76,12 @@ def test_plain_matches_jax_gather(name):
     u, scales, ks, dkt = _case(name)
     if name != "integer":
         assert _both_boundaries(u, scales, ks, dkt)
-    want = np.asarray(resample_uniform_source(
+    import jax
+
+    # the JAX side compiled once (op by op it takes seconds)
+    want = np.asarray(jax.jit(lambda: resample_uniform_source(
         jnp.asarray(u), dkt, jnp.asarray(scales), jnp.asarray(ks),
-        method="gather"))
+        method="gather"))())
     got = rk.pair_lerp_plain(_t(u), _t(scales), _t(ks), dkt)
     assert got.dtype == F64 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-14, atol=0)
@@ -144,11 +147,18 @@ def test_function_derivatives_match_jax(name):
     ds = rng.standard_normal(scales.shape)
     g = rng.standard_normal((*scales.shape, ks.size))
     f = _jax_resample(u, scales, ks, dkt)
-    _, want_t = jax.jvp(lambda a, b: f(a, b), (jnp.asarray(u),
-                                               jnp.asarray(scales)),
-                        (jnp.asarray(du), jnp.asarray(ds)))
-    _, vjp = jax.vjp(f, jnp.asarray(u), jnp.asarray(scales))
-    want_gu, want_gs = (np.asarray(x) for x in vjp(jnp.asarray(g)))
+
+    @jax.jit
+    def jax_side(u_, s_, du_, ds_, g_):
+        # the JAX jvp and vjp in one compiled program
+        _, jvp_out = jax.jvp(f, (u_, s_), (du_, ds_))
+        _, vjp = jax.vjp(f, u_, s_)
+        return jvp_out, vjp(g_)
+
+    want_t, (want_gu, want_gs) = jax_side(
+        jnp.asarray(u), jnp.asarray(scales), jnp.asarray(du),
+        jnp.asarray(ds), jnp.asarray(g))
+    want_gu, want_gs = np.asarray(want_gu), np.asarray(want_gs)
 
     ks_t = _t(ks)
     fn = lambda a, b: rk.pair_lerp_f64(a, b, ks_t, dkt)  # noqa: E731

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from hmvec_tpu.models import background as jbg
@@ -34,7 +35,7 @@ KS = np.geomspace(1e-4, 100.0, 64)
 COSMOS = {"fiducial": {}, "mnu": {"mnu": 0.1, "omch2": 0.115}}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -71,6 +72,11 @@ class _Side:
 
     @functools.cached_property
     def stages(self):
+        # the JAX side as one compiled program: op by op its first call
+        # compiles each operation on its own, which takes seconds
+        return self._stages() if self.t else jax.jit(self._stages)()
+
+    def _stages(self):
         bgm, lpm, mfm, prm, pwm, _ = self.mods
         bg, p, zs, ms, ks = self.bg, self.p, self.zs, self.ms, self.ks
         out = {}
@@ -103,19 +109,33 @@ def _pair(cosmo):
     return _CACHE[cosmo]
 
 
+_BACKGROUND_FNS = ("e_of_z", "h_of_z", "rho_critical_z", "rho_matter_z",
+                   "omz")
+
+
+@jax.jit
+def _jax_background(bg, zz):
+    """The JAX side of test_background, compiled once for both
+    cosmologies (a BackgroundParams is an argument)."""
+    a = 1.0 / (1.0 + zz)
+    return ([getattr(jbg, name)(bg, zz) for name in _BACKGROUND_FNS]
+            + [jbg.d_growth(bg, a, norm=norm) for norm in ("anorm",
+                                                            "z0norm")])
+
+
 @pytest.mark.parametrize("cosmo", list(COSMOS))
 def test_background(cosmo):
     t, j = _pair(cosmo)
     for field in ("omm0", "oml0", "omr0", "omnu0"):
         _close(getattr(t.bg, field), getattr(j.bg, field))
     zz = np.linspace(0.0, 5.0, 11)
-    for name in ("e_of_z", "h_of_z", "rho_critical_z", "rho_matter_z", "omz"):
-        _close(getattr(tbg, name)(t.bg, _t(zz)),
-               getattr(jbg, name)(j.bg, jnp.asarray(zz)))
+    wants = _jax_background(j.bg, jnp.asarray(zz))
+    gots = [getattr(tbg, name)(t.bg, _t(zz)) for name in _BACKGROUND_FNS]
     a = 1.0 / (1.0 + zz)
-    for norm in ("anorm", "z0norm"):
-        _close(tbg.d_growth(t.bg, _t(a), norm=norm),
-               jbg.d_growth(j.bg, jnp.asarray(a), norm=norm))
+    gots += [tbg.d_growth(t.bg, _t(a), norm=norm)
+             for norm in ("anorm", "z0norm")]
+    for got, want in zip(gots, wants):
+        _close(got, want)
 
 
 @pytest.mark.parametrize("kind", ["eisenhu_osc", "eisenhu"])
@@ -123,7 +143,7 @@ def test_transfer(kind):
     t, j = _pair("fiducial")
     k = np.geomspace(1e-5, 2000.0, 500)
     _close(ttr.transfer_eh98(t.bg, _t(k), kind),
-           jtr.transfer_eh98(j.bg, jnp.asarray(k), kind))
+           jax.jit(lambda: jtr.transfer_eh98(j.bg, jnp.asarray(k), kind))())
 
 
 @pytest.mark.parametrize("component", ["total", "cb"])
@@ -131,7 +151,8 @@ def test_eh99_neutrino_ratio(component):
     t, j = _pair("mnu")
     d = np.array([0.3, 0.6, 0.9])
     _close(ttr.eh99_neutrino_ratio(t.bg, t.ks, _t(d), component),
-           jtr.eh99_neutrino_ratio(j.bg, j.ks, jnp.asarray(d), component))
+           jax.jit(lambda: jtr.eh99_neutrino_ratio(
+               j.bg, j.ks, jnp.asarray(d), component))())
 
 
 @pytest.mark.parametrize("cosmo", list(COSMOS))
@@ -156,18 +177,23 @@ def test_stage_matches_jax(cosmo, stage):
 
 def test_engine_tiers_and_as8():
     t, j = _pair("fiducial")
-    for acc in ("low", "medium"):
-        _close(tlp.EHEngine().plin(t.bg, t.zs, t.ks, accuracy=acc),
-               jlp.EHEngine().plin(j.bg, j.zs, j.ks, accuracy=acc))
-    _close(tlp.EHEngine().pzk_grid(t.bg, t.zs, t.ks),
-           jlp.EHEngine().pzk_grid(j.bg, j.zs, j.ks))
+    wants = jax.jit(lambda: [
+        jlp.EHEngine().plin(j.bg, j.zs, j.ks, accuracy=acc)
+        for acc in ("low", "medium")]
+        + [jlp.EHEngine().pzk_grid(j.bg, j.zs, j.ks)])()
+    gots = [tlp.EHEngine().plin(t.bg, t.zs, t.ks, accuracy=acc)
+            for acc in ("low", "medium")]
+    gots.append(tlp.EHEngine().pzk_grid(t.bg, t.zs, t.ks))
+    for got, want in zip(gots, wants):
+        _close(got, want)
 
 
 def test_unported_modes_raise():
     t, j = _pair("fiducial")
     # the integrated growth answers where it used to be refused
     _close(tbg.d_growth(t.bg, _t([0.5]), mode="ode"),
-           jbg.d_growth(j.bg, jnp.asarray([0.5]), mode="ode"), rtol=1e-10)
+           jax.jit(lambda: jbg.d_growth(j.bg, jnp.asarray([0.5]),
+                                        mode="ode"))(), rtol=1e-10)
     # so do the Tinker modes (held against JAX in
     # tests/test_torch_mass_function.py); an unknown mode raises, as in JAX
     s2 = torch.full((3, 24), 0.5, dtype=torch.float64)

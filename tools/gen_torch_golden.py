@@ -57,11 +57,18 @@ tinker2008, press-schechter, despali) -> hmvec_tpu_torch/data/
 pmm_massfn_golden.npz with Pmm of shape (4, 20, 1001) and the modes
 (~20 s).
 
+--config c: the class API, the README's example at config 1's width.
+hmvec_tpu.HaloModel(zs, ks, ms=ms, params=the bench overrides) with
+add_battaglia_profile("e", family="AGN"), add_battaglia_pres_profile("y")
+and add_hod("g", ngal = 1e-4 per z), at the profiles' default sampling
+(nxs 5000) -> hmvec_tpu_torch/data/class_config1_golden.npz with Pmm =
+get_power("nfw"), Pgg, Pge, Pee and Pyy, each (20, 1001) (~60 s).
+
 The machine with the GPU has no JAX, so chip_smoke.py compares the port
 against these files.  Each run writes only its own file.
 
 Run from the repository root:
-    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m]
+    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c]
 """
 
 from __future__ import annotations
@@ -82,7 +89,8 @@ OUT = {"1": DATA / "pmm_config1_golden.npz",
        "4": DATA / "lensing_config4_golden.npz",
        "b": DATA / "pmm_batch_golden.npz",
        "5": DATA / "ksz_config5_golden.npz",
-       "m": DATA / "pmm_massfn_golden.npz"}
+       "m": DATA / "pmm_massfn_golden.npz",
+       "c": DATA / "class_config1_golden.npz"}
 NXS, XMAX = 4096, 20          # bench.py config 2
 NGAL = 1e-4                   # bench.py config 3, per z
 ELLS, ZSOURCE = np.geomspace(30, 3000, 60), 1100.0   # bench.py config 4
@@ -198,6 +206,31 @@ def write_massfn_golden(jpl, jnp, zs, ms, ks):
                                        dtype=np.float64)}
 
 
+# the README's spectra of the class API: name -> get_power's arguments
+CLASS_SPECTRA = {"pmm": ("nfw", None), "pgg": ("g", None),
+                 "pge": ("g", "e"), "pee": ("e", "e"), "pyy": ("y", "y")}
+
+
+def write_class_golden(zs, ms, ks):
+    """The README example through the JAX class API at the bench
+    cosmology."""
+    import hmvec_tpu as hm
+
+    ngal = np.full(zs.size, NGAL)
+    hcos = hm.HaloModel(zs, ks, ms=ms, params=BENCH_OVERRIDES)
+    hcos.add_battaglia_profile("e", family="AGN")
+    hcos.add_battaglia_pres_profile("y")
+    hcos.add_hod("g", ngal=ngal)
+    out = {k: np.asarray(hcos.get_power(*names))
+           for k, names in CLASS_SPECTRA.items()}
+    for k, v in out.items():
+        print(f"{k}[0, 0] = {v[0, 0]!r}")
+    return dict(zs=zs, ms=ms, ks=ks, ngal=ngal,
+                param_names=np.asarray(list(BENCH_OVERRIDES)),
+                param_values=np.asarray(list(BENCH_OVERRIDES.values()),
+                                        dtype=np.float64), **out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(OUT), default="1")
@@ -217,10 +250,14 @@ def main():
             ("omch2", "As")), **write_batch_golden(jpl, jnp, zs, ms, ks))
         print(f"wrote {path.relative_to(REPO)} ({path.stat().st_size} bytes)")
         return
-    if args.config in ("5", "m"):
-        arrays = (write_ksz_golden(jpl, jnp) if args.config == "5" else
-                  dict(zs=zs, ms=ms, ks=ks,
-                       **write_massfn_golden(jpl, jnp, zs, ms, ks)))
+    if args.config in ("5", "m", "c"):
+        if args.config == "5":
+            arrays = write_ksz_golden(jpl, jnp)
+        elif args.config == "c":
+            arrays = write_class_golden(zs, ms, ks)
+        else:
+            arrays = dict(zs=zs, ms=ms, ks=ks,
+                          **write_massfn_golden(jpl, jnp, zs, ms, ks))
         np.savez_compressed(path, **arrays)
         print(f"wrote {path.relative_to(REPO)} ({path.stat().st_size} bytes)")
         return

@@ -20,7 +20,11 @@ make_batched_fn (bench.py's batch lines, theta from pmm_batch_golden.npz),
 with the wall time per cosmology and the peak memory allocated, and for
 config 5 (ksz: make_ksz_snr_fn at the bench shape; ksz_survey: the
 four-bin make_ksz_survey_fn; ksz_b16: a batch of 16 cosmologies of
-make_ksz_snr_fn; shapes, bins and cosmology from ksz_config5_golden.npz).
+make_ksz_snr_fn; shapes, bins and cosmology from ksz_config5_golden.npz),
+and for the class API (class: the README example, hmvec_tpu_torch.HaloModel
+at config 1's grids with the Battaglia gas and pressure profiles, an HOD
+and the fast NFW profile, and its five spectra; class_ksz: get_ksz_snr at
+config 5).
 
 For the electron tiers it then runs the call's layers one at a time --
 the halo-model stages through the NFW profile, the M200 bisection, the
@@ -95,6 +99,20 @@ def _device_us(evt) -> float:
     return float(evt.self_device_time_total)
 
 
+def readme_example(g, ngal, ov, dev):
+    """The README's example through the class API at config 1's grids,
+    with the fast NFW profile, and its five spectra."""
+    from hmvec_tpu_torch import HaloModel
+
+    hm = HaloModel(g["zs"], g["ks"], ms=g["ms"], params=ov, device=dev)
+    hm.add_battaglia_profile("e", family="AGN")
+    hm.add_battaglia_pres_profile("y")
+    hm.add_hod("g", ngal=ngal)
+    hm.add_nfw_profile("nfw_fast", fast=True)
+    return [hm.get_power(*names) for names in
+            (("nfw",), ("g",), ("g", "e"), ("e", "e"), ("y", "y"))]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the report as JSON")
@@ -103,6 +121,7 @@ def main() -> int:
         print("profile_torch_pmm: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from hmvec_tpu_torch import get_ksz_snr
     from hmvec_tpu_torch import pipeline as pl
 
     card = subprocess.run(
@@ -150,6 +169,11 @@ def main() -> int:
                                             gk["ngals"], cls), ov)
     calls["ksz_b16"] = (pl.make_batched_fn(ksz, ("omch2", "As")),
                         gb["theta_b16"])
+    calls["class"] = (lambda o: readme_example(g, gh["ngal"], o, dev), ov)
+    calls["class_ksz"] = (lambda o: get_ksz_snr(
+        float(gk["volume_gpc3"]), float(gk["z"]), float(gk["ngal_mpc3"]),
+        gk["cls"], params=o, ms=gk["ms"], electron_profile_nxs=int(gk["nxs"]),
+        electron_profile_xmax=float(gk["xmax"]), device=dev, **kcfg)[0], ov)
     for line, (tkey, kw, f32) in BATCHES.items():
         theta = gb[f"theta_{tkey}"]
         batch_size[line] = theta.shape[0]
