@@ -42,7 +42,14 @@ file, with one launch of the fast NFW kernel and one of the float64
 resample kernel per numeric profile, and the class kSZ forecast
 (get_ksz_snr at config 5) against make_ksz_snr_fn and its golden file;
 with the build's and each spectrum's latency, launches, host reads and
-peak memory, and both kernels' times at the class's shapes.
+peak memory, and both kernels' times at the class's shapes.  The
+extensions phase drives the first extension group through the class API
+at config 1's width: HaloModel(halofit="mead") (HMcode-2016), CIB tracers
+at 545 and 217 GHz and an HI tracer on the fast NFW profile, the Battaglia
+pressure profile, the nine halofit versions and 'mead' under w0/wa, the
+CMB lensing C_L to L = 3000 on the nonlinear power, the BAO ratio,
+tau_*, z(tau), H0 from theta100 and the cluster-lensing profiles, against
+its golden file, with one launch of each kernel in the build.
 
 It differentiates both paths, and times the kernels, at one cosmology's
 shapes and at the batches', and the end-to-end calls.
@@ -75,6 +82,7 @@ bytes or operations).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import json
 import math
@@ -100,6 +108,7 @@ GOLDEN_L = DATA / "lensing_config4_golden.npz"
 GOLDEN_K = DATA / "ksz_config5_golden.npz"
 GOLDEN_M = DATA / "pmm_massfn_golden.npz"
 GOLDEN_C = DATA / "class_config1_golden.npz"
+GOLDEN_X = DATA / "extensions_config1_golden.npz"
 
 # kernel vs plain version on the card (absolute on u; relative on S1, S2;
 # the resample kernel repeats the plain version's float64 operations in
@@ -137,6 +146,17 @@ CLASS_SPECTRA = {"pmm": ("nfw", None), "pgg": ("g", None),
 GATE_CLASS = 1e-10
 GATE_CLASS_FAST = 1e-5
 GATE_KSZ_CLASS_VS_FN = 1e-12
+# the first extension group (tools/gen_torch_golden.py --config x): 1e-10
+# on what holds no fast-NFW factor, 1e-5 where the fast profile enters (HI,
+# CIB).  H0 from theta100: 1e-12 where the Gauss-Legendre weights are the
+# golden file's (the CPU tests); here 5e-11, the spread of the JAX
+# package's own solve between numpy's 128-node weights (8e-11 from the
+# exact ones, and they differ between numpy versions) and exact weights,
+# 3.8e-11, which a distance to z* carries to H0 amplified by 1 /
+# (dln theta / dln H0) ~ 5.5
+GATE_EXT = 1e-10
+GATE_EXT_FAST = 1e-5
+GATE_H0 = 5e-11
 # the mass-function modes of config 1 by NFW tier: (fast, gate)
 MASSFN_TIERS = {"plain": (False, 1e-10), "fast": (True, 1e-5)}
 # a batched call against the port's own single calls, row by row: the same
@@ -162,7 +182,7 @@ E_PATHS = {"electron_plain": {"fast": False}, "electron_fast": {"fast": True}}
 KERNEL_ROWS = (
     ("nfw_uk_fast", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:321",
      ("fast", "electron_fast", "b16", "bN", "hod_fast", "limber_fast",
-      "class")),
+      "class", "extensions")),
     ("nfw_uk_exact", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:800",
      ("exact", "ode_exact", "b16_exact")),
     ("nfw_contract", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:388",
@@ -170,7 +190,7 @@ KERNEL_ROWS = (
     ("pair_lerp_f64", "resample_kernels",
      "hmvec_tpu/ops/pallas_resample.py:110",
      ("electron_plain", "electron_plain_b2", "ksz", "ksz_survey",
-      "ksz_b16", "class", "class_ksz")),
+      "ksz_b16", "class", "class_ksz", "extensions")),
     ("pair_lerp_f32", "resample_kernels",
      "hmvec_tpu/ops/pallas_resample.py:110",
      ("electron_fast", "electron_fast_b2")),
@@ -403,6 +423,24 @@ def pair_lerp_work(u, scales, ks, dkt) -> tuple[int, dict]:
     nbytes = (n_read * u.element_size() + 8 * rows + 8 * ks.numel()
               + 8 * rows * ks.numel())
     return nbytes, {"f64": 2 * p.numel() + 5 * int(win.sum().item())}
+
+
+@contextlib.contextmanager
+def recorded(module, name):
+    """Within the block, the inputs of every launch of one of the port's
+    kernels, by wrapping its module's launch function (the wrapper's own
+    count is untouched)."""
+    real, calls = getattr(module, name), []
+
+    def launch(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    setattr(module, name, launch)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
 
 
 def adversarial_rows(dev):
@@ -1173,6 +1211,221 @@ def main() -> int:
     del hm, u_b1, u_e, got_e, u2_e, idx_e, i0_e
     torch.cuda.empty_cache()
 
+    # ---- phase 4h: the first extension group -----------------------------
+    from hmvec_tpu_torch import Cosmology
+
+    gx = np.load(GOLDEN_X)
+    for key in ("zs", "ks", "ms"):
+        check(np.array_equal(g[key], gx[key]), f"golden files share {key}")
+    cosmo_x = dict(zip(gx["param_names"].tolist(),
+                       map(float, gx["param_values"])))
+    check(cosmo_x == cosmos[0], "the extensions golden file is at the bench "
+          "cosmology")
+    rows_x = gx["rows"]
+    versions_x = sorted(k[4:] for k in gx.files if k.startswith("pnl_")
+                        and k != "pnl_ode_mead")
+    check(len(versions_x) == 8, f"eight further halofit versions: "
+          f"{versions_x}")
+    # the phase's inputs, as the golden file was written at them
+    ells_x, thetas_x, lmax_x = gx["ells"], gx["thetas"], int(gx["lmax"])
+    nus_x = {f"cib{int(nu)}": float(nu) for nu in gx["nus"]}
+    pairs_x = [tuple(list(nus_x)[i] for i in pair) for pair in gx["cib_pairs"]]
+    w0wa_x = dict(zip(("w0", "wa"), map(float, gx["w0wa"])))
+    c = dict(zip(("M", "conc", "zsource", "sig_theta"),
+                 map(float, gx["cluster"])))
+
+    def build_ext():
+        """The extension tracers on the class at bench width: HMcode's
+        nPzk, CIB at two frequencies and HI on the fast NFW profile, the
+        Battaglia pressure profile."""
+        hm = HaloModel(zs, ks_np, ms=ms, params=cosmo_x, halofit="mead",
+                       device=dev)
+        hm.add_nfw_profile("nfw_fast", fast=True)
+        for name, nu in nus_x.items():
+            hm.add_cib_tracer(name, nu, satellite_profile="nfw_fast")
+        hm.add_battaglia_pres_profile("y")
+        hm.add_hi_tracer("hi", profile_name="nfw_fast")
+        return hm
+
+    def ext_outputs(hm):
+        """(name, output, golden, gate, relative to the largest value)."""
+        out = [("npzk", hm.nPzk, gx["npzk"], GATE_EXT, False)]
+        for v in versions_x:
+            out.append((f"P_mm_nonlinear {v}",
+                        hm.P_mm_nonlinear(ks_np, zs, v)[rows_x],
+                        gx[f"pnl_{v}"], GATE_EXT, False))
+        ode = Cosmology({**cosmo_x, **w0wa_x}, device=dev)
+        check(ode.growth_mode == "ode", "w0/wa takes the integrated growth")
+        out.append(("P_mm_nonlinear mead, ode",
+                    ode.P_mm_nonlinear(ks_np, zs, "mead")[rows_x],
+                    gx["pnl_ode_mead"], GATE_EXT, False))
+        out += [
+            ("get_p21", hm.get_p21("hi"), gx["p21"], GATE_EXT_FAST, False),
+            ("get_omega_hi", hm.get_omega_hi("hi"), gx["omega_hi"],
+             GATE_EXT, False),
+            ("get_hi_bias", hm.get_hi_bias("hi"), gx["b_hi"], GATE_EXT,
+             False),
+            ("CIB x y", hm.get_power(pairs_x[0][0], "y")[rows_x], gx["cib_y"],
+             GATE_EXT_FAST, False),
+            ("get_cib_cls", torch.stack([hm.get_cib_cls(ells_x, a, b)
+                                         for a, b in pairs_x]),
+             gx["cib_cls"], GATE_EXT_FAST, False),
+            ("get_cib_mean_intensity", torch.stack(
+                [hm.get_cib_mean_intensity(n) for n in nus_x]),
+             gx["cib_intensity"], GATE_EXT, False),
+            ("sigma_1h", hm.sigma_1h_profiles(thetas_x, c["M"], c["conc"]),
+             gx["sigma_1h"], GATE_EXT, False),
+            ("sigma_1h miscentered", hm.sigma_1h_profiles(
+                thetas_x, c["M"], c["conc"], sig_theta=c["sig_theta"]),
+             gx["sigma_1h_off"], GATE_EXT, False),
+            ("kappa_1h", hm.kappa_1h_profiles(thetas_x, c["M"], c["conc"],
+                                              c["zsource"]),
+             gx["kappa_1h"], GATE_EXT, False),
+            # the J0 sum changes sign: relative to its largest value
+            ("kappa_2h", hm.kappa_2h_profiles(thetas_x, c["M"],
+                                              c["zsource"]),
+             gx["kappa_2h"], GATE_EXT, True),
+            ("get_bao_rs_dV", hm.get_bao_rs_dV(zs), gx["bao_rs_dv"],
+             GATE_EXT, False),
+            ("get_tau_star", hm.get_tau_star(), gx["tau_star"], GATE_EXT,
+             False),
+            ("z_of_tau", hm.z_of_tau(gx["taus"]), gx["z_of_tau"], GATE_EXT,
+             False),
+            ("conformal_time", hm.conformal_time(zs), gx["conformal_time"],
+             GATE_EXT, False),
+            ("cmb_lensing_limber nonlinear",
+             hm.cmb_lensing_limber(lmax_x, nonlinear=True)[1],
+             gx["cl_kk_nl"], GATE_EXT, False)]
+        return out
+
+    # the main path of the phase: counts set to 0 just before, read after
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    hx = build_ext()
+    outs_x = ext_outputs(hx)
+    torch.cuda.synchronize()
+    launches["extensions"] = read_counts()
+    ext_peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    want_ext = {name: {"nfw_uk_fast": 1, "pair_lerp_f64": 1}.get(name, 0)
+                for name in wrappers}
+    check(launches["extensions"] == want_ext,
+          f"extensions: one nfw_uk_fast and one pair_lerp_f64 launch, got "
+          f"{launches['extensions']}")
+    for what, got, want, gate, to_max in outs_x:
+        check(got.is_cuda and got.dtype == torch.float64
+              and tuple(got.shape) == want.shape
+              and bool(torch.isfinite(got).all()), f"extensions {what} output")
+        g_np = got.cpu().numpy()
+        e = float(np.max(np.abs(g_np - want)) / np.max(np.abs(want))
+                  if to_max else np.max(np.abs(g_np / want - 1.0)))
+        check(e <= gate, f"extensions {what} vs golden: {e!r} > {gate}")
+        print(f"[extensions] {what} {tuple(got.shape)}: max "
+              f"{'abs err / max' if to_max else 'rel err'} vs the JAX "
+              f"class's golden {e!r} (gate {gate})")
+    theta100 = float(gx["theta100"])
+    h0 = Cosmology({**cosmo_x, "theta100": theta100}, device=dev).p["H0"]
+    e_h0 = abs(h0 / float(gx["h0_theta100"]) - 1.0)
+    check(e_h0 <= GATE_H0, f"H0 from theta100: {e_h0!r}")
+    print(f"[extensions] H0 from theta100 = {theta100}: {h0!r}, rel err "
+          f"vs the JAX class {e_h0!r} (gate {GATE_H0}; numpy "
+          f"{np.__version__}); build launches "
+          f"{launches['extensions']}, peak {ext_peak:.1f} MiB allocated "
+          f"({card})")
+    del outs_x
+    # each kernel's inputs in the build, held against its plain version
+    with recorded(nk, "_launch_nfw_uk") as b1_in, \
+            recorded(rk, "_launch") as b4_in:
+        hx2 = build_ext()
+    torch.cuda.synchronize()
+    check(len(b1_in) == 1 and len(b4_in) == 1, "one launch of each kernel "
+          "in a build")
+    k_b1, s_b1, c_b1 = b1_in[0][:3]
+    u_x, s_x, k_x, dkt_x = b4_in[0]
+    del hx2, b1_in, b4_in
+    e_b1x = (nk.nfw_uk_fast(k_b1, s_b1, c_b1).double()
+             - nk.nfw_uk_plain(k_b1, s_b1, c_b1)).abs().max().item()
+    check(e_b1x <= GATE_UK["fast"], f"nfw_uk_fast at the extensions' rows: "
+          f"{e_b1x!r}")
+    e_b4x = (rk.pair_lerp_f64(u_x, s_x, k_x, dkt_x)
+             - rk.pair_lerp_plain(u_x, s_x, k_x, dkt_x)).abs().max().item()
+    check(e_b4x <= GATE_LERP, f"pair_lerp_f64 at the pressure table: "
+          f"{e_b4x!r}")
+    check(torch.equal(nk.nfw_uk_fast(k_b1, s_b1, c_b1).to(torch.float64)
+                      .reshape(hx.uk_profiles["nfw_fast"].shape),
+                      hx.uk_profiles["nfw_fast"]),
+          "the extensions' fast profile is the kernel's output")
+    print(f"[extensions] nfw_uk_fast vs nfw_uk_plain at the build's "
+          f"{s_b1.numel()} x {k_b1.numel()}: max abs err {e_b1x!r} (gate "
+          f"{GATE_UK['fast']}); pair_lerp_f64 vs pair_lerp_plain at the "
+          f"pressure table {tuple(u_x.shape)} -> {k_x.numel()} k: max abs "
+          f"err {e_b4x!r} (gate {GATE_LERP})")
+    # latency, launches, host reads and peak memory of the build and of
+    # each of the phase's entry points
+    ext_calls = {
+        "build": build_ext,
+        "get_p21": lambda: hx.get_p21("hi"),
+        "get_cib_cls": lambda: hx.get_cib_cls(ells_x, *pairs_x[1]),
+        "P_mm_nonlinear mead": lambda: hx.P_mm_nonlinear(ks_np, zs, "mead"),
+        "P_mm_nonlinear takahashi":
+            lambda: hx.P_mm_nonlinear(ks_np, zs, "takahashi"),
+        "cmb_lensing_limber": lambda: hx.cmb_lensing_limber(
+            lmax_x, nonlinear=True),
+    }
+    ext_stats = {}
+    for what, fn in ext_calls.items():
+        n_l, n_sync = traced(fn)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_x = host_ms(fn, n=10, warmup=1)
+        peak_x = torch.cuda.max_memory_allocated(dev) / 2**20
+        ext_stats[what] = {"ms": t_x, "launches": n_l, "host_reads": n_sync,
+                           "peak_mib": peak_x}
+        print(f"[time] extensions {what} at 20x200x1001: {t_x!r} ms (host "
+              f"clock to synchronize, median of 10), {n_l} launches and "
+              f"{n_sync} host reads (torch.profiler), peak {peak_x:.1f} MiB "
+              f"allocated ({card})")
+    # both kernels at the extensions' shapes: device time, plain version,
+    # torch.gather of the same samples (B4a), bound
+    t_b1x = device_ms(lambda: nk.nfw_uk_fast(k_b1, s_b1, c_b1))
+    tp_b1x = device_ms(lambda: nk.nfw_uk_plain(k_b1, s_b1, c_b1))
+    b1x_ms, b1x_by = bound(8 * (k_b1.numel() + 2 * s_b1.numel())
+                           + 4 * s_b1.numel() * k_b1.numel(),
+                           nfw_ops(k_b1, s_b1, c_b1, "fast"))
+    t_b4x = device_ms(lambda: rk.pair_lerp_f64(u_x, s_x, k_x, dkt_x))
+    tp_b4x = device_ms(lambda: rk.pair_lerp_plain(u_x, s_x, k_x, dkt_x))
+    i0_x = torch.floor(k_x * s_x.reshape(-1)[:, None] / dkt_x).clamp(
+        1, u_x.shape[-1] - 2).long()
+    idx_x = torch.cat([i0_x, i0_x + 1], dim=1)
+    u2_x = u_x.reshape(-1, u_x.shape[-1])
+    tg_b4x = device_ms(lambda: torch.gather(u2_x, 1, idx_x))
+    b4x_ms, b4x_by = bound(*pair_lerp_work(u_x, s_x, k_x, dkt_x))
+    ext_rows = {
+        "nfw_uk_fast": {"shape": f"{s_b1.numel()} x {k_b1.numel()}",
+                        "max_err": e_b1x, "ms": t_b1x, "plain_ms": tp_b1x,
+                        "bound_ms": b1x_ms, "bound_by": b1x_by,
+                        "library_ms": None,
+                        "launches": launches["extensions"]["nfw_uk_fast"]},
+        "pair_lerp_f64": {"shape": f"{s_x.numel()} x {u_x.shape[-1]} kt -> "
+                                   f"{k_x.numel()} k",
+                          "max_err": e_b4x, "ms": t_b4x, "plain_ms": tp_b4x,
+                          "gather_ms": tg_b4x, "library_ms": None,
+                          "bound_ms": b4x_ms, "bound_by": b4x_by,
+                          "launches":
+                              launches["extensions"]["pair_lerp_f64"]},
+    }
+    for name, row in ext_rows.items():
+        print(f"[time] {name} at the extensions' shape {row['shape']}: "
+              f"{row['ms']!r} ms (device time, CUDA-graph replays of 25 "
+              f"calls), plain version {row['plain_ms']!r} ms"
+              + (f", torch.gather of the 2 nk samples {row['gather_ms']!r} "
+                 f"ms" if "gather_ms" in row else "")
+              + f", bound {row['bound_ms']!r} ms by {row['bound_by']}, time "
+              f"/ bound {row['ms'] / row['bound_ms']!r}; "
+              f"{row['launches']} launch in the extensions build ({card})")
+    del hx, u_x, s_x, k_x, u2_x, idx_x, i0_x, k_b1, s_b1, c_b1
+    torch.cuda.empty_cache()
+
     for name, _, _, paths in KERNEL_ROWS:
         for path in paths:
             check(launches[path][name] > 0, f"{name} launched on {path}")
@@ -1391,12 +1644,15 @@ def main() -> int:
             row["ksz"] = ksz_rows
         if name in class_rows:
             row["class"] = class_rows[name]
+        if name in ext_rows:
+            row["extensions"] = ext_rows[name]
         kernels.append(row)
     check(all(math.isfinite(k["ms"]) and math.isfinite(k["plain_ms"])
               and math.isfinite(k["bound_ms"]) for k in kernels), "timings")
     print("[batch] " + json.dumps(batch_stats))
     print("[ksz] " + json.dumps(ksz_stats))
     print("[class] " + json.dumps(class_stats))
+    print("[extensions] " + json.dumps(ext_stats))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

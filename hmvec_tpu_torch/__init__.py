@@ -28,6 +28,8 @@ from .models.ksz import (  # noqa: F401
     get_kmin, get_ksz_auto_signal_mafry, get_ksz_auto_squeezed,
     get_ksz_snr, get_ksz_snr_survey, get_ksz_template_signal_snapshot,
     get_survey_volume, kSZ, ksz_radial_function, ne0_shaw, pge_err_core)
+from .models.cib import (  # noqa: F401
+    build_cib_tracer, cib_luminosity, default_cib_params, sed_graybody)
 from .models.power import (  # noqa: F401
     exclusion_correction, total_matter_galaxy_power_spectrum,
     total_matter_power_spectrum)

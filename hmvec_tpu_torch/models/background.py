@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.special import hyp2f1_growth, hyp2f1_growth_and_slope
-from ..utils.weights import gauss_legendre
+from ..utils.weights import gauss_legendre, on_device
 
 CSPEED_KMS = 299792.458
 
@@ -32,17 +32,6 @@ _RHO_CRIT_FACTOR = (3.0 * _HZ_TO_SI**2 / (8.0 * float(math.pi) * _G_SI)
 
 
 _GL_NODES, _GL_WEIGHTS = gauss_legendre(128)
-_GL_ON_DEVICE = {}
-
-
-def _gauss_legendre_on(device):
-    """The 128 Gauss-Legendre nodes and weights on [0, 1] as float64
-    tensors on ``device``, copied there once."""
-    if device not in _GL_ON_DEVICE:
-        _GL_ON_DEVICE[device] = tuple(
-            torch.as_tensor(a, dtype=torch.float64, device=device)
-            for a in (_GL_NODES, _GL_WEIGHTS))
-    return _GL_ON_DEVICE[device]
 
 
 def _varies(t) -> bool:
@@ -150,7 +139,8 @@ def _on_device(bg: BackgroundParams, z):
 def comoving_radial_distance(bg: BackgroundParams, z):
     """chi(z) in Mpc by 128-node Gauss-Legendre on [0, z]."""
     z = _on_device(bg, z)
-    nodes, weights = _gauss_legendre_on(z.device)
+    nodes, weights = on_device("gl128", z.device,
+                               lambda: (_GL_NODES, _GL_WEIGHTS))
     integrand = 1.0 / e_of_z(bg, z[..., None] * nodes)   # (..., 128)
     return (CSPEED_KMS / bg.H0) * z * (integrand @ weights)
 
@@ -350,14 +340,10 @@ def _running_products(m):
     return p
 
 
-def growth_table(bg: BackgroundParams, n_steps: int = 384,
-                 lna_min: float = _GROWTH_LNA0) -> GrowthTable:
-    """Integrate the growth ODE on a uniform ln-a grid up to a = 1.
-
-    Initial conditions deep in matter domination (g = 1, g' = 0 at
-    a = 1e-4; the dark-energy correction there is O(oml/omm a^3) ~ 1e-12).
-    """
-    h = (0.0 - lna_min) / n_steps
+def _step_propagators(bg: BackgroundParams, lna_min: float, h: float,
+                      n_steps: int):
+    """The (n_steps, 2, 2) RK4 step propagators M_n from lna_min in steps
+    of h, the n_steps + 1 nodes' ln a, and the 2x2 identity."""
     dev = bg.H0.device
     steps = torch.arange(n_steps + 1, dtype=torch.float64, device=dev)
     lnas = lna_min + h * steps
@@ -368,13 +354,52 @@ def growth_table(bg: BackgroundParams, n_steps: int = 384,
     k2 = ah @ (eye + (0.5 * h) * k1)
     k3 = ah @ (eye + (0.5 * h) * k2)
     k4 = a1 @ (eye + h * k3)
-    prop = _running_products(eye + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4))
+    return eye + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4), lnas, eye
+
+
+def growth_table(bg: BackgroundParams, n_steps: int = 384,
+                 lna_min: float = _GROWTH_LNA0) -> GrowthTable:
+    """Integrate the growth ODE on a uniform ln-a grid up to a = 1.
+
+    Initial conditions deep in matter domination (g = 1, g' = 0 at
+    a = 1e-4; the dark-energy correction there is O(oml/omm a^3) ~ 1e-12).
+    """
+    h = (0.0 - lna_min) / n_steps
+    steps, lnas, eye = _step_propagators(bg, lna_min, h, n_steps)
+    prop = _running_products(steps)
     # y_n = P_(n-1) y0 with y0 = (1, 0): the first column
     y0 = eye[:1, :]
     g, gp = torch.cat([y0, prop[:, :, 0]]).unbind(-1)
     a_nodes = torch.exp(lnas)
     return GrowthTable(lna0=lna_min, h=h, d=a_nodes * g,
                        dp=a_nodes * (g + gp))
+
+
+def growth_dolag_ratio(bg: BackgroundParams, a_inf: float = 10.0,
+                       n_steps: int = 512):
+    """Dolag et al 2004 dark-energy concentration factor
+    D_w(a_inf) / D_LCDM(a_inf): both growing modes integrated from the
+    same matter-domination initial conditions (g = D/a = 1, g' = 0 at
+    a = 1e-4) to a_inf = 10, where the growth has saturated.  Each solve
+    is the product of its n_steps step propagators, taken pairwise in
+    log2(n_steps) rounds, applied to (1, 0).  Exactly 1 for
+    (w0, wa) = (-1, 0): the two solves are the same arithmetic.  HMcode
+    multiplies concentrations by this ratio to the power 1.5 (1 in its
+    2020 version)."""
+    lna_end = math.log(a_inf)
+    h = (lna_end - _GROWTH_LNA0) / n_steps
+
+    def g_end(b):
+        p, _, eye = _step_propagators(b, _GROWTH_LNA0, h, n_steps)
+        while p.shape[0] > 1:
+            if p.shape[0] % 2:
+                p = torch.cat([p, eye[None]])
+            p = p[1::2] @ p[0::2]
+        return p[0, 0, 0]                 # g = D/a at a_inf (a_inf cancels)
+
+    bgl = bg._replace(w0=torch.full_like(bg.w0, -1.0),
+                      wa=torch.zeros_like(bg.wa))
+    return g_end(bg) / g_end(bgl)
 
 
 def growth_eval(tab: GrowthTable, a):

@@ -15,6 +15,12 @@ nothing back from the card; only a tensor parameter (moved to the
 instance's device as ``params.to_torch_params`` moves it), or the sigma8 /
 S8 rescale of As, is read back.
 
+Nonlinear matter power (``halofit=``, ``P_mm_nonlinear``,
+``get_pk_interpolator(nonlinear=True)``) dispatches as the JAX class does:
+a tabulated engine's nonlinear table, else HMcode for 'mead*' and halofit
+for the other versions.  ``theta100`` solves H0 on the host before the
+background is built.
+
 The methods whose module is still to be ported raise NotImplementedError
 naming its group of ROADMAP A9 (``DEFERRED``).
 """
@@ -26,6 +32,7 @@ import torch
 
 from ..params import merge_params, to_torch_params
 from . import background as bgmod
+from . import distances_ext as dext
 from . import limber as limb
 from . import linear_power as lpm
 from .transfer import transfer_eh98
@@ -56,14 +63,8 @@ DEFERRED = {
     "C_gg_exact": "fftlog/nonlimber", "C_kg_exact": "fftlog/nonlimber",
     "C_gg_hybrid": "fftlog/nonlimber", "C_kk_hybrid": "fftlog/nonlimber",
     "C_kk_exact": "fftlog/nonlimber",
-    "conformal_time": "distances_ext", "get_tau_star": "distances_ext",
-    "z_of_tau": "distances_ext", "get_bao_rs_dV": "distances_ext",
-    "cmb_lensing_limber": "distances_ext",
     "get_cmb_cls": "boltz/lensed", "cmb_lensing_kk_exact": "boltz/lensed",
 }
-# ``P_mm_nonlinear`` and ``get_pk_interpolator(nonlinear=True)`` raise for
-# every engine but a tabulated one, through ``_get_matter_power``
-NONLINEAR_GROUP = "halofit/hmcode"
 
 
 def a2z(a):
@@ -120,10 +121,11 @@ class Cosmology:
         self._engine_opts = engine_opts
         self.halofit = halofit
         self.cls_table = dict(cls_table) if cls_table is not None else None
+        # theta100: H0 solved on the host for the requested acoustic
+        # scale (the EH98 / Hu-Sugiyama approximation of cosmomc_theta)
         if params and "theta100" in params:
-            raise NotImplementedError(
-                "theta100 needs the distances_ext group of ROADMAP A9 "
-                "(solve_h0_from_theta100), which is not ported yet; pass H0")
+            self.p["H0"] = dext.solve_h0_from_theta100(self.p,
+                                                       params["theta100"])
         self.engine = lpm.make_engine(engine, pk_table)
         self.bg = bgmod.background(self.p, self.device)
 
@@ -251,8 +253,8 @@ class Cosmology:
         return self._get_matter_power(zs, ks, nonlinear=False)
 
     def P_mm_nonlinear(self, ks, zs, halofit_version="mead"):
-        """Nonlinear matter power on (zs, ks): a tabulated engine's
-        nonlinear table; the halofit/hmcode models are not ported yet."""
+        """Nonlinear matter power on (zs, ks) for a halofit version (a
+        tabulated engine: its nonlinear table)."""
         old = self.halofit
         self.halofit = halofit_version
         try:
@@ -287,7 +289,7 @@ class Cosmology:
                     p = cosmo._get_matter_power(pzs, pks,
                                                 nonlinear=nonlinear)
                 if var == "weyl":
-                    h0i = cosmo.bg.H0 / bgmod.CSPEED_KMS
+                    h0i = cosmo.bg.H0 / dext.CSPEED_KMS
                     pref = (1.5 * cosmo.bg.omm0 * h0i**2
                             * (1.0 + pzs))[:, None] ** 2
                     p = pref * p / pks[None, :] ** 4
@@ -307,11 +309,27 @@ class Cosmology:
         if nonlinear:
             if self.engine.name == "tabulated":
                 return self.engine.pzk_grid(self.bg, zs, ks, nonlinear=True)
-            raise NotImplementedError(
-                f"nonlinear matter power (halofit={self.halofit!r}) needs "
-                f"the {NONLINEAR_GROUP} group of ROADMAP A9, which is not "
-                f"ported yet; a TabulatedEngine with a nonlinear table "
-                f"serves it")
+            # the halofit string is CAMB's halofit_version (default 'mead')
+            version = self.halofit
+            if version in (None, True):
+                version = self.p.get("default_halofit", "mead")
+            hmcode = {"mead": "2016", "mead2016": "2016", "hmcode": "2016",
+                      "mead2015": "2015", "mead2020": "2020",
+                      "mead2020_feedback": "2020_feedback"}
+            if version in hmcode:
+                from .hmcode import hmcode_power
+                return hmcode_power(self, zs, ks, version=hmcode[version])
+            from .halofit import halofit_power
+            if version in ("original", "smith", "smith03"):
+                return halofit_power(self, zs, ks, version="original")
+            if version in ("takahashi", "bird", "peacock", "casarini"):
+                return halofit_power(self, zs, ks, version=version)
+            raise ValueError(
+                f"halofit version {version!r}: supported are 'mead' "
+                "(HMcode-2016, default), 'mead2015', 'mead2020', "
+                "'mead2020_feedback', 'takahashi', 'original', 'bird', "
+                "'peacock', 'casarini' (the reference's "
+                "bin/test_halofit.py sweep + CAMB>=1.3's defaults)")
         return self.engine.pzk_grid(self.bg, zs, ks, nonlinear=False,
                                     growth_mode=self.growth_mode)
 
@@ -361,6 +379,27 @@ class Cosmology:
     def get_Omega_nu(self):
         """Massive-neutrino density fraction."""
         return self.bg.omnu0
+
+    # ---- conformal time, recombination, BAO (the distances_ext module) ----
+    def conformal_time(self, z):
+        """eta(z) in Mpc; the conformal age below z = 1e-5; a 0-d tensor
+        for one redshift."""
+        z = torch.atleast_1d(self._t(z))
+        out = torch.where(z < 1e-5, dext.conformal_age(self.bg),
+                          dext.conformal_time(self.bg, z))
+        return out if out.numel() > 1 else out[0]
+
+    def get_tau_star(self):
+        return dext.tau_star(self.bg)
+
+    def z_of_tau(self, tau):
+        return dext.z_of_tau(self.bg, self._t(tau))
+
+    def get_bao_rs_dV(self, zs):
+        return dext.get_bao_rs_dV(self.bg, self._t(zs))
+
+    def cmb_lensing_limber(self, lmax, nonlinear=False):
+        return dext.cmb_lensing_limber(self, lmax, nonlinear=nonlinear)
 
     # ---- baryon combinators ----
     def total_matter_power_spectrum(self, Pnn, Pne, Pee):

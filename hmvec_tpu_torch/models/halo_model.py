@@ -9,9 +9,11 @@ the same kernels as the pipelines on the card: every numeric profile
 (``add_nfw_profile(numeric=True)``, Einasto, the Battaglia gas and
 pressure profiles) through ``generic_profile_fft`` and its float64
 resample kernel, ``add_nfw_profile(fast=True)`` through the fast-tier NFW
-kernel (``ops.nfw_kernels.nfw_uk_fast``).  The host keeps numpy copies of
-the grids (``zs_np``, ``ks_np``, ``ms_np``) for the static quadrature
-weights.
+kernel (``ops.nfw_kernels.nfw_uk_fast``).  The CIB and HI tracers ride on
+a registered profile (so on that kernel when the profile is the fast
+one); the cluster-lensing profiles are closed forms on the instance's
+background.  The host keeps numpy copies of the grids (``zs_np``,
+``ks_np``, ``ms_np``) for the static quadrature weights.
 
 The methods whose module is still to be ported raise NotImplementedError
 naming its group of ROADMAP A9 (``DEFERRED``).
@@ -25,9 +27,14 @@ import numpy as np
 import torch
 
 from ..ops.nfw_kernels import nfw_uk_fast
+from ..ops.quadrature import linear_interp
 from ..ops.sine_transform import generic_profile_fft
 from ..params import battaglia_defaults, scoped_override
 from ..utils.weights import trapz_weights
+from . import background as bgmod
+from . import cib as cibm
+from . import cluster_lensing as clm
+from . import hi as him
 from . import mass_function as mfm
 from . import power as pwr
 from . import profiles as prof
@@ -60,10 +67,6 @@ _HOD_PARAM_KEYS = [
 # HaloModel methods whose module is still in A9, by group
 DEFERRED = {
     "get_mean_compton_y": "pairwise", "get_tau_aperture": "pairwise",
-    "add_cib_tracer": "cib", "get_cib_mean_emissivity": "cib",
-    "get_cib_mean_intensity": "cib", "get_cib_cls": "cib",
-    "add_hi_tracer": "hi", "get_omega_hi": "hi", "get_hi_bias": "hi",
-    "get_p21": "hi",
     "get_galaxy_rsd_multipoles": "rsd/tns/spt",
     "get_bispectrum": "bispectrum", "get_angular_bispectrum": "bispectrum",
     "cluster_counts_obs": "cluster_counts",
@@ -71,9 +74,6 @@ DEFERRED = {
     "cluster_counts_covariance": "cluster_counts",
     "joint_counts_cl_cov": "cov", "get_cl_cov_t1h": "cov",
     "get_cl_cov_ssc": "cov", "get_pk_covariance": "cov",
-    "sigma_1h_profiles": "cluster_lensing",
-    "kappa_1h_profiles": "cluster_lensing",
-    "kappa_2h_profiles": "cluster_lensing",
 }
 
 # the y-units of the pressure profile: Thomson cross-section [m^2],
@@ -108,6 +108,8 @@ class HaloModel(Cosmology):
         self.uk_profiles: dict = {}
         self.uk2_profiles: dict = {}   # <u^2> for c-scatter profiles
         self.pk_profiles: dict = {}
+        self.cib_tracers: dict = {}    # CIB and HI tracers
+        self._hi_params: dict = {}
 
         if accuracy == "low":
             self.Pzk = self.P_lin_approx(self.ks, self.zs)
@@ -412,7 +414,90 @@ class HaloModel(Cosmology):
                                     uk2=self.uk2_profiles.get(name))
         if name in self.pk_profiles:
             return pwr.PressureTracer(pk=self.pk_profiles[name])
+        if name in self.cib_tracers:
+            return self.cib_tracers[name]
         raise ValueError(f"Unknown tracer {name!r}")
+
+    # ---- CIB (models/cib.py, Shang et al 2012 forms) ----
+    def add_cib_tracer(self, name, nu_ghz, param_override=None,
+                       satellite_profile="nfw", ignore_existing=False):
+        """An emissivity-weighted CIB tracer at an observed frequency
+        [GHz]: satellites on the named registered profile (its <u^2> too,
+        the same tensor for every frequency), centrals at the halo
+        center.  ``get_power(name, other)`` then gives every pairing and
+        ``get_cib_cls`` its C_ell."""
+        if not ignore_existing:
+            _require(name not in self.cib_tracers,
+                     "Tracer name already exists.")
+        us = self.uk_profiles[satellite_profile]
+        self.cib_tracers[name] = cibm.build_cib_tracer(
+            self.ms_np, self.zs, nu_ghz, us, params=param_override,
+            us2=self.uk2_profiles.get(satellite_profile))
+        return self.cib_tracers[name]
+
+    def get_cib_mean_emissivity(self, name):
+        return cibm.mean_emissivity(self.nzm, self.ms, self.cib_tracers[name])
+
+    def get_cib_mean_intensity(self, name):
+        return cibm.mean_intensity(self.zs, self.h_of_z(self.zs), self.nzm,
+                                   self.ms, self.cib_tracers[name])
+
+    def get_cib_cls(self, ells, name1, name2=None):
+        """C_ell of two tracers of this instance (CIB anisotropies in L0^2
+        units): C = int dchi a^2 P_jj'(k = (l + 1/2) / chi) / chi^2, by
+        ``limber.limber_integral`` with W = a / H."""
+        from .limber import limber_integral
+        P = self.get_power(name1, name2)
+        hzs = self.h_of_z(self.zs)
+        chis = self.comoving_radial_distance(self.zs)
+        W = (1.0 / (1.0 + self.zs)) / hzs   # limber multiplies by hzs once
+        return limber_integral(ells, self.zs, self.ks, P, self.zs,
+                               W, W, hzs, chis)
+
+    # ---- HI / 21 cm (models/hi.py, VN18 M_HI form) ----
+    def add_hi_tracer(self, name, profile_name="nfw", param_override=None,
+                      ignore_existing=False):
+        """A density-normalized HI tracer: M_HI(M) inside the named
+        registered profile.  ``get_power(name, other)`` gives P_HIHI and
+        every cross; ``get_p21`` the brightness-temperature power."""
+        if not ignore_existing:
+            _require(name not in self.cib_tracers,
+                     "Tracer name already exists.")
+        _require(profile_name in self.uk_profiles,
+                 f"Unknown profile {profile_name!r}")
+        p = scoped_override(dict(him.default_hi_params), param_override,
+                            set(him.default_hi_params), strict=True)
+        tr, _ = him.build_hi_tracer(
+            self.ms, self.nzm, self.uk_profiles[profile_name], p,
+            us2=self.uk2_profiles.get(profile_name))
+        self.cib_tracers[name] = tr
+        self._hi_params[name] = p
+        return tr
+
+    def _hi_params_of(self, name, param_override):
+        return (self._hi_params.get(name)
+                if name is not None and self._hi_params else param_override)
+
+    def get_omega_hi(self, name=None, param_override=None):
+        """Omega_HI(z) = int dm n M_HI / rho_crit(0)."""
+        return him.omega_hi(self.nzm, self.ms, self.rho_critical_z(0.0),
+                            self._hi_params_of(name, param_override))
+
+    def get_hi_bias(self, name=None, param_override=None):
+        return him.hi_bias(self.nzm, self.bh, self.ms,
+                           self._hi_params_of(name, param_override))
+
+    def get_p21(self, name, name2=None):
+        """21 cm brightness-temperature power P_21(k, z) [mK^2 Mpc^3]:
+        Tb(z)^2 (Tb1 Tb2 for two HI tracers) times the HI power."""
+        ez = bgmod.e_of_z(self.bg, self.zs)
+        tb1 = him.mean_brightness_temp_mk(self.zs, ez,
+                                          self.get_omega_hi(name), self.h)
+        tb2 = tb1
+        if name2 is not None and name2 != name:
+            tb2 = him.mean_brightness_temp_mk(
+                self.zs, ez, self.get_omega_hi(name2), self.h)
+        return (tb1 * tb2)[:, None] * self.get_power(name, name2)
 
     # ---- spectra ----
     def get_power_1halo(self, name="nfw", name2=None):
@@ -478,6 +563,26 @@ class HaloModel(Cosmology):
         dvdz = 4.0 * math.pi * chi**2 / self.h_of_z(self.zs)
         dndz = fsky * dvdz * n_of_z
         return dndz, dndz @ self._t(trapz_weights(self.zs_np))
+
+    # ---- cluster lensing (models/cluster_lensing.py) ----
+    def sigma_1h_profiles(self, thetas, Ms, concs, sig_theta=None, delta=200,
+                          rho="mean", rho_at_z=True):
+        return clm.sigma_1h_profiles(self.bg, self.zs, thetas, Ms, concs,
+                                     sig_theta=sig_theta, delta=delta,
+                                     rho=rho, rho_at_z=rho_at_z)
+
+    def kappa_1h_profiles(self, thetas, Ms, concs, zsource, sig_theta=None,
+                          delta=200, rho="mean", rho_at_z=True):
+        return clm.kappa_1h_profiles(self.bg, self.zs, thetas, Ms, concs,
+                                     zsource, sig_theta=sig_theta,
+                                     delta=delta, rho=rho, rho_at_z=rho_at_z)
+
+    def kappa_2h_profiles(self, thetas, Ms, zsource, lmin=100, lmax=10000):
+        """2-halo kappa(theta) per z, (ntheta, nz), with the halo bias of
+        each z row interpolated at the cluster mass M (a scalar)."""
+        bh_at_m = linear_interp(self._t(Ms).reshape(()), self.ms, self.bh)
+        return clm.kappa_2h_profiles(self.bg, self.zs, self.ks, self.Pzk,
+                                     bh_at_m, thetas, zsource, lmin, lmax)
 
 
 for _name, _group in DEFERRED.items():

@@ -1,5 +1,5 @@
 """1-halo / 2-halo power assembly on float64 tensors (port of
-hmvec_tpu/models/power.py for the matter, pressure and HOD tracers).
+hmvec_tpu/models/power.py for the matter, pressure, HOD and CIB tracers).
 
 The mass integrals are static trapezoid-weight reductions over the m axis.
 The 2-halo term applies the low-k consistency completion, so that
@@ -10,8 +10,8 @@ threads the local-fNL scale-dependent bias through each 2-halo leg, and
 Deviation from the JAX package: the assembly always runs in float64.  The
 JAX ``fast_assembly`` option (float32 products and sums) exists because
 float64 is emulated on the TPU; a GPU has native float64, so the port has
-no such option.  The CIB tracer and its terms come with the cib group of
-ROADMAP A9.
+no such option.  ``CIBTracer`` is the emissivity-weighted tracer of the
+CIB and HI halo models (models/cib.py, models/hi.py).
 """
 
 from __future__ import annotations
@@ -32,6 +32,17 @@ class MatterTracer(NamedTuple):
 
 class PressureTracer(NamedTuple):
     pk: torch.Tensor  # (nz, nm, nk) pressure profile in y units
+
+
+class CIBTracer(NamedTuple):
+    """Emissivity-weighted tracer (CIB; HI with fc = 0): fc / fs are the
+    central / satellite per-halo emissivities on the (z, m) grid."""
+    fc: torch.Tensor       # (nz, nm)
+    fs: torch.Tensor       # (nz, nm)
+    us: torch.Tensor       # (nz, nm, nk) satellite profile (<u> if scattered)
+    # <u^2> of a concentration-scattered satellite profile: the same-halo
+    # satellite pair term averages u^2 over one realized concentration
+    us2: Optional[torch.Tensor] = None
 
 
 class HODTracer(NamedTuple):
@@ -96,28 +107,56 @@ def _hod_term(t: HODTracer, lowklim=False):
             / t.ngal[..., None, None])
 
 
+def _cib_term(t: CIBTracer, lowklim=False):
+    """fc + fs u: centrals at the halo center, satellites on the profile
+    (Shang et al 2012 eq 20-21), shape (nz, nm, nk)."""
+    us = 1.0 if lowklim else t.us
+    return t.fc[..., None] + us * t.fs[..., None]
+
+
+def _cib_square_term(t1: CIBTracer, t2: CIBTracer):
+    """The 1-halo CIB pair term fc1 fs2 u2 + fc2 fs1 u1 + fs1 fs2 u1 u2 (the
+    central self-pair is excluded, as in the HOD form).  When both tracers
+    hold the same <u^2> tensor (two frequencies on one scattered profile,
+    one concentration per halo) the satellite pair takes <u^2>; distinct
+    profiles keep the product of the means."""
+    u1, u2 = t1.us, t2.us
+    fc1, fs1 = t1.fc[..., None], t1.fs[..., None]
+    fc2, fs2 = t2.fc[..., None], t2.fs[..., None]
+    if t1.us2 is not None and (t1.us2 is t2.us2):
+        u1u2 = t1.us2
+    else:
+        u1u2 = u1 * u2
+    return fc1 * fs2 * u2 + fc2 * fs1 * u1 + fs1 * fs2 * u1u2
+
+
 def _term(tracer, ms, rho_matter0, lowklim=False):
     if isinstance(tracer, HODTracer):
         return _hod_term(tracer, lowklim)
+    if isinstance(tracer, CIBTracer):
+        return _cib_term(tracer, lowklim)
     if isinstance(tracer, MatterTracer):
         return _matter_term(tracer, ms, rho_matter0, lowklim)
     if isinstance(tracer, PressureTracer):
         return _pressure_term(tracer, lowklim)
-    raise TypeError(f"only MatterTracer, PressureTracer and HODTracer are "
-                    f"ported, got {type(tracer).__name__}")
+    raise TypeError(f"a tracer is a MatterTracer, PressureTracer, HODTracer "
+                    f"or CIBTracer, got {type(tracer).__name__}")
 
 
 def one_halo_square_term(tracer1, tracer2, ms, rho_matter0):
     """The (z, m, k) pair term that power_1halo integrates.  One HOD sample
     with itself keeps the factorial-moment form, a scattered matter
-    profile with itself takes <u^2>, a pressure profile with itself its
-    square; two distinct tracers factorize."""
+    profile with itself takes <u^2>, two CIB tracers the CIB pair term, a
+    pressure profile with itself its square; two distinct tracers
+    factorize."""
     if tracer1 is tracer2 and isinstance(tracer1, HODTracer):
         return _hod_square_term(tracer1)
     if (tracer1 is tracer2 and isinstance(tracer1, MatterTracer)
             and tracer1.uk2 is not None):
         fac = ms[None, :, None] / rho_matter0
         return fac * fac * tracer1.uk2
+    if isinstance(tracer1, CIBTracer) and isinstance(tracer2, CIBTracer):
+        return _cib_square_term(tracer1, tracer2)
     if (isinstance(tracer1, PressureTracer)
             and isinstance(tracer2, PressureTracer)):
         return _pressure_term(tracer1) ** 2
@@ -136,10 +175,11 @@ def power_1halo(tracer1, tracer2, nzm, ms, ks, rho_matter0,
 
 def _leg(tracer, nzm, bh, ms, rho_matter0):
     """(integral, consistency, b) for one 2-halo leg.  A pressure leg takes
-    no consistency completion and b = 0, as in the reference."""
+    no consistency completion and b = 0, as in the reference; a CIB leg
+    neither (its L(M) weight vanishes at low mass by itself)."""
     weighted = nzm[..., None] * bh[..., None]
     integral = _mass_integral(weighted * _term(tracer, ms, rho_matter0), ms)
-    if isinstance(tracer, PressureTracer):
+    if isinstance(tracer, (PressureTracer, CIBTracer)):
         return integral, torch.zeros_like(integral), 0.0
     term0 = _term(tracer, ms, rho_matter0, lowklim=True)
     consistency = _mass_integral(weighted * term0, ms)
@@ -156,7 +196,7 @@ def _leg_fnl(tracer, nzm, bh, ms, rho_matter0):
     integral, consistency, b = _leg(tracer, nzm, bh - 1.0, ms, rho_matter0)
     if isinstance(tracer, HODTracer):
         b = b - 1.0
-    elif not isinstance(tracer, PressureTracer):
+    elif not isinstance(tracer, (PressureTracer, CIBTracer)):
         b = 0.0
     return integral, consistency, b
 

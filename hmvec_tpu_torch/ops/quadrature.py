@@ -47,25 +47,31 @@ def linear_interp(x, xp, fp, left=None, right=None):
     [1, n - 1] (so a point on the last node takes the last interval),
     fp[i-1] + (x - xp[i-1]) / dx * df with dx guarded where it is below
     float64's smallest spacing, and ``left`` / ``right`` (default fp[0],
-    fp[-1]) where x < xp[0] or x > xp[-1].  fp: (n,) on x's device; xp:
-    (n,), or (rows, n) increasing along each row with x (rows, m), one
-    interpolation per row."""
+    fp[-1]) where x < xp[0] or x > xp[-1].  xp: (n,), or (rows, n)
+    increasing along each row with x (rows, m), one interpolation per row;
+    fp: (n,) on x's device, or (rows, n) with a 1-d xp and x: one table
+    per row on the shared nodes, giving (rows,) + x.shape."""
     x = torch.as_tensor(x, dtype=torch.float64, device=xp.device)
     n = xp.shape[-1]
     rows = xp.reshape(1, n) if xp.dim() == 1 else xp
     xr = (x.reshape(1, -1) if xp.dim() == 1 else x).contiguous()
     i = torch.searchsorted(rows, xr, right=True).clamp(1, n - 1)
     x0, x1 = torch.gather(rows, -1, i - 1), torch.gather(rows, -1, i)
-    f0, f1 = fp[i - 1], fp[i]
+    if fp.dim() == 1:
+        f0, f1, lo, hi, shape = fp[i - 1], fp[i], fp[0], fp[-1], x.shape
+    else:
+        idx = i.expand(fp.shape[0], -1)
+        f0, f1 = torch.gather(fp, -1, idx - 1), torch.gather(fp, -1, idx)
+        lo, hi, shape = fp[:, :1], fp[:, -1:], (fp.shape[0],) + x.shape
     dx = x1 - x0
     # a zero-width interval takes its left value (and no NaN gradient)
     eps = float(np.spacing(np.finfo(np.float64).eps))
     dx0 = dx.abs() <= eps
     f = torch.where(dx0, f0,
                     f0 + ((xr - x0) / torch.where(dx0, 1.0, dx)) * (f1 - f0))
-    f = torch.where(xr < rows[:, :1], fp[0] if left is None else left, f)
-    f = torch.where(xr > rows[:, -1:], fp[-1] if right is None else right, f)
-    return f.reshape(x.shape)
+    f = torch.where(xr < rows[:, :1], lo if left is None else left, f)
+    f = torch.where(xr > rows[:, -1:], hi if right is None else right, f)
+    return f.reshape(shape)
 
 
 def interp(x, y, bounds_error=False, fill_value=0.0):

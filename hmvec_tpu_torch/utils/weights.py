@@ -10,6 +10,20 @@ from __future__ import annotations
 
 import numpy as np
 
+_ON_DEVICE: dict = {}
+
+
+def on_device(key: str, device, make):
+    """The host arrays of ``make()`` (a tuple) as tensors of their own
+    dtype on ``device``: built and copied there once per (key, device), so
+    a call on the card copies no static grid."""
+    import torch
+
+    if (key, device) not in _ON_DEVICE:
+        _ON_DEVICE[key, device] = tuple(
+            torch.as_tensor(np.array(a), device=device) for a in make())
+    return _ON_DEVICE[key, device]
+
 
 def trapz_weights(x: np.ndarray) -> np.ndarray:
     """Weights w such that w @ y == np.trapezoid(y, x) exactly."""

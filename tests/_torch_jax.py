@@ -3,7 +3,13 @@ and its Jacobian from one compile.
 
 Imported by the tests/test_torch_*.py files that hold a whole pipeline
 against the JAX package; those that also run on a card without JAX import
-it inside their ``try: import jax`` block."""
+it inside their ``try: import jax`` block.  ``JaxSubprocess`` runs a
+script of JAX programs in a fresh process of its own."""
+
+import os
+import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -34,3 +40,51 @@ def jacobian_columns(jvp, theta, n):
     cols = [c if isinstance(c, (tuple, list)) else (c,) for c in cols]
     return [np.stack([np.asarray(c[i]) for c in cols], axis=-1)
             for i in range(len(cols[0]))]
+
+
+class JaxSubprocess:
+    """A script of tests/ run by a fresh Python process in the background,
+    for the JAX programs that a test process must not compile (XLA:CPU
+    crashes natively on large ones once a process holds a few hundred
+    compiled programs, tests/_isolation.py): ``start`` launches it,
+    ``wait`` waits for it, runs it once more if it died of a native
+    crash, as ``_isolation.run_isolated`` does, and raises on any other
+    failure."""
+
+    def __init__(self, script, *args, timeout=600):
+        here = pathlib.Path(__file__).resolve().parent
+        self.cmd = [sys.executable, str(here / script), *map(str, args)]
+        self.env = dict(os.environ)
+        self.env["PYTHONPATH"] = (str(here.parent) + os.pathsep
+                                  + self.env.get("PYTHONPATH", ""))
+        self.cwd = str(here.parent)
+        self.timeout = timeout
+        self.proc = None
+
+    def start(self):
+        self.proc = subprocess.Popen(
+            self.cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, cwd=self.cwd, env=self.env)
+        return self
+
+    def wait(self):
+        for attempt in (1, 2):
+            try:
+                out, _ = self.proc.communicate(timeout=self.timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.communicate()
+                raise
+            rc = self.proc.returncode
+            if rc == 0:
+                return
+            crashed = rc < 0 or "Fatal Python error" in out
+            if not crashed or attempt == 2:
+                raise AssertionError(f"{self.cmd[1:]} rc={rc} (attempt "
+                                     f"{attempt})\n{out[-4000:]}")
+            self.start()
+
+    def kill(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()

@@ -58,8 +58,6 @@ NOT_PORTED = {
             "pk_cov_gaussian", "trispectrum_1h", "pk_response_ssc",
             "sigma_b2_tophat", "pk_cov_ssc", "trispectrum_1h_terms",
             "cl_cov_t1h", "sigma_b2_disk", "cl_cov_ssc"),
-    "cib": ("default_cib_params", "sed_graybody", "cib_luminosity",
-            "build_cib_tracer"),
     "bispectrum": ("f2_kernel", "tree_bispectrum", "b2_sheth_torman",
                    "bispectrum_1halo", "bispectrum_2halo",
                    "bispectrum_3halo", "bispectrum_total",
@@ -187,17 +185,6 @@ def test_deferred_methods_raise_naming_their_group():
         for meth, group in table.items():
             with pytest.raises(NotImplementedError, match=group):
                 getattr(obj, meth)()
-    group = tcos.NONLINEAR_GROUP
-    with pytest.raises(NotImplementedError, match=group):
-        hm.P_mm_nonlinear(KS[:4], ZS[:2])
-    with pytest.raises(NotImplementedError, match=group):
-        hm.get_pk_interpolator(ZS, 10.0, var="total",
-                               nonlinear=True).P(ZS, KS)
-    with pytest.raises(NotImplementedError, match=group):
-        thm.HaloModel(ZS[:2], KS[:8], halofit="mead", device="cpu",
-                      skip_nfw=True)
-    with pytest.raises(NotImplementedError, match="distances_ext"):
-        tcos.Cosmology({"theta100": 1.0411}, device="cpu")
 
 
 def test_the_classes_need_a_card_unless_asked_for_the_cpu():

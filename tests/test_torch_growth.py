@@ -15,6 +15,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import jax
 import jax.numpy as jnp
 
 from _torch_jax import jacobian_columns, jax_jvp, jvp_value
@@ -65,41 +66,65 @@ def _overrides(cosmo):
     return {"w0": w0, "wa": wa}
 
 
+EVAL_A = np.concatenate([np.geomspace(5e-5, 1.0, 41),
+                         np.exp(np.random.default_rng(4).uniform(
+                             np.log(5e-5), 0.0, 60))])
+LCDM_A = 1.0 / (1.0 + np.linspace(0.0, 5.0, 23))
+
+
+@pytest.fixture(scope="module")
+def jax_growth():
+    """JAX's growth table and its evaluation at EVAL_A for each cosmology
+    of W0WA, and d_growth(mode='ode') at LCDM in both norms, in one
+    compiled program (op by op each first call compiles its scan)."""
+
+    def tables():
+        out = {}
+        for cosmo in W0WA:
+            tab = jbg.growth_table(_backgrounds(cosmo)[1])
+            out[cosmo] = (tab.lna0, tab.h, tab.d, tab.dp,
+                          *jbg.growth_eval(tab, jnp.asarray(EVAL_A)))
+        j = _backgrounds("lcdm")[1]
+        for norm in ("anorm", "z0norm"):
+            out[norm] = jbg.d_growth(j, jnp.asarray(LCDM_A), norm=norm,
+                                     mode="ode")
+        return out
+
+    return jax.jit(tables)()
+
+
 @pytest.mark.parametrize("cosmo", list(W0WA))
-def test_growth_table_matches_jax(cosmo):
-    t, j = _backgrounds(cosmo)
-    tt, jt = tbg.growth_table(t), jbg.growth_table(j)
+def test_growth_table_matches_jax(jax_growth, cosmo):
+    t, _ = _backgrounds(cosmo)
+    tt = tbg.growth_table(t)
+    lna0, h, d, dp = jax_growth[cosmo][:4]
     assert tt.d.shape == tt.dp.shape == (385,)
-    assert tt.lna0 == float(jt.lna0) and tt.h == float(jt.h)
-    assert _rel(tt.d, jt.d) <= 1e-10
-    assert _rel(tt.dp, jt.dp) <= 1e-10
+    assert tt.lna0 == float(lna0) and tt.h == float(h)
+    assert _rel(tt.d, d) <= 1e-10
+    assert _rel(tt.dp, dp) <= 1e-10
 
 
 @pytest.mark.parametrize("cosmo", list(W0WA))
-def test_growth_eval_matches_jax(cosmo):
+def test_growth_eval_matches_jax(jax_growth, cosmo):
     """(D, f) on a in [5e-5, 1]: below the table (a < 1e-4), on nodes,
     between them, and at a = 1."""
-    t, j = _backgrounds(cosmo)
-    rng = np.random.default_rng(4)
-    a = np.concatenate([np.geomspace(5e-5, 1.0, 41),
-                        np.exp(rng.uniform(np.log(5e-5), 0.0, 60))])
-    assert (a < 1e-4).sum() >= 3
-    td, tf = tbg.growth_eval(tbg.growth_table(t), torch.as_tensor(a))
-    jd, jf = jbg.growth_eval(jbg.growth_table(j), jnp.asarray(a))
+    t, _ = _backgrounds(cosmo)
+    assert (EVAL_A < 1e-4).sum() >= 3
+    td, tf = tbg.growth_eval(tbg.growth_table(t), torch.as_tensor(EVAL_A))
+    jd, jf = jax_growth[cosmo][4:]
     assert _rel(td, jd) <= 1e-10
     assert _rel(tf, jf) <= 1e-10
 
 
 @pytest.mark.parametrize("norm", ["anorm", "z0norm"])
-def test_d_growth_ode_at_lcdm_matches_closed(norm):
+def test_d_growth_ode_at_lcdm_matches_closed(jax_growth, norm):
     """The integrated growth reproduces the Heath closed form at LCDM:
     <= 1e-7 relative, the JAX package's own gate (tests/test_background.py)."""
-    t, j = _backgrounds("lcdm")
-    a = torch.as_tensor(1.0 / (1.0 + np.linspace(0.0, 5.0, 23)))
+    t, _ = _backgrounds("lcdm")
+    a = torch.as_tensor(LCDM_A)
     ode = tbg.d_growth(t, a, norm=norm, mode="ode")
     assert _rel(ode, tbg.d_growth(t, a, norm=norm, mode="closed")) <= 1e-7
-    assert _rel(ode, jbg.d_growth(j, jnp.asarray(a.numpy()), norm=norm,
-                                  mode="ode")) <= 1e-10
+    assert _rel(ode, jax_growth[norm]) <= 1e-10
     with pytest.raises(ValueError):
         tbg.d_growth(t, a, mode="heath")
 

@@ -11,6 +11,7 @@ that the card test below also runs where there is no JAX:
 (``--noconftest``: the repository's conftest.py configures JAX.)
 """
 
+import functools
 import importlib.util
 import pathlib
 
@@ -88,46 +89,78 @@ def _rows(zs, cs, rss):
 def test_plain_matches_jax_analytic(sweep):
     """nfw_uk_plain vs the JAX float64 profile: <= 1e-12 absolute (u is a
     sum of O(1) terms; both sides run the same float64 algorithm)."""
+    _, zs, cs, rss, ks = sweep
+    want, take = _analytic_on_union()
+    rows, cols = take[sweep[0]]
+    scales, c = _rows(zs, cs, rss)
+    got = nk.nfw_uk_plain(_t(ks), _t(scales), _t(c)).numpy()
+    assert np.abs(got - want[rows][:, cols]).max() <= 1e-12
+
+
+def _union(sweeps):
+    """The rows of several sweeps stacked, on the union of their ks, and
+    for each sweep the slices that take its own rows and ks back out: one
+    call of a JAX kernel serves every sweep (each element of u depends on
+    its row and its k alone), so JAX compiles it once."""
+    rows = [_rows(zs, cs, rss) for _, zs, cs, rss, _ in sweeps]
+    ks = np.unique(np.concatenate([sw[4] for sw in sweeps]))
+    scales = np.concatenate([r[0] for r in rows])
+    c = np.concatenate([r[1] for r in rows])
+    ends = np.cumsum([0] + [r[0].size for r in rows])
+    take = {sw[0]: (slice(lo, hi), np.searchsorted(ks, sw[4]))
+            for sw, lo, hi in zip(sweeps, ends[:-1], ends[1:])}
+    return ks, scales, c, take
+
+
+@functools.lru_cache(maxsize=None)
+def _analytic_on_union():
+    """The JAX float64 profile (profiles.nfw_uk_analytic) on every sweep
+    at once, the rows as one redshift of scale r_s (1+z), in one compiled
+    program (op by op its first call takes seconds)."""
     import jax
     import jax.numpy as jnp
     from hmvec_tpu.models.profiles import nfw_uk_analytic
 
-    _, zs, cs, rss, ks = sweep
-    # one compiled program (op by op its first call takes seconds)
-    want = np.asarray(jax.jit(nfw_uk_analytic)(
-        jnp.asarray(ks), jnp.asarray(zs), jnp.asarray(cs), jnp.asarray(rss)))
-    scales, c = _rows(zs, cs, rss)
-    got = nk.nfw_uk_plain(_t(ks), _t(scales), _t(c)).numpy()
-    assert np.abs(got.reshape(want.shape) - want).max() <= 1e-12
+    ks, scales, c, take = _union(SWEEPS)
+    want = jax.jit(nfw_uk_analytic)(jnp.asarray(ks), jnp.zeros(1),
+                                    jnp.asarray(c[None, :]),
+                                    jnp.asarray(scales[None, :]))
+    return np.asarray(want)[0], take
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_fast_on_union():
+    """JAX nfw_uk_fast (the f32 Pallas kernel B1, interpret mode) on the
+    first three sweeps at once."""
+    from hmvec_tpu.ops.pallas_kernels import nfw_uk_pallas
+
+    ks, scales, c, take = _union(SWEEPS[:3])
+    return np.asarray(nfw_uk_pallas(ks, scales, c, interpret=True)), take
 
 
 @pytest.mark.parametrize("sweep", SWEEPS[:3], ids=SWEEP_IDS[:3])
 def test_plain_within_fast_gate_of_pallas_interpret(sweep):
     """nfw_uk_plain vs JAX nfw_uk_fast (the f32 Pallas kernel B1, interpret
     mode): <= 5e-6 absolute, B1's own gate (tests/test_pallas_fast.py)."""
-    import jax.numpy as jnp
-    from hmvec_tpu.ops.pallas_kernels import nfw_uk_fast
-
     _, zs, cs, rss, ks = sweep
-    fast = np.asarray(nfw_uk_fast(ks, zs, jnp.asarray(cs), jnp.asarray(rss),
-                                  interpret=True))
+    fast, take = _pallas_fast_on_union()
+    rows, cols = take[sweep[0]]
     scales, c = _rows(zs, cs, rss)
     got = nk.nfw_uk_plain(_t(ks), _t(scales), _t(c)).numpy()
-    assert np.abs(got.reshape(fast.shape) - fast).max() <= 5e-6
+    assert np.abs(got - fast[rows][:, cols]).max() <= 5e-6
 
 
-@pytest.mark.parametrize("sweep", SWEEPS[3:], ids=SWEEP_IDS[3:])
-def test_plain_within_exact_gate_of_ds_math(sweep):
-    """nfw_uk_plain vs the JAX double-single kernel math (B3,
-    pallas_kernels._nfw_uk_ds_math, as tests/test_pallas_fast.py runs it):
-    <= 2e-7 absolute, B3's own gate."""
+@functools.lru_cache(maxsize=None)
+def _ds_math_on_union():
+    """The JAX double-single kernel math (B3,
+    pallas_kernels._nfw_uk_ds_math, as tests/test_pallas_fast.py runs it)
+    on the last two sweeps at once."""
     import jax
     import jax.numpy as jnp
     from hmvec_tpu.ops.pallas_kernels import _nfw_uk_ds_math
     from hmvec_tpu.ops.sine_transform import _split_hi_lo
 
-    _, zs, cs, rss, ks = sweep
-    scales, c = _rows(zs, cs, rss)
+    ks, scales, c, take = _union(SWEEPS[3:])
     sj, cj, kj = jnp.asarray(scales), jnp.asarray(c), jnp.asarray(ks)
     ln1pc = jnp.log1p(cj)
     mc = ln1pc - cj / (1.0 + cj)
@@ -143,9 +176,20 @@ def test_plain_within_exact_gate_of_ds_math(sweep):
     args = (*pb(sj), *pb((1.0 + cj) * sj), *pb(ln1pc), *pb(1.0 / mc),
             *pb(jnp.log(sj)), *pb(cj / (1.0 + cj)), *pk(kj), *pk(jnp.log(kj)))
     with jax.enable_x64(False):
-        ds = np.asarray(_nfw_uk_ds_math(*args))
+        return np.asarray(_nfw_uk_ds_math(*args)), take
+
+
+@pytest.mark.parametrize("sweep", SWEEPS[3:], ids=SWEEP_IDS[3:])
+def test_plain_within_exact_gate_of_ds_math(sweep):
+    """nfw_uk_plain vs the JAX double-single kernel math (B3,
+    pallas_kernels._nfw_uk_ds_math, as tests/test_pallas_fast.py runs it):
+    <= 2e-7 absolute, B3's own gate."""
+    _, zs, cs, rss, ks = sweep
+    ds, take = _ds_math_on_union()
+    rows, cols = take[sweep[0]]
+    scales, c = _rows(zs, cs, rss)
     got = nk.nfw_uk_plain(_t(ks), _t(scales), _t(c)).numpy()
-    assert np.abs(got - ds).max() <= 2e-7
+    assert np.abs(got - ds[rows][:, cols]).max() <= 2e-7
 
 
 def test_contract_plain_within_gate_of_pallas_interpret():

@@ -64,11 +64,23 @@ and add_hod("g", ngal = 1e-4 per z), at the profiles' default sampling
 (nxs 5000) -> hmvec_tpu_torch/data/class_config1_golden.npz with Pmm =
 get_power("nfw"), Pgg, Pge, Pee and Pyy, each (20, 1001) (~60 s).
 
+--config x: the first extension group through the JAX class at config 1's
+width and the bench cosmology: HaloModel(halofit="mead") with CIB tracers
+at 545 and 217 GHz and an HI tracer on the analytic NFW profile, and the
+Battaglia pressure profile -> hmvec_tpu_torch/data/
+extensions_config1_golden.npz with nPzk (20, 1001); P_mm_nonlinear of the
+other eight halofit versions and of 'mead' under w0/wa = (-0.9, 0.2), each
+at three z rows (3, 1001); get_p21 (20, 1001); CIB x y at three z rows;
+get_cib_cls at 16 ells (3 pairs); the CIB mean intensities; Omega_HI and
+b_HI; sigma_1h (with and without miscentering), kappa_1h and kappa_2h at
+M = 3e14 Msun on 32 thetas; the BAO ratio, tau_*, z(tau), conformal time,
+C_L^kk to L = 3000 on the nonlinear power, and H0 from theta100 (~3 min).
+
 The machine with the GPU has no JAX, so chip_smoke.py compares the port
 against these files.  Each run writes only its own file.
 
 Run from the repository root:
-    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c]
+    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x]
 """
 
 from __future__ import annotations
@@ -90,7 +102,8 @@ OUT = {"1": DATA / "pmm_config1_golden.npz",
        "b": DATA / "pmm_batch_golden.npz",
        "5": DATA / "ksz_config5_golden.npz",
        "m": DATA / "pmm_massfn_golden.npz",
-       "c": DATA / "class_config1_golden.npz"}
+       "c": DATA / "class_config1_golden.npz",
+       "x": DATA / "extensions_config1_golden.npz"}
 NXS, XMAX = 4096, 20          # bench.py config 2
 NGAL = 1e-4                   # bench.py config 3, per z
 ELLS, ZSOURCE = np.geomspace(30, 3000, 60), 1100.0   # bench.py config 4
@@ -231,6 +244,83 @@ def write_class_golden(zs, ms, ks):
                                         dtype=np.float64), **out)
 
 
+# the extensions phase of chip_smoke.py: the halofit versions besides the
+# default 'mead', the z rows kept of the row-wise spectra, the CIB
+# frequencies and pairs, the C_ell and the cluster-lensing inputs
+EXT_VERSIONS = ("mead2015", "mead2020", "mead2020_feedback", "takahashi",
+                "original", "bird", "peacock", "casarini")
+EXT_W0WA = {"w0": -0.9, "wa": 0.2}
+EXT_ROWS = np.array([0, 9, 19])
+EXT_NUS = {"cib545": 545.0, "cib217": 217.0}
+EXT_CIB_PAIRS = (("cib545", "cib545"), ("cib545", "cib217"),
+                 ("cib217", "cib217"))
+EXT_ELLS = np.geomspace(100.0, 3000.0, 16)
+EXT_THETAS = np.geomspace(1e-4, 1e-2, 32)
+EXT_CLUSTER = {"M": 3e14, "conc": 5.0, "zsource": 1100.0, "sig_theta": 2e-4}
+EXT_TAUS = np.array([1000.0, 5000.0, 10000.0])
+EXT_THETA100 = 1.0411
+EXT_LMAX = 3000
+
+
+def write_extensions_golden(zs, ms, ks):
+    """The first extension group through the JAX class API at the bench
+    cosmology (the satellite profile of the CIB and HI tracers is the
+    analytic NFW; the port's phase puts them on the fast one)."""
+    import jax.numpy as jnp
+    import hmvec_tpu as hm
+
+    hcos = hm.HaloModel(zs, ks, ms=ms, params=BENCH_OVERRIDES,
+                        halofit="mead")
+    for name, nu in EXT_NUS.items():
+        hcos.add_cib_tracer(name, nu)
+    hcos.add_battaglia_pres_profile("y")
+    hcos.add_hi_tracer("hi")
+    zr = zs[EXT_ROWS]
+    out = {"npzk": hcos.nPzk}
+    for v in EXT_VERSIONS:
+        out[f"pnl_{v}"] = hcos.P_mm_nonlinear(ks, zr, v)
+    ode = hm.Cosmology({**BENCH_OVERRIDES, **EXT_W0WA})
+    out["pnl_ode_mead"] = ode.P_mm_nonlinear(ks, zr, "mead")
+    out["p21"] = hcos.get_p21("hi")
+    out["omega_hi"] = hcos.get_omega_hi("hi")
+    out["b_hi"] = hcos.get_hi_bias("hi")
+    out["cib_y"] = hcos.get_power("cib545", "y")[EXT_ROWS]
+    out["cib_cls"] = jnp.stack([hcos.get_cib_cls(EXT_ELLS, a, b)
+                                for a, b in EXT_CIB_PAIRS])
+    out["cib_intensity"] = jnp.stack([hcos.get_cib_mean_intensity(n)
+                                      for n in EXT_NUS])
+    c = EXT_CLUSTER
+    out["sigma_1h"] = hcos.sigma_1h_profiles(EXT_THETAS, c["M"], c["conc"])
+    out["sigma_1h_off"] = hcos.sigma_1h_profiles(
+        EXT_THETAS, c["M"], c["conc"], sig_theta=c["sig_theta"])
+    out["kappa_1h"] = hcos.kappa_1h_profiles(EXT_THETAS, c["M"], c["conc"],
+                                             c["zsource"])
+    out["kappa_2h"] = hcos.kappa_2h_profiles(EXT_THETAS, c["M"],
+                                             c["zsource"])
+    out["bao_rs_dv"] = hcos.get_bao_rs_dV(zs)
+    out["tau_star"] = hcos.get_tau_star()
+    out["z_of_tau"] = hcos.z_of_tau(EXT_TAUS)
+    out["conformal_time"] = hcos.conformal_time(zs)
+    out["cl_kk_nl"] = hcos.cmb_lensing_limber(EXT_LMAX, nonlinear=True)[1]
+    out["h0_theta100"] = hm.Cosmology(
+        {**BENCH_OVERRIDES, "theta100": EXT_THETA100}).p["H0"]
+    out = {k: np.asarray(v, dtype=np.float64) for k, v in out.items()}
+    for k, v in out.items():
+        print(f"{k}{v.shape}: flat[0] = {v.flat[0]!r}")
+    return dict(zs=zs, ms=ms, ks=ks, rows=EXT_ROWS, ells=EXT_ELLS,
+                thetas=EXT_THETAS, taus=EXT_TAUS,
+                nus=np.asarray(list(EXT_NUS.values())),
+                cib_pairs=np.asarray([[list(EXT_NUS).index(n) for n in pair]
+                                      for pair in EXT_CIB_PAIRS]),
+                w0wa=np.asarray([EXT_W0WA["w0"], EXT_W0WA["wa"]]),
+                cluster=np.asarray([EXT_CLUSTER[k] for k in
+                                    ("M", "conc", "zsource", "sig_theta")]),
+                theta100=EXT_THETA100, lmax=EXT_LMAX,
+                param_names=np.asarray(list(BENCH_OVERRIDES)),
+                param_values=np.asarray(list(BENCH_OVERRIDES.values()),
+                                        dtype=np.float64), **out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(OUT), default="1")
@@ -250,11 +340,13 @@ def main():
             ("omch2", "As")), **write_batch_golden(jpl, jnp, zs, ms, ks))
         print(f"wrote {path.relative_to(REPO)} ({path.stat().st_size} bytes)")
         return
-    if args.config in ("5", "m", "c"):
+    if args.config in ("5", "m", "c", "x"):
         if args.config == "5":
             arrays = write_ksz_golden(jpl, jnp)
         elif args.config == "c":
             arrays = write_class_golden(zs, ms, ks)
+        elif args.config == "x":
+            arrays = write_extensions_golden(zs, ms, ks)
         else:
             arrays = dict(zs=zs, ms=ms, ks=ks,
                           **write_massfn_golden(jpl, jnp, zs, ms, ks))

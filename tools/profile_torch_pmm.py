@@ -24,7 +24,11 @@ make_ksz_snr_fn; shapes, bins and cosmology from ksz_config5_golden.npz),
 and for the class API (class: the README example, hmvec_tpu_torch.HaloModel
 at config 1's grids with the Battaglia gas and pressure profiles, an HOD
 and the fast NFW profile, and its five spectra; class_ksz: get_ksz_snr at
-config 5).
+config 5), and for the first extension group (extensions: HaloModel at
+config 1's grids with halofit="mead", CIB tracers at 545 and 217 GHz and
+an HI tracer on the fast NFW profile and the Battaglia pressure profile,
+then get_p21, get_cib_cls at 16 ells and CIB x y; cmb_lensing_nl: the CMB
+lensing C_L to L = 3000 on HMcode's nonlinear power).
 
 For the electron tiers it then runs the call's layers one at a time --
 the halo-model stages through the NFW profile, the M200 bisection, the
@@ -37,7 +41,9 @@ stages with the Pmm assembly and the Limber projection.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools/profile_torch_pmm.py [--out profile.json]
+    python3 tools/profile_torch_pmm.py [--out profile.json] [--paths P ...]
+
+--paths measures only the named paths, and skips the layers.
 """
 
 from __future__ import annotations
@@ -113,15 +119,35 @@ def readme_example(g, ngal, ov, dev):
             (("nfw",), ("g",), ("g", "e"), ("e", "e"), ("y", "y"))]
 
 
+def extensions(g, ov, dev):
+    """The extensions phase of chip_smoke.py: the build and three of its
+    spectra."""
+    from hmvec_tpu_torch import HaloModel
+
+    hm = HaloModel(g["zs"], g["ks"], ms=g["ms"], params=ov, halofit="mead",
+                   device=dev)
+    hm.add_nfw_profile("nfw_fast", fast=True)
+    hm.add_cib_tracer("cib545", 545.0, satellite_profile="nfw_fast")
+    hm.add_cib_tracer("cib217", 217.0, satellite_profile="nfw_fast")
+    hm.add_battaglia_pres_profile("y")
+    hm.add_hi_tracer("hi", profile_name="nfw_fast")
+    return [hm.get_p21("hi"),
+            hm.get_cib_cls(np.geomspace(100.0, 3000.0, 16), "cib545",
+                           "cib217"),
+            hm.get_power("cib545", "y")]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the report as JSON")
+    ap.add_argument("--paths", nargs="*", default=None,
+                    help="measure only these paths (and no layers)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_pmm: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from hmvec_tpu_torch import get_ksz_snr
+    from hmvec_tpu_torch import Cosmology, get_ksz_snr
     from hmvec_tpu_torch import pipeline as pl
 
     card = subprocess.run(
@@ -174,6 +200,9 @@ def main() -> int:
         float(gk["volume_gpc3"]), float(gk["z"]), float(gk["ngal_mpc3"]),
         gk["cls"], params=o, ms=gk["ms"], electron_profile_nxs=int(gk["nxs"]),
         electron_profile_xmax=float(gk["xmax"]), device=dev, **kcfg)[0], ov)
+    calls["extensions"] = (lambda o: extensions(g, o, dev), ov)
+    calls["cmb_lensing_nl"] = (lambda o: Cosmology(o, device=dev)
+                               .cmb_lensing_limber(3000, nonlinear=True), ov)
     for line, (tkey, kw, f32) in BATCHES.items():
         theta = gb[f"theta_{tkey}"]
         batch_size[line] = theta.shape[0]
@@ -181,6 +210,8 @@ def main() -> int:
             pl.make_pmm_fn(g["zs"], g["ks"], g["ms"], device=dev, **kw),
             tuple(gb["param_names"].tolist()),
             out_dtype=torch.float32 if f32 else None), theta)
+    if args.paths is not None:
+        calls = {p: calls[p] for p in args.paths}
     for path, (fn, ov_) in calls.items():
         n = 5 if path in batch_size else 10
         torch.cuda.empty_cache()
@@ -216,7 +247,7 @@ def main() -> int:
         for t in rep["top_kernels"]:
             print(f"    {t['device_ms']:.4f} ms  x{t['calls']:<4d} "
                   f"{t['name']}")
-    for path, fast in E_PATHS.items():
+    for path, fast in E_PATHS.items() if args.paths is None else ():
         report["electron_layers"][path] = layers = electron_layers(
             pl, g, ov, dev, fast)
         for name, rep in layers.items():
@@ -225,10 +256,11 @@ def main() -> int:
                   f"{rep['kernel_launches']} kernels" + (
                       f", of which fft {rep['fft_device_ms']!r} ms"
                       if "fft_device_ms" in rep else "") + f" ({card})")
-    report["hod_layers"] = hod_layers(pl, g, ov, dev, gh["ngal"])
-    report["limber_layers"] = limber_layers(pl, g, ov, dev, gl["ells"],
-                                            float(gl["zsource"]))
-    for what in ("hod", "limber"):
+    for what in ("hod", "limber") if args.paths is None else ():
+        report[f"{what}_layers"] = (
+            hod_layers(pl, g, ov, dev, gh["ngal"]) if what == "hod"
+            else limber_layers(pl, g, ov, dev, gl["ells"],
+                               float(gl["zsource"])))
         for name, rep in report[f"{what}_layers"].items():
             print(f"[{what}_fast / {name}] wall {rep['wall_ms']!r} ms (median "
                   f"of 10), device {rep['device_ms']!r} ms in "
