@@ -43,13 +43,22 @@ resample kernel per numeric profile, and the class kSZ forecast
 (get_ksz_snr at config 5) against make_ksz_snr_fn and its golden file;
 with the build's and each spectrum's latency, launches, host reads and
 peak memory, and both kernels' times at the class's shapes.  The
-extensions phase drives the first extension group through the class API
-at config 1's width: HaloModel(halofit="mead") (HMcode-2016), CIB tracers
-at 545 and 217 GHz and an HI tracer on the fast NFW profile, the Battaglia
-pressure profile, the nine halofit versions and 'mead' under w0/wa, the
-CMB lensing C_L to L = 3000 on the nonlinear power, the BAO ratio,
-tau_*, z(tau), H0 from theta100 and the cluster-lensing profiles, against
-its golden file, with one launch of each kernel in the build.
+cov_bispectrum phase drives the covariance group on the class phase's
+build, with no kernel launch in its calls: the connected and super-sample
+C_ell covariances, the cluster counts through a Y-M relation and their
+covariance, the joint counts x C_ell covariance (block by block), the
+P(k) covariance, bispectra (plain and fast NFW, an HOD with the
+second-order bias, the angular y bispectrum), the mean Compton y, the
+aperture optical depth, the pairwise kSZ SNR and the angular correlation
+of C_yy, against its golden file, with each entry point's latency,
+launches, host reads and peak memory.  The extensions phase drives the
+first extension group through the class API at config 1's width:
+HaloModel(halofit="mead") (HMcode-2016), CIB tracers at 545 and 217 GHz
+and an HI tracer on the fast NFW profile, the Battaglia pressure profile,
+the nine halofit versions and 'mead' under w0/wa, the CMB lensing C_L to
+L = 3000 on the nonlinear power, the BAO ratio, tau_*, z(tau), H0 from
+theta100 and the cluster-lensing profiles, against its golden file, with
+one launch of each kernel in the build.
 
 It differentiates both paths, and times the kernels, at one cosmology's
 shapes and at the batches', and the end-to-end calls.
@@ -109,6 +118,7 @@ GOLDEN_K = DATA / "ksz_config5_golden.npz"
 GOLDEN_M = DATA / "pmm_massfn_golden.npz"
 GOLDEN_C = DATA / "class_config1_golden.npz"
 GOLDEN_X = DATA / "extensions_config1_golden.npz"
+GOLDEN_V = DATA / "cov_bispectrum_config1_golden.npz"
 
 # kernel vs plain version on the card (absolute on u; relative on S1, S2;
 # the resample kernel repeats the plain version's float64 operations in
@@ -157,6 +167,11 @@ GATE_KSZ_CLASS_VS_FN = 1e-12
 GATE_EXT = 1e-10
 GATE_EXT_FAST = 1e-5
 GATE_H0 = 5e-11
+# the covariance group (tools/gen_torch_golden.py --config v) on the
+# README example's build: 1e-10, and 1e-5 where the fast NFW profile's u
+# (float32, within 5e-6 of the analytic u) enters
+GATE_COV = 1e-10
+GATE_COV_FAST = 1e-5
 # the mass-function modes of config 1 by NFW tier: (fast, gate)
 MASSFN_TIERS = {"plain": (False, 1e-10), "fast": (True, 1e-5)}
 # a batched call against the port's own single calls, row by row: the same
@@ -423,6 +438,30 @@ def pair_lerp_work(u, scales, ks, dkt) -> tuple[int, dict]:
     nbytes = (n_read * u.element_size() + 8 * rows + 8 * ks.numel()
               + 8 * rows * ks.numel())
     return nbytes, {"f64": 2 * p.numel() + 5 * int(win.sum().item())}
+
+
+def close_err(got, want):
+    """Max error of got against want along the last axis, row by row:
+    relative, element by element, on a row that keeps one sign and holds
+    no zero; relative to the row's largest |want| on a row that changes
+    sign or holds exact zeros."""
+    got, want = np.atleast_1d(got), np.atleast_1d(want)
+    one_sign = np.all(want > 0.0, -1) | np.all(want < 0.0, -1)
+    row_max = np.max(np.abs(want), -1)
+    scale = np.where(one_sign[..., None], np.abs(want),
+                     np.where(row_max > 0.0, row_max, 1.0)[..., None])
+    return float(np.max(np.abs(got - want) / scale))
+
+
+def joint_err(got, want, nb):
+    """close_err on each block of a joint (counts, C_ell) covariance with
+    nb count bins: the counts block, the counts x C_ell block (a row per
+    count bin; its transpose, the other off-diagonal block, likewise) and
+    the C_ell block, each on its own scale."""
+    return max(close_err(got[:nb, :nb], want[:nb, :nb]),
+               close_err(got[:nb, nb:], want[:nb, nb:]),
+               close_err(got[nb:, :nb].T, want[nb:, :nb].T),
+               close_err(got[nb:, nb:], want[nb:, nb:]))
 
 
 @contextlib.contextmanager
@@ -1055,7 +1094,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    hm = build_class()
+    with recorded(rk, "_launch") as b4_in_c:
+        hm = build_class()
     torch.cuda.synchronize()
     launches["class"] = read_counts()
     class_peak = torch.cuda.max_memory_allocated(dev) / 2**20
@@ -1106,11 +1146,22 @@ def main() -> int:
              / got_e.abs().max()).item()
     check(e_tab <= 1e-12, f"the class's gas profile vs the pipeline's "
           f"table through the kernel: {e_tab!r}")
+    # both tables the build resampled (gas, then pressure, which the
+    # covariance group reads), against the plain version at the build's
+    # own inputs
+    e_b4_build = []
+    for args in b4_in_c:
+        e_b4_build.append((rk.pair_lerp_f64(*args) - rk.pair_lerp_plain(*args))
+                          .abs().max().item())
+        check(e_b4_build[-1] <= GATE_LERP, f"pair_lerp_f64 at a table of the "
+              f"class build: {e_b4_build[-1]!r}")
+    e_b4 = max(e_b4, *e_b4_build)
     print(f"[class] nfw_uk_fast vs nfw_uk_plain at the class's "
           f"{s_c.numel()} x {hm.ks.numel()}: max abs err {e_b1!r} (gate "
           f"{GATE_UK['fast']}); pair_lerp_f64 vs pair_lerp_plain at the gas "
           f"table {tuple(u_e.shape)} -> {k_e.numel()} k: max abs err "
-          f"{e_b4!r} (gate {GATE_LERP}); the class's gas profile within "
+          f"{e_b4!r} (gate {GATE_LERP}), at the build's gas and pressure "
+          f"tables {e_b4_build!r}; the class's gas profile within "
           f"{e_tab!r} of that resample (relative to its largest value)")
     # the class kSZ forecast at config 5 (the ksz phase's widths)
     cos_k0 = cosmos_k[0]
@@ -1208,10 +1259,166 @@ def main() -> int:
               + f", bound {row['bound_ms']!r} ms by {row['bound_by']}, time "
               f"/ bound {row['ms'] / row['bound_ms']!r}; "
               f"{row['launches']} launches in the class build ({card})")
-    del hm, u_b1, u_e, got_e, u2_e, idx_e, i0_e
+    # ---- phase 4h: covariances, cluster counts, bispectra, pairwise ------
+    from hmvec_tpu_torch import angular_correlation, get_pairwise_ksz_snr
+
+    t_phase_v = time.perf_counter()
+    gv = np.load(GOLDEN_V)
+    for key in ("zs", "ks", "ms", "ngal"):
+        check(np.array_equal(gc[key], gv[key]), f"golden files share {key}")
+    check(dict(zip(gv["param_names"].tolist(),
+                   map(float, gv["param_values"]))) == cosmo_c,
+          "the cov_bispectrum golden file is at the bench cosmology")
+    scaling_v = dict(zip(("lnYstar", "alpha", "beta", "Mpivot", "sigma_lnY"),
+                         map(float, gv["scaling"])))
+    q_v, sn_v, fsky_v = map(float, gv["counts"])
+    mmin_v, fsky_jv = map(float, gv["joint"])
+    ells_v, rows_v, krows_v = gv["ells"], gv["rows"], gv["k_rows"]
+    _, ngal_pw, vol_pw, smeas_pw, theta_pw = map(float, gv["pairwise"])
+    iz_pw = int(gv["pairwise_iz"])
+    vol_v = float(gv["volume_gpc3"])
+
+    def pk_cov_parts(hm, name):
+        """The golden file's reductions of get_pk_covariance: each block's
+        diagonal and two k rows, at three z rows."""
+        cov = hm.get_pk_covariance(vol_v, name)
+        out = {}
+        for key, block in cov.items():
+            block = block[rows_v]
+            out[f"pk_{key}_diag"] = torch.diagonal(block, dim1=1, dim2=2)
+            out[f"pk_{key}_rows"] = block[:, krows_v]
+        return out
+
+    # each new entry point as the phase calls it
+    cov_calls = {
+        "get_cl_cov_t1h": lambda h: h.get_cl_cov_t1h(ells_v, "y"),
+        "get_cl_cov_t1h yy x gg": lambda h: h.get_cl_cov_t1h(
+            ells_v, "y", name3="g", name4="g"),
+        "get_cl_cov_ssc": lambda h: h.get_cl_cov_ssc(ells_v, "y", fsky=0.4),
+        "cluster_counts_obs": lambda h: h.cluster_counts_obs(
+            q_v, sn_v, fsky=fsky_v, **scaling_v),
+        "cluster_counts_q_bins": lambda h: h.cluster_counts_q_bins(
+            gv["q_edges"], sn_v, fsky=fsky_v, z_edges=gv["z_edges"],
+            **scaling_v),
+        "cluster_counts_covariance": lambda h: h.cluster_counts_covariance(
+            gv["z_edges"], fsky=fsky_v, q=q_v, sigma_noise=sn_v,
+            **scaling_v),
+        "joint_counts_cl_cov": lambda h: h.joint_counts_cl_cov(
+            gv["z_edges"], ells_v, "y", mmin=mmin_v, fsky=fsky_jv),
+        "get_pk_covariance": lambda h: pk_cov_parts(h, "nfw"),
+        "get_pk_covariance nfw_fast": lambda h: pk_cov_parts(h, "nfw_fast"),
+        "get_bispectrum": lambda h: h.get_bispectrum(),
+        "get_bispectrum nfw_fast": lambda h: h.get_bispectrum(
+            name="nfw_fast"),
+        "get_bispectrum g, b2": lambda h: h.get_bispectrum(
+            name="g", include_b2=True),
+        "get_angular_bispectrum": lambda h: h.get_angular_bispectrum(
+            ells_v, name="y"),
+        "get_mean_compton_y": lambda h: h.get_mean_compton_y(),
+        "get_tau_aperture": lambda h: h.get_tau_aperture(
+            theta_arcmin=theta_pw),
+        "get_pairwise_ksz_snr": lambda h: get_pairwise_ksz_snr(
+            h, iz_pw, ngal_pw, vol_pw, smeas_pw, gv["r_edges"],
+            theta_arcmin=theta_pw),
+        "angular_correlation": lambda h: angular_correlation(
+            gv["cf_ells"], h.C_yy(gv["cf_ells"], zs, ks_np,
+                                  h.get_power("y")), gv["thetas"]),
+    }
+
+    def cov_outputs(res):
+        """(name, output, golden, count bins of a joint matrix or None)."""
+        zr = lambda x: x[rows_v]
+        out = [("get_cl_cov_t1h y", res["get_cl_cov_t1h"], gv["t1h_yy"]),
+               ("get_cl_cov_t1h yy x gg", res["get_cl_cov_t1h yy x gg"],
+                gv["t1h_yy_gg"]),
+               ("get_cl_cov_ssc y", res["get_cl_cov_ssc"], gv["ssc_yy"])]
+        dndz, n_obs = res["cluster_counts_obs"]
+        out += [("cluster_counts_obs dN/dz", dndz, gv["dndz_obs"]),
+                ("cluster_counts_obs N", n_obs, gv["n_obs"]),
+                ("cluster_counts_q_bins", res["cluster_counts_q_bins"],
+                 gv["q_bins"])]
+        for key, got in zip(("n_cov", "counts_cov"),
+                            res["cluster_counts_covariance"]):
+            out.append((f"cluster_counts_covariance {key}", got, gv[key]))
+        n_joint, joint = res["joint_counts_cl_cov"]
+        out += [("joint_counts_cl_cov n_joint", n_joint, gv["n_joint"]),
+                ("joint_counts_cl_cov joint_cov", joint, gv["joint_cov"],
+                 gv["n_joint"].size)]
+        for name in ("get_pk_covariance", "get_pk_covariance nfw_fast"):
+            out += [(f"{name} {key}", got, gv[key])
+                    for key, got in res[name].items()]
+        out += [("get_bispectrum nfw", zr(res["get_bispectrum"]),
+                 gv["b_nfw"]),
+                ("get_bispectrum nfw_fast",
+                 zr(res["get_bispectrum nfw_fast"]), gv["b_nfw"]),
+                ("get_bispectrum g, b2", zr(res["get_bispectrum g, b2"]),
+                 gv["b_g_b2"]),
+                ("get_angular_bispectrum y", res["get_angular_bispectrum"],
+                 gv["b_ang_y"]),
+                ("get_mean_compton_y", res["get_mean_compton_y"],
+                 gv["mean_y"]),
+                ("get_tau_aperture", res["get_tau_aperture"], gv["tau_ap"])]
+        for key in ("snr", "T_bins", "sigma_bins", "tau_bar"):
+            out.append((f"get_pairwise_ksz_snr {key}",
+                        res["get_pairwise_ksz_snr"][key],
+                        gv[f"pairwise_{key}"]))
+        out.append(("angular_correlation of C_yy",
+                    res["angular_correlation"], gv["w_yy"]))
+        return [o if len(o) == 4 else (*o, None) for o in out]
+
+    # the main path of the phase: the class phase's build (its launches
+    # are those counted there), then the group's calls on it with the
+    # counts set to 0 just before and read just after
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res_v = {what: fn(hm) for what, fn in cov_calls.items()}
+    cl_yy = hm.C_yy(gv["cf_ells"], zs, ks_np, hm.get_power("y"))
+    torch.cuda.synchronize()
+    launches["cov_bispectrum"] = read_counts()
+    cov_peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    check(not any(launches["cov_bispectrum"].values()),
+          f"the covariance group's calls launch no kernel: "
+          f"{launches['cov_bispectrum']}")
+    outs_v = cov_outputs(res_v) + [("C_yy", cl_yy, gv["cl_yy"], None)]
+    for what, got, want, nb in outs_v:
+        check(got.is_cuda and got.dtype == torch.float64
+              and tuple(got.shape) == want.shape
+              and bool(torch.isfinite(got).all()),
+              f"cov_bispectrum {what} output")
+        gate = GATE_COV_FAST if "nfw_fast" in what else GATE_COV
+        g_np = got.cpu().numpy()
+        e = close_err(g_np, want) if nb is None else joint_err(g_np, want, nb)
+        check(e <= gate, f"cov_bispectrum {what} vs golden: {e!r} > {gate}")
+        print(f"[cov_bispectrum] {what} {tuple(got.shape)}: max "
+              f"{'rel err' if nb is None else 'rel err by block'} vs the "
+              f"JAX class's golden {e!r} (gate {gate})")
+    print(f"[cov_bispectrum] the class build's launches {launches['class']}, "
+          f"the {len(cov_calls)} calls' {launches['cov_bispectrum']}; peak "
+          f"{cov_peak:.1f} MiB allocated ({card})")
+    del res_v, outs_v, cl_yy
+    # latency, launches, host reads and peak memory of each entry point
+    cov_stats = {}
+    for what, fn in cov_calls.items():
+        n_l, n_sync = traced(lambda: fn(hm))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_v = host_ms(lambda: fn(hm), n=10, warmup=1)
+        peak_v = torch.cuda.max_memory_allocated(dev) / 2**20
+        cov_stats[what] = {"ms": t_v, "launches": n_l, "host_reads": n_sync,
+                           "peak_mib": peak_v}
+        print(f"[time] cov_bispectrum {what} at 20x200x1001: {t_v!r} ms "
+              f"(host clock to synchronize, median of 10), {n_l} launches "
+              f"and {n_sync} host reads (torch.profiler), peak "
+              f"{peak_v:.1f} MiB allocated ({card})")
+    print(f"[cov_bispectrum] the phase's wall time "
+          f"{time.perf_counter() - t_phase_v:.1f} s (host clock)")
+
+    del hm, b4_in_c, u_b1, u_e, got_e, u2_e, idx_e, i0_e
     torch.cuda.empty_cache()
 
-    # ---- phase 4h: the first extension group -----------------------------
+    # ---- phase 4i: the first extension group -----------------------------
     from hmvec_tpu_torch import Cosmology
 
     gx = np.load(GOLDEN_X)
@@ -1425,6 +1632,7 @@ def main() -> int:
               f"{row['launches']} launch in the extensions build ({card})")
     del hx, u_x, s_x, k_x, u2_x, idx_x, i0_x, k_b1, s_b1, c_b1
     torch.cuda.empty_cache()
+
 
     for name, _, _, paths in KERNEL_ROWS:
         for path in paths:
@@ -1653,6 +1861,7 @@ def main() -> int:
     print("[ksz] " + json.dumps(ksz_stats))
     print("[class] " + json.dumps(class_stats))
     print("[extensions] " + json.dumps(ext_stats))
+    print("[cov_bispectrum] " + json.dumps(cov_stats))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

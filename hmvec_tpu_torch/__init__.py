@@ -30,6 +30,19 @@ from .models.ksz import (  # noqa: F401
     get_survey_volume, kSZ, ksz_radial_function, ne0_shaw, pge_err_core)
 from .models.cib import (  # noqa: F401
     build_cib_tracer, cib_luminosity, default_cib_params, sed_graybody)
+from .models.cov import (  # noqa: F401
+    GaussianCov, angular_correlation, bin_annuli, cl_cov_ssc, cl_cov_t1h,
+    get_avail_cls, knox_cov, lensing_shape_noise, pk_cov_gaussian,
+    pk_cov_ssc, pk_response_ssc, shot_noise, sigma_b2_disk, sigma_b2_tophat,
+    trispectrum_1h, trispectrum_1h_terms)
+from .models.bispectrum import (  # noqa: F401
+    b2_sheth_torman, bispectrum_1halo, bispectrum_2halo, bispectrum_3halo,
+    bispectrum_total, f2_kernel, projected_bispectrum, tree_bispectrum)
+from .models.shear import wigner_d_sum  # noqa: F401
+from .models.pairwise import (  # noqa: F401
+    get_pairwise_ksz_snr, pairwise_ksz_errors, pairwise_ksz_signal,
+    tau_aperture_battaglia)
+from .models.rsd import mean_pairwise_velocity  # noqa: F401
 from .models.power import (  # noqa: F401
     exclusion_correction, total_matter_galaxy_power_spectrum,
     total_matter_power_spectrum)

@@ -20,9 +20,9 @@ import math
 import numpy as np
 import torch
 
-from ..utils.weights import trapz_weights
+from ..utils.weights import f64, host, mass_weights, trapz_weights
 from .mass_function import n_ln_m_sub
-from .power import CIBTracer, mass_weights
+from .power import CIBTracer
 
 # h/k_B in K/GHz
 _HK_GHZ = 6.62607015e-34 / 1.380649e-23 * 1e9
@@ -39,18 +39,6 @@ default_cib_params = {
     "cib_msub_min": 1e10,     # subhalo integration floor [Msun]
     "cib_nsub": 64,           # subhalo log-grid points
 }
-
-
-def _f64(x, device):
-    return torch.as_tensor(x, dtype=torch.float64, device=device)
-
-
-def _host(ms) -> np.ndarray:
-    """A mass grid as a host array (a tensor is read back once; the class
-    passes its host copy)."""
-    if isinstance(ms, torch.Tensor):
-        return ms.detach().cpu().numpy()
-    return np.asarray(ms, dtype=np.float64)
 
 
 def _sed_transition_x(beta, gamma):
@@ -96,7 +84,7 @@ def cib_luminosity(ms, zs, nu_ghz, params):
     """L_(1+z)nu(M, z) on the (nz, nm) grid, in L0 units; ms and zs on one
     device (ms may be a host array)."""
     zs = torch.as_tensor(zs, dtype=torch.float64)
-    ms = _f64(ms, zs.device)
+    ms = f64(ms, zs.device)
     phi = (1.0 + zs) ** params["cib_delta"]
     theta = sed_graybody(nu_ghz, zs, params)
     return (params["cib_L0"] * (phi * theta)[:, None]
@@ -109,11 +97,11 @@ def cib_satellite_luminosity(ms, zs, nu_ghz, params):
     which is read from the host copy of the grid."""
     zs = torch.as_tensor(zs, dtype=torch.float64)
     dev = zs.device
-    ms_h = _host(ms)
+    ms_h = host(ms)
     msub = np.geomspace(params["cib_msub_min"], ms_h.max(),
                         int(params["cib_nsub"]))
-    w = _f64(trapz_weights(np.log(msub)), dev)
-    nsub = n_ln_m_sub(_f64(msub, dev), _f64(ms_h, dev))  # (nsub, nm)
+    w = f64(trapz_weights(np.log(msub)), dev)
+    nsub = n_ln_m_sub(f64(msub, dev), f64(ms_h, dev))  # (nsub, nm)
     lsub = cib_luminosity(msub, zs, nu_ghz, params)      # (nz, nsub)
     return torch.einsum("s,sm,zs->zm", w, nsub, lsub)
 
@@ -133,13 +121,13 @@ def build_cib_tracer(ms, zs, nu_ghz, us, params=None, us2=None):
 
 def mean_emissivity(nzm, ms, tracer):
     """jbar_nu(z) = int dm n(z, m) (fc + fs)  [L0 / Mpc^3 / sr]."""
-    w = mass_weights(_f64(ms, nzm.device))
+    w = mass_weights(f64(ms, nzm.device))
     return torch.sum(nzm * (tracer.fc + tracer.fs) * w[None, :], dim=-1)
 
 
 def mean_intensity(zs, hzs, nzm, ms, tracer):
     """I_nu = int dchi a jbar = int dz a jbar / H  [L0 / Mpc^2 / sr]."""
     jbar = mean_emissivity(nzm, ms, tracer)
-    zs = _f64(zs, nzm.device)
+    zs = f64(zs, nzm.device)
     a = 1.0 / (1.0 + zs)
     return (a * jbar / hzs) @ mass_weights(zs)

@@ -12,14 +12,10 @@ import torch
 
 from ..ops.quadrature import trapz_traced
 from ..ops.special import j0
-from ..utils.weights import leggauss_cached
+from ..utils.weights import f64, leggauss_cached
 from . import background as bgmod
 from .mass_function import R_from_M
 from .profiles import fcon
-
-
-def _f64(x, device):
-    return torch.as_tensor(x, dtype=torch.float64, device=device)
 
 
 def sigma_nfw(R, rs, rhoscale):
@@ -41,7 +37,7 @@ def sigma_nfw(R, rs, rhoscale):
 def _gauss_legendre(n, device=None):
     """Gauss-Legendre nodes and weights on [-1, 1] as float64 tensors."""
     x, w = leggauss_cached(n)     # read-only arrays: copied
-    return _f64(x.copy(), device), _f64(w.copy(), device)
+    return f64(x.copy(), device), f64(w.copy(), device)
 
 
 def sigma_nfw_miscentered(R, rs, rhoscale, sig_off, n_off: int = 64,
@@ -58,7 +54,7 @@ def sigma_nfw_miscentered(R, rs, rhoscale, sig_off, n_off: int = 64,
     dev = R.device
     xo, wo = _gauss_legendre(n_off, dev)
     xa, wa = _gauss_legendre(n_ang, dev)
-    sig = _f64(sig_off, dev)[..., None]
+    sig = f64(sig_off, dev)[..., None]
     roff = (xo + 1.0) / 2.0 * off_max_sigmas * sig[..., None]   # (...,1,no)
     wroff = wo * off_max_sigmas * sig[..., None] / 2.0
     prayl = roff / sig[..., None] ** 2 * torch.exp(
@@ -81,11 +77,11 @@ def sigma_1h_profiles(bg, zs, thetas, Ms, concs, sig_theta=None, delta=200,
     Gaussian miscentering scale in radians, turned into a physical offset
     by the angular-diameter distance."""
     dev = bg.H0.device
-    zs = _f64(zs, dev)
-    Ms = _f64(Ms, dev)
-    concs = _f64(concs, dev)
+    zs = f64(zs, dev)
+    Ms = f64(Ms, dev)
+    concs = f64(concs, dev)
     chis = bgmod.angular_diameter_distance(bg, zs)
-    rbins = chis[:, None] * _f64(thetas, dev)[None, :]
+    rbins = chis[:, None] * f64(thetas, dev)[None, :]
     rhofunc = (bgmod.rho_critical_z if rho == "critical"
                else bgmod.rho_matter_z)
     rhoz = zs if rho_at_z else zs * 0.0
@@ -103,8 +99,8 @@ def sigma_1h_profiles(bg, zs, thetas, Ms, concs, sig_theta=None, delta=200,
 def kappa_1h_profiles(bg, zs, thetas, Ms, concs, zsource, **kw):
     """kappa_1h = Sigma / Sigma_crit, (nz, ntheta)."""
     sigma = sigma_1h_profiles(bg, zs, thetas, Ms, concs, **kw)
-    sigmac = bgmod.sigma_crit(bg, _f64(zs, bg.H0.device),
-                              _f64(zsource, bg.H0.device))
+    sigmac = bgmod.sigma_crit(bg, f64(zs, bg.H0.device),
+                              f64(zsource, bg.H0.device))
     return sigma / sigmac[:, None]
 
 
@@ -115,14 +111,14 @@ def kappa_2h_profiles(bg, zs, ks, Pzk, bh_of_m, thetas, zsource,
     as one (ntheta, nz, nk) computation.  bh_of_m: (nz,) halo bias at the
     cluster mass."""
     dev = bg.H0.device
-    zs = _f64(zs, dev)
-    sigmac = bgmod.sigma_crit(bg, zs, _f64(zsource, dev))
+    zs = f64(zs, dev)
+    sigmac = bgmod.sigma_crit(bg, zs, f64(zsource, dev))
     rhomz = bgmod.rho_matter_z(bg, zs)
     chis = bgmod.comoving_radial_distance(bg, zs)
     DAz = bgmod.angular_diameter_distance(bg, zs)
-    ells = _f64(ks, dev)[None, :] * chis[:, None]        # (nz, nk)
+    ells = f64(ks, dev)[None, :] * chis[:, None]        # (nz, nk)
     mask = (ells > lmin) & (ells < lmax)
-    thetas = _f64(thetas, dev)[:, None, None]
+    thetas = f64(thetas, dev)[:, None, None]
     integrand = (rhomz[:, None] * bh_of_m[:, None] * Pzk
                  / (1.0 + zs[:, None]) ** 3 / sigmac[:, None]
                  / DAz[:, None] ** 2 * j0(ells * thetas) * ells

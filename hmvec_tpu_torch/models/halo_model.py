@@ -15,8 +15,12 @@ one); the cluster-lensing profiles are closed forms on the instance's
 background.  The host keeps numpy copies of the grids (``zs_np``,
 ``ks_np``, ``ms_np``) for the static quadrature weights.
 
-The methods whose module is still to be ported raise NotImplementedError
-naming its group of ROADMAP A9 (``DEFERRED``).
+Covariances (``models/cov.py``), cluster counts through a Y-M relation
+(``models/cluster_counts.py``), bispectra (``models/bispectrum.py``) and
+the pairwise-kSZ ingredients (``models/pairwise.py``) run on the
+registered profiles and launch no kernel of their own.  The one method
+whose module is still to be ported raises NotImplementedError naming its
+group of ROADMAP A9 (``DEFERRED``).
 """
 
 from __future__ import annotations
@@ -32,10 +36,14 @@ from ..ops.sine_transform import generic_profile_fft
 from ..params import battaglia_defaults, scoped_override
 from ..utils.weights import trapz_weights
 from . import background as bgmod
+from . import bispectrum as bsp
 from . import cib as cibm
+from . import cluster_counts as ccm
 from . import cluster_lensing as clm
+from . import cov as covm
 from . import hi as him
 from . import mass_function as mfm
+from . import pairwise as pwm
 from . import power as pwr
 from . import profiles as prof
 from .cosmology import Cosmology, _deferred
@@ -65,16 +73,7 @@ _HOD_PARAM_KEYS = [
 ]
 
 # HaloModel methods whose module is still in A9, by group
-DEFERRED = {
-    "get_mean_compton_y": "pairwise", "get_tau_aperture": "pairwise",
-    "get_galaxy_rsd_multipoles": "rsd/tns/spt",
-    "get_bispectrum": "bispectrum", "get_angular_bispectrum": "bispectrum",
-    "cluster_counts_obs": "cluster_counts",
-    "cluster_counts_q_bins": "cluster_counts",
-    "cluster_counts_covariance": "cluster_counts",
-    "joint_counts_cl_cov": "cov", "get_cl_cov_t1h": "cov",
-    "get_cl_cov_ssc": "cov", "get_pk_covariance": "cov",
-}
+DEFERRED = {"get_galaxy_rsd_multipoles": "rsd/tns/spt"}
 
 # the y-units of the pressure profile: Thomson cross-section [m^2],
 # electron mass [Msun] and c [m/s]
@@ -343,6 +342,52 @@ class HaloModel(Cosmology):
         self.pk_profiles[name] = pk * unit
         return self.ks, self.pk_profiles[name]
 
+    def get_mean_compton_y(self, family=None, param_override=None,
+                           n_x=512):
+        """Sky-averaged Compton-y monopole <y> = int dz int dm n u_y(z, m,
+        k -> 0), with the exact k -> 0 limit of the pressure profile
+        (``pairwise.compton_y_k0_battaglia``; the registered profile
+        flat-extrapolates below its grid and would be ~5% low), on this
+        instance's (z, m) grid."""
+        if family is None:
+            family = self.p["battaglia_pres_family"]
+        pparams = self._battaglia_params(
+            ("battaglia_pres_gamma", "battaglia_pres_alpha"), family,
+            param_override)
+        m200, r200, rhocritz = self._m200critz()
+        rvirs = self.rvir(self.ms[None, :], self.zs[:, None])
+        omb = self.p["ombh2"] / self.h**2
+        uy0 = pwm.compton_y_k0_battaglia(
+            self.zs, m200, r200, rvirs / r200, rhocritz, omb, self.omm0,
+            pparams["battaglia_pres_alpha"], pparams["battaglia_pres_gamma"],
+            pparams, self.h_of_z(self.zs), n_x=n_x)
+        return ((self.nzm * uy0) @ self._mass_weights()) \
+            @ self._t(trapz_weights(self.zs_np))
+
+    def get_tau_aperture(self, R_ap=None, theta_arcmin=None, family=None,
+                         param_override=None, n_x=256):
+        """Mean aperture Thomson optical depth tau_bar(z, m) of the
+        Battaglia gas profile inside a disk of physical radius ``R_ap``
+        [Mpc] (scalar or per z) or angular radius ``theta_arcmin`` (R_ap =
+        theta d_A(z)): ``pairwise.tau_aperture_battaglia``."""
+        if (R_ap is None) == (theta_arcmin is None):
+            raise ValueError("pass exactly one of R_ap / theta_arcmin")
+        if family is None:
+            family = self.p["battaglia_gas_family"]
+        pparams = self._battaglia_params(("battaglia_gas_gamma",), family,
+                                         param_override)
+        m200, r200, rhocritz = self._m200critz()
+        rvirs = self.rvir(self.ms[None, :], self.zs[:, None])
+        if R_ap is None:
+            dA = self.angular_diameter_distance(self.zs)
+            R_ap = (theta_arcmin * np.pi / (180.0 * 60.0)) * dA
+        omb = self.p["ombh2"] / self.h**2
+        # truncated at r = rvir, like the registered profile
+        return pwm.tau_aperture_battaglia(
+            self.zs, m200, r200, rvirs / (r200 / 2.0), rhocritz, omb,
+            self.omm0, self._t(R_ap), pparams["battaglia_gas_gamma"],
+            pparams, n_x=n_x)
+
     def get_tau_mean_hod(self, hod_name, tau_zm):
         """HOD-weighted sample mean of a per-halo quantity q(z, m):
         int dm n (Nc + Ns) q / ngal."""
@@ -550,6 +595,76 @@ class HaloModel(Cosmology):
                                        fnl=fnl, deltac=deltac,
                                        exclusion=exclusion))
 
+    # ---- bispectra (models/bispectrum.py) ----
+    def _b2_grid(self, include_b2):
+        """The second-order halo bias of the 3-halo term: the peak-
+        background split of the Sheth-Tormen multiplicity (an approximation
+        under the Tinker modes)."""
+        if not include_b2:
+            return None
+        return bsp.b2_sheth_torman(self.sigma2, self.p)
+
+    def get_bispectrum(self, k1=None, k2=None, k3=None, name="nfw",
+                       name2=None, name3=None, terms="total",
+                       b1_in=(None, None, None), include_b2=False):
+        """B(z; k1, k2, k3) of a registered tracer triple; each leg a
+        scalar, an (nq,) array shared across z (k1 = k2 = k3 = ks: the
+        equilateral sweep) or (nz, nq) per z.  ``terms``: '1h', '2h', '3h'
+        or 'total'."""
+        # one tracer object per repeated name: the same-halo moments
+        # dispatch on identity
+        t1 = self._tracer(name)
+        t2 = t1 if name2 in (None, name) else self._tracer(name2)
+        t3 = (t1 if name3 in (None, name)
+              else (t2 if name3 == name2 else self._tracer(name3)))
+        if k1 is None:
+            k1 = self.ks
+        if k2 is None:
+            k2 = k1
+        if k3 is None:
+            k3 = k1
+        rho = self.rho_matter_z(0.0)
+        kd = self.p["kstar_damping"]
+        if terms == "1h":
+            return bsp.bispectrum_1halo(t1, t2, t3, self.nzm, self.ms,
+                                        self.ks, rho, k1, k2, k3, kd)
+        if terms == "2h":
+            return bsp.bispectrum_2halo(t1, t2, t3, self.nzm, self.bh,
+                                        self.ms, self.ks, self.Pzk, rho,
+                                        k1, k2, k3, b1_in)
+        if terms == "3h":
+            return bsp.bispectrum_3halo(t1, t2, t3, self.nzm, self.bh,
+                                        self.ms, self.ks, self.Pzk, rho,
+                                        k1, k2, k3, b1_in,
+                                        self._b2_grid(include_b2))
+        if terms == "total":
+            return bsp.bispectrum_total(t1, t2, t3, self.nzm, self.bh,
+                                        self.ms, self.ks, self.Pzk, rho,
+                                        k1, k2, k3, kd, b1_in,
+                                        self._b2_grid(include_b2))
+        raise ValueError(f"Unknown bispectrum terms {terms!r}")
+
+    def get_angular_bispectrum(self, ells1, ells2=None, ells3=None,
+                               name="nfw", name2=None, name3=None,
+                               Wz1s=None, Wz2s=None, Wz3s=None,
+                               terms="total", include_b2=False):
+        """Flat-sky Limber reduced bispectrum b(l1, l2, l3) of the tracer
+        triple with limber_integral's window convention (None is unity, the
+        tSZ-y case); the ell triplets broadcast to one shape."""
+        if ells2 is None:
+            ells2 = ells1
+        if ells3 is None:
+            ells3 = ells1
+        chis = self.comoving_radial_distance(self.zs)
+        hzs = self.h_of_z(self.zs)
+
+        def B_fn(kq1, kq2, kq3):
+            return self.get_bispectrum(kq1, kq2, kq3, name, name2, name3,
+                                       terms=terms, include_b2=include_b2)
+
+        return bsp.projected_bispectrum(ells1, ells2, ells3, self.zs, hzs,
+                                        chis, Wz1s, Wz2s, Wz3s, B_fn)
+
     def cluster_counts(self, mmin, fsky=1.0, mmax=None):
         """(dN/dz, N_total) of halos above ``mmin`` (and below ``mmax``)
         over the sky fraction ``fsky``: fsky 4 pi chi^2 / H int n dm,
@@ -563,6 +678,202 @@ class HaloModel(Cosmology):
         dvdz = 4.0 * math.pi * chi**2 / self.h_of_z(self.zs)
         dndz = fsky * dvdz * n_of_z
         return dndz, dndz @ self._t(trapz_weights(self.zs_np))
+
+    # ---- cluster counts through a Y-M relation (models/cluster_counts.py) ----
+    def _count_grids(self):
+        chis = self.comoving_radial_distance(self.zs)
+        return chis, self.h_of_z(self.zs), bgmod.e_of_z(self.bg, self.zs)
+
+    def cluster_counts_obs(self, q, sigma_noise, fsky=1.0, **scaling):
+        """(dN/dz, N_total) of clusters detected above SNR ``q`` through
+        the lognormal Y-M relation; ``sigma_noise`` sigma_N(z) in the
+        relation's Y units, ``scaling`` its parameters
+        (lnYstar/alpha/beta/Mpivot/sigma_lnY/sigma_meas_ln)."""
+        chis, hzs, ez = self._count_grids()
+        return ccm.dndz_detected(self.zs_np, self.ms, self.nzm, chis, hzs,
+                                 ez, q, sigma_noise, fsky=fsky, **scaling)
+
+    def cluster_counts_q_bins(self, q_edges, sigma_noise, fsky=1.0,
+                              z_edges=None, **scaling):
+        """Expected counts per (z, SNR) bin (``counts_q_bins``)."""
+        chis, hzs, ez = self._count_grids()
+        return ccm.counts_q_bins(self.zs_np, self.ms, self.nzm, chis, hzs,
+                                 ez, q_edges, sigma_noise, fsky=fsky,
+                                 z_edges=z_edges, **scaling)
+
+    def cluster_counts_covariance(self, z_edges, mmin=None, fsky=1.0,
+                                  q=None, sigma_noise=None, ks_lin=None,
+                                  **scaling):
+        """(N_i, Cov_ij) of counts in the redshift bins ``z_edges``:
+        Poisson plus sample variance, delta_ij N_i + <bN>_i <bN>_j
+        sigma^2_ij, the selection a sharp ``mmin`` or the completeness of
+        (``q``, ``sigma_noise``)."""
+        N_i, bN_i, s2 = self._counts_cov_parts(
+            z_edges, mmin=mmin, fsky=fsky, q=q, sigma_noise=sigma_noise,
+            ks_lin=ks_lin, **scaling)
+        return N_i, ccm.counts_covariance(N_i, bN_i, s2)
+
+    def _counts_cov_parts(self, z_edges, mmin=None, fsky=1.0, q=None,
+                          sigma_noise=None, ks_lin=None, **scaling):
+        """(N_i, <bN>_i, sigma^2_ij) of the binned count covariance."""
+        z_edges = np.asarray(z_edges, dtype=float)
+        zs = self.zs_np
+        chis, hzs, ez = self._count_grids()
+        dvdz = fsky * 4.0 * math.pi * chis**2 / hzs
+        wm = self._mass_weights()
+        if q is not None:
+            sel = ccm.completeness(self.ms, ez, q, sigma_noise, **scaling)
+        else:
+            if mmin is None:
+                raise ValueError("pass mmin or (q, sigma_noise)")
+            sel = (self.ms >= mmin)[None, :].expand(self.nzm.shape)
+        dndz = dvdz * ((self.nzm * sel) @ wm)
+        dbndz = dvdz * ((self.nzm * self.bh * sel) @ wm)
+
+        def zbin_trapz(f):
+            rows = []
+            for lo, hi in zip(z_edges[:-1], z_edges[1:]):
+                idx = np.nonzero((zs >= lo) & (zs < hi))[0]
+                if idx.size > 1:
+                    rows.append(f[self._t(idx).long()]
+                                @ self._t(trapz_weights(zs[idx])))
+                else:
+                    rows.append(torch.zeros((), dtype=_F64,
+                                            device=self.device))
+            return torch.stack(rows)
+
+        if ks_lin is None:
+            ks_lin = np.geomspace(1e-4, 5.0, 400)
+        plin = self.P_lin_slow(ks_lin, self.zs)
+        s2 = ccm.window_sigma2(z_edges, self.zs, chis, ks_lin, plin, fsky)
+        return zbin_trapz(dndz), zbin_trapz(dbndz), s2
+
+    # ---- covariances (models/cov.py) ----
+    def _windows(self, *ws):
+        ones = torch.ones_like(self.zs)
+        return [ones if w is None else self._t(w) for w in ws]
+
+    def joint_counts_cl_cov(self, z_edges, ells, name1, name2=None,
+                            Wz1s=None, Wz2s=None, mmin=None, fsky=1.0,
+                            q=None, sigma_noise=None, ks_lin=None,
+                            cov_cl_gauss=None, pad_background=True,
+                            **scaling):
+        """(N_i, Cov) of binned cluster counts and the C_ell of a tracer
+        pair, (nbin + nl) square: the counts block, Cov(N_i, C_l) and the
+        binned-window C_ell super-sample block (+ ``cov_cl_gauss``), all
+        on the background mode of the count bins (``cov.py``).  With
+        ``pad_background`` (the default) zero-count background bins tile
+        the rest of the zs grid, at most 16 on each side, so that modes
+        outside [z_edges[0], z_edges[-1]] stay in the C_ell blocks.
+        z_edges must lie inside the zs grid."""
+        z_edges = np.asarray(z_edges, dtype=float)
+        zs_np = self.zs_np
+        if (z_edges[0] < zs_np[0] - 1e-12
+                or z_edges[-1] > zs_np[-1] + 1e-12):
+            raise ValueError(
+                f"z_edges [{z_edges[0]}, {z_edges[-1]}] extend beyond the "
+                f"zs grid [{zs_np[0]}, {zs_np[-1]}]; background-mode "
+                "windows outside the grid cannot be represented")
+        nb = z_edges.size - 1
+        lo_pads = hi_pads = np.empty(0)
+        if pad_background:
+            width = np.median(np.diff(z_edges))
+
+            def _pads(a, b):
+                if b - a <= 1e-10:
+                    return np.empty(0)
+                n = min(16, max(1, int(np.ceil((b - a) / width))))
+                return (np.linspace(a, b, n + 1)[:-1] if a < z_edges[0]
+                        else np.linspace(a, b, n + 1)[1:])
+
+            lo_pads = _pads(zs_np[0], z_edges[0])
+            hi_pads = _pads(z_edges[-1], zs_np[-1])
+        edges_full = np.concatenate([lo_pads, z_edges, hi_pads])
+        n_lo = lo_pads.size
+        N_f, bN_f, s2 = self._counts_cov_parts(
+            edges_full, mmin=mmin, fsky=fsky, q=q, sigma_noise=sigma_noise,
+            ks_lin=ks_lin, **scaling)
+        # pad bins are pure background modes: no observed counts there
+        count_row = np.zeros(edges_full.size - 1)
+        count_row[n_lo:n_lo + nb] = 1.0
+        N_f = N_f * self._t(count_row)
+        bN_f = bN_f * self._t(count_row)
+        P = self.get_power(name1, name2)
+        hzs = self.h_of_z(self.zs)
+        chis = self.comoving_radial_distance(self.zs)
+        W1, W2 = self._windows(Wz1s, Wz2s)
+        r_bl = covm.cl_ssc_response_binned(ells, edges_full, self.zs_np,
+                                           self.ks, P, W1, W2, hzs, chis)
+        cov_full = covm.joint_counts_cl_cov(N_f, bN_f, s2, r_bl,
+                                            cov_cl_gauss=cov_cl_gauss)
+        keep = self._t(np.concatenate([
+            np.arange(n_lo, n_lo + nb),
+            np.arange(edges_full.size - 1, cov_full.shape[0])])).long()
+        return (N_f[n_lo:n_lo + nb],
+                cov_full.index_select(0, keep).index_select(1, keep))
+
+    def get_cl_cov_t1h(self, ells, name1, name2=None, Wz1s=None, Wz2s=None,
+                       fsky=1.0, name3=None, name4=None, Wz3s=None,
+                       Wz4s=None):
+        """Connected (1-halo trispectrum) covariance Cov(C^12_l, C^34_l')
+        with limber_integral's window conventions (W defaults to 1, the
+        C_yy case); names 3/4 default to 1/2, and given they make the
+        cross-covariance of two spectra (e.g. Cov(C_yy, C_gg))."""
+        def tracer_pair(na, nb):
+            ta = self._tracer(na)
+            tb = ta if nb in (None, na) else self._tracer(nb)
+            return pwr.one_halo_square_term(ta, tb, self.ms,
+                                            self.rho_matter_z(0.0))
+
+        term12 = tracer_pair(name1, name2)
+        if name3 is None and name4 is None:
+            term34 = term12
+        else:
+            term34 = tracer_pair(name3 if name3 is not None else name1,
+                                 name4 if name4 is not None else name2)
+        t_zkk = covm.trispectrum_1h_terms(self.nzm, self.ms, term12, term34)
+        hzs = self.h_of_z(self.zs)
+        chis = self.comoving_radial_distance(self.zs)
+        W1, W2 = self._windows(Wz1s, Wz2s)
+        return covm.cl_cov_t1h(ells, self.zs_np, self.ks, t_zkk, W1, W2,
+                               hzs, chis, fsky, Wz3s=Wz3s, Wz4s=Wz4s)
+
+    def get_cl_cov_ssc(self, ells, name1, name2=None, Wz1s=None, Wz2s=None,
+                       fsky=1.0):
+        """Super-sample covariance of the C_ell of a tracer pair (the flat-
+        sky disk of fsky; the linear response of this instance's 1h + 2h
+        P for the pair)."""
+        P = self.get_power(name1, name2)
+        hzs = self.h_of_z(self.zs)
+        chis = self.comoving_radial_distance(self.zs)
+        ks_lin = np.geomspace(1e-4, 1.0, 512)
+        sb2 = covm.sigma_b2_disk(fsky, chis, ks_lin,
+                                 self.P_lin(ks_lin, self.zs))
+        W1, W2 = self._windows(Wz1s, Wz2s)
+        return covm.cl_cov_ssc(ells, self.zs_np, self.ks, P, W1, W2, hzs,
+                               chis, sb2)
+
+    def get_pk_covariance(self, volume_gpc3, name="nfw", pk_tot=None,
+                          dks=None):
+        """Matter P(k) covariance per z in a volume [Gpc^3]: a dict of
+        'gauss', 't1h', 'ssc' (each (nz, nk, nk)) and their sum 'total'.
+        ``pk_tot`` replaces the spectrum of the Gaussian term (e.g. with
+        shot noise); by default this model's 1h + 2h P(k) of ``name``."""
+        V = volume_gpc3 * 1e9  # Mpc^3
+        if pk_tot is None:
+            pk_tot = self.get_power(name)
+        pk_tot = self._t(pk_tot)
+        uk = self.uk_profiles[name]
+        gauss = covm.pk_cov_gaussian(self.ks, pk_tot, V, dks=dks)
+        t1h = covm.trispectrum_1h(self.nzm, self.ms, self.rho_matter_z(0.0),
+                                  uk) / V
+        resp = covm.pk_response_ssc(self.ks, pk_tot)
+        # the survey window peaks near k ~ 1/R, below the usual grids
+        ks_lin = np.geomspace(1e-4, 1.0, 512)
+        sb2 = covm.sigma_b2_tophat(V, ks_lin, self.P_lin(ks_lin, self.zs))
+        ssc = covm.pk_cov_ssc(resp, sb2)
+        return {"gauss": gauss, "t1h": t1h, "ssc": ssc,
+                "total": gauss + t1h + ssc}
 
     # ---- cluster lensing (models/cluster_lensing.py) ----
     def sigma_1h_profiles(self, thetas, Ms, concs, sig_theta=None, delta=200,

@@ -25,17 +25,9 @@ import torch
 
 from ..ops.quadrature import linear_interp
 from ..ops.rootfind import invert_monotone
-from .power import mass_weights
+from ..utils.weights import device_of, f64, mass_weights
 
 _F64 = torch.float64
-
-
-def _device_of(*args):
-    return next((a.device for a in args if isinstance(a, torch.Tensor)), None)
-
-
-def _t(x, device):
-    return torch.as_tensor(x, dtype=_F64, device=device)
 
 
 def _behroozi_core(log10mstar, a, p):
@@ -55,8 +47,8 @@ def Mhalo_stellar_core(log10mstellar, a, Mstar00, Mstara, M1, M1a,
                        beta0, beta_a, gamma0, gamma_a, delta0, delta_a):
     """log10 M_halo from log10 M* at scale factor a, with the ten Behroozi
     fit parameters passed explicitly."""
-    dev = _device_of(log10mstellar, a)
-    return _behroozi_core(_t(log10mstellar, dev), _t(a, dev),
+    dev = device_of(log10mstellar, a)
+    return _behroozi_core(f64(log10mstellar, dev), f64(a, dev),
                           (Mstar00, Mstara, M1, M1a, beta0, beta_a,
                            gamma0, gamma_a, delta0, delta_a))
 
@@ -69,10 +61,10 @@ _BEHROOZI_HIZ = (11.09, 0.56, 12.27, -0.84, 0.65, 0.31, 1.12, -0.53, 0.56, -0.12
 def mhalo_from_mstellar(zs, log10mstellar):
     """log10 M_halo(M*).  zs: (nz,) or (nz, 1); log10mstellar:
     broadcastable to (nz, n)."""
-    dev = _device_of(zs, log10mstellar)
-    zcol = _t(zs, dev).reshape(-1, 1)
+    dev = device_of(zs, log10mstellar)
+    zcol = f64(zs, dev).reshape(-1, 1)
     a = 1.0 / (1.0 + zcol)
-    ms = _t(log10mstellar, dev)
+    ms = f64(log10mstellar, dev)
     ms = ms.expand(zcol.shape[0], ms.shape[-1])
     low = _behroozi_core(ms, a, _BEHROOZI_LOWZ)
     high = _behroozi_core(ms, a, _BEHROOZI_HIZ)
@@ -85,10 +77,10 @@ _MSTAR_GRID = np.linspace(-18.0, 18.0, 4000)
 def mstellar_from_mhalo(zs, log10mhalo):
     """log10 M*(M_halo): the Behroozi relation inverted on a dense grid,
     shape (nz, n) for log10mhalo (n,) or (1, n)."""
-    dev = _device_of(zs, log10mhalo)
-    grid = _t(_MSTAR_GRID, dev)
+    dev = device_of(zs, log10mhalo)
+    grid = f64(_MSTAR_GRID, dev)
     mh = mhalo_from_mstellar(zs, grid[None, :])       # (nz, ngrid)
-    lm = _t(log10mhalo, dev)
+    lm = f64(log10mhalo, dev)
     mhal = lm.reshape(1, -1).expand(mh.shape[0], lm.shape[-1])
     return linear_interp(mhal, mh, grid)
 
@@ -96,7 +88,7 @@ def mstellar_from_mhalo(zs, log10mhalo):
 def avg_nc(log10mhalo, zs, log10mstellar_thresh, sig_log_mstellar):
     """<Nc(m)>."""
     log10mstar = mstellar_from_mhalo(zs, log10mhalo)
-    num = _t(log10mstellar_thresh, log10mstar.device) - log10mstar
+    num = f64(log10mstellar_thresh, log10mstar.device) - log10mstar
     denom = math.sqrt(2.0) * sig_log_mstellar
     return 0.5 * (1.0 - torch.erf(num / denom))
 
@@ -109,15 +101,15 @@ def _default_mfunc(mthresh, Bamp, Bind):
 def avg_ns(log10mhalo, zs, log10mstellar_thresh, Nc, hod_params,
            Msat_override=None, Mcut_override=None):
     """<Ns(m)>."""
-    dev = _device_of(Nc, zs, log10mhalo)
-    mthresh = mhalo_from_mstellar(zs, _t(log10mstellar_thresh, dev))
+    dev = device_of(Nc, zs, log10mhalo)
+    mthresh = mhalo_from_mstellar(zs, f64(log10mstellar_thresh, dev))
     Msat = (Msat_override if Msat_override is not None
             else _default_mfunc(mthresh, hod_params["hod_Bsat"],
                                 hod_params["hod_betasat"]))
     Mcut = (Mcut_override if Mcut_override is not None
             else _default_mfunc(mthresh, hod_params["hod_Bcut"],
                                 hod_params["hod_betacut"]))
-    masses = 10.0 ** _t(log10mhalo, dev)
+    masses = 10.0 ** f64(log10mhalo, dev)
     return (Nc * (masses / Msat) ** hod_params["hod_alphasat"]
             * torch.exp(-Mcut / masses))
 
@@ -207,13 +199,13 @@ def build_hod_zheng05(zs, ms, nzm, bh, hod_params, ngal=None, corr="max"):
     Returns an HODGrid whose log10mthresh carries log10 Mmin.
     """
     dev = nzm.device
-    zs, ms = _t(zs, dev), _t(ms, dev)
+    zs, ms = f64(zs, dev), f64(ms, dev)
     w = mass_weights(ms)
     log10mhalo = torch.log10(ms)[None, :]
     masses = 10.0 ** log10mhalo
     sig = hod_params["hod_zheng_siglogm"]
-    m0 = 10.0 ** _t(hod_params["hod_zheng_log10M0"], dev)
-    m1 = 10.0 ** _t(hod_params["hod_zheng_log10M1"], dev)
+    m0 = 10.0 ** f64(hod_params["hod_zheng_log10M0"], dev)
+    m1 = 10.0 ** f64(hod_params["hod_zheng_log10M1"], dev)
     alpha = hod_params["hod_zheng_alpha"]
 
     def grid_at(log10mmin):
@@ -228,14 +220,14 @@ def build_hod_zheng05(zs, ms, nzm, bh, hod_params, ngal=None, corr="max"):
         # the bracket is in halo mass (log10 Mmin), not the Behroozi
         # family's stellar-mass threshold: clusters reach log10 M ~ 15.5
         log10mmin = invert_monotone(
-            nfunc, _t(ngal, dev),
+            nfunc, f64(ngal, dev),
             hod_params.get("hod_zheng_bisection_lo", 9.0),
             hod_params.get("hod_zheng_bisection_hi", 16.5),
             num_iter=hod_params["hod_bisection_num_iter"],
             increasing=False)
         thresh = log10mmin[:, None]
     else:
-        thresh = (_t(hod_params["hod_zheng_log10Mmin"], dev)
+        thresh = (f64(hod_params["hod_zheng_log10Mmin"], dev)
                   + torch.zeros((zs.shape[0], 1), dtype=_F64, device=dev))
     return _finish(grid_at, thresh, nzm, bh, w, corr)
 
@@ -269,13 +261,13 @@ def ngal_from_mthresh(log10mthresh, zs, nzm, ms, hod_params,
     """n_gal(z) = int dm n(z, m) (Nc + Ns).  ``weights``: optional
     precomputed trapezoid weights of the mass grid."""
     dev = nzm.device
-    ms = _t(ms, dev)
+    ms = f64(ms, dev)
     log10mhalo = torch.log10(ms)[None, :]
-    thresh = _t(log10mthresh, dev)[:, None]
+    thresh = f64(log10mthresh, dev)[:, None]
     Nc = avg_nc(log10mhalo, zs, thresh, hod_params["hod_sig_log_mstellar"])
     Ns = avg_ns(log10mhalo, zs, thresh, Nc, hod_params,
                 Msat_override, Mcut_override)
-    w = mass_weights(ms) if weights is None else _t(weights, dev)
+    w = mass_weights(ms) if weights is None else f64(weights, dev)
     return (nzm * (Nc + Ns)) @ w
 
 
@@ -285,7 +277,7 @@ def build_hod(zs, ms, nzm, bh, hod_params, mthresh=None, ngal=None,
     bias bh, both (nz, nm); solve ngal (nz,) -> mthresh if ngal is given,
     else take the stellar-mass thresholds mthresh (nz,)."""
     dev = nzm.device
-    zs, ms = _t(zs, dev), _t(ms, dev)
+    zs, ms = f64(zs, dev), f64(ms, dev)
     w = mass_weights(ms)
     log10mhalo = torch.log10(ms)[None, :]
     # independent of the threshold: once, outside the bisection
@@ -302,11 +294,11 @@ def build_hod(zs, ms, nzm, bh, hod_params, mthresh=None, ngal=None,
             return (nzm * (Nc + Ns)) @ w
 
         log10mthresh = invert_monotone(
-            nfunc, _t(ngal, dev),
+            nfunc, f64(ngal, dev),
             hod_params["hod_bisection_search_min_log10mthresh"],
             hod_params["hod_bisection_search_max_log10mthresh"],
             num_iter=hod_params["hod_bisection_num_iter"],
             increasing=False)
         mthresh = 10.0 ** (log10mthresh * hod_params["hod_A_log10mthresh"])
-    thresh = torch.log10(_t(mthresh, dev))[:, None]
+    thresh = torch.log10(f64(mthresh, dev))[:, None]
     return _finish(grid_at, thresh, nzm, bh, w, corr)

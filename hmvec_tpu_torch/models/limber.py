@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.quadrature import trapz
+from ..ops.quadrature import lerp_index, trapz
 from . import background as bgmod
 
 
@@ -54,15 +54,13 @@ def interp_pzk_at_curve(zs, ks, Pzks, zevals, kevals):
     lke = torch.log(kevals)
 
     if zs.numel() > 1:
-        iz = (torch.searchsorted(zs, zevals) - 1).clamp(0, zs.numel() - 2)
-        tz = ((zevals - zs[iz]) / (zs[iz + 1] - zs[iz])).clamp(0.0, 1.0)
+        iz, tz = lerp_index(zs, zevals)
         Pz = (Pzks[iz] * (1.0 - tz)[:, None]
               + Pzks[iz + 1] * tz[:, None])        # (nze, nk)
     else:
         Pz = Pzks[0][None, :].expand(zevals.shape[0], lks.numel())
 
-    ik = (torch.searchsorted(lks, lke) - 1).clamp(0, lks.numel() - 2)
-    tk = ((lke - lks[ik]) / (lks[ik + 1] - lks[ik])).clamp(0.0, 1.0)
+    ik, tk = lerp_index(lks, lke)
     # Pz[z, ik[l, z]] as a gather along k of Pz^T (nk, nze)
     p0 = torch.gather(Pz.T, 0, ik)
     p1 = torch.gather(Pz.T, 0, ik + 1)

@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.weights import mass_weights
+
 
 class MatterTracer(NamedTuple):
     uk: torch.Tensor  # (nz, nm, nk) normalized profile u(k | z, m), or <u>
@@ -55,14 +57,6 @@ class HODTracer(NamedTuple):
     us: torch.Tensor       # (nz, nm, nk) satellite profile (<u> if scattered)
     uc: Optional[torch.Tensor] = None   # central profile (None -> 1)
     us2: Optional[torch.Tensor] = None  # <u^2> under concentration scatter
-
-
-def mass_weights(ms):
-    """Trapezoid weights of the mass grid, built on its device with the
-    arithmetic of utils.weights.trapz_weights (so bit-identical to it)."""
-    half = torch.diff(ms) / 2.0
-    zero = torch.zeros_like(ms[:1])
-    return torch.cat([half, zero]) + torch.cat([zero, half])
 
 
 def _mass_integral(integrand, ms):

@@ -1,7 +1,8 @@
 """FFTLog spherical-Bessel transform on float64 tensors: the part of
-hmvec_tpu/ops/fftlog.py that the 2-halo exclusion correction needs
-(``fftlog_sine_j0`` and ``correlation_function``).  The profile transform,
-the j_l and multi-l transforms and ``projected_correlation`` come with the
+hmvec_tpu/ops/fftlog.py that the 2-halo exclusion correction and the mean
+pairwise velocity need (``fftlog_sine_j0``, ``fftlog_sphbessel_jl``,
+``fftlog_lnkr`` and ``correlation_function``).  The profile transform, the
+multi-l transform and ``projected_correlation`` come with the
 fftlog/nonlimber group of ROADMAP A9.
 
 The FFTLog kernel u_m (complex Gamma ratios) depends only on the static
@@ -62,6 +63,21 @@ def fftlog_sine_j0(fx, xs, mu: float = 0.5, lnkr=None):
     A = torch.fft.irfft(torch.conj(torch.fft.rfft(b) * t(u_np)), n=n)
     F = math.sqrt(math.pi / 2.0) * A * t(ks**-1.5)
     return t(ks), F.to(fx.dtype)
+
+
+def fftlog_sphbessel_jl(fx, xs, ell: int, lnkr=None):
+    """F(k) = int_0^inf f(x) j_ell(kx) x^2 dx by FFTLog: j_ell(x) =
+    sqrt(pi / 2x) J_{ell+1/2}(x), so this is the mu = ell + 1/2 path of
+    ``fftlog_sine_j0``.  Give the ell = 0 ``lnkr`` (``fftlog_lnkr``) to put
+    several ells on one output grid."""
+    return fftlog_sine_j0(fx, xs, mu=ell + 0.5, lnkr=lnkr)
+
+
+def fftlog_lnkr(xs, mu: float = 0.5):
+    """The low-ringing ln(kc xc) offset of the log grid xs at order mu."""
+    xs = np.asarray(xs, dtype=np.float64)
+    _, lnkr = _fftlog_kernel(xs.size, float(np.log(xs[1] / xs[0])), mu=mu)
+    return lnkr
 
 
 def correlation_function(ks, pk):

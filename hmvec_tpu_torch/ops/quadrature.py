@@ -74,6 +74,19 @@ def linear_interp(x, xp, fp, left=None, right=None):
     return f.reshape(shape)
 
 
+def lerp_index(xp, x):
+    """The interval and weight of a flat-clipped linear interpolation on
+    the increasing nodes xp (n,) at x (any shape): i = searchsorted(xp, x)
+    - 1 clipped to [0, n - 2], t = (x - xp[i]) / (xp[i + 1] - xp[i])
+    clipped to [0, 1], so a point beyond either end takes the end value.
+    The searchsorted-and-clip lerps of the JAX package (limber, cov,
+    bispectrum, cluster_counts) all have this arithmetic."""
+    n = xp.shape[-1]
+    i = (torch.searchsorted(xp, x.contiguous()) - 1).clamp(0, n - 2)
+    t = ((x - xp[i]) / (xp[i + 1] - xp[i])).clamp(0.0, 1.0)
+    return i, t
+
+
 def interp(x, y, bounds_error=False, fill_value=0.0):
     """Reference-signature 1-d linear interpolator factory: a callable
     that evaluates ``linear_interp`` on the fixed table (x, y), a pair of

@@ -1,4 +1,5 @@
-"""Quadrature weight constructors (pure numpy; a copy of hmvec_tpu/utils/weights.py).
+"""Quadrature weight constructors (the numpy ones a copy of
+hmvec_tpu/utils/weights.py), and the float64 conversions the models share.
 
 All halo-model integrals (sigma^2, mass-function integrals) are linear
 functionals of the integrand, so static weight vectors are built once per
@@ -9,16 +10,49 @@ weighted sums.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _ON_DEVICE: dict = {}
+
+
+def f64(x, device=None):
+    """x as a float64 tensor on ``device`` (None: a tensor stays where it
+    is, host data goes to the CPU)."""
+    return torch.as_tensor(x, dtype=torch.float64, device=device)
+
+
+def device_of(*xs):
+    """The device of the first tensor among xs, None if none is one."""
+    return next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+
+
+def host(x) -> np.ndarray:
+    """A grid as a float64 numpy array (a tensor is read back)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float64)
+
+
+def mass_weights(ms):
+    """Trapezoid weights of a tensor grid, built on its device with the
+    arithmetic of trapz_weights (so bit-identical to it)."""
+    half = torch.diff(ms) / 2.0
+    zero = torch.zeros_like(ms[:1])
+    return torch.cat([half, zero]) + torch.cat([zero, half])
+
+
+def grid_weights(x, device):
+    """Trapezoid weights of a grid on ``device``: from the host for a numpy
+    grid, on the device for a tensor (no read back either way)."""
+    if isinstance(x, torch.Tensor):
+        return mass_weights(x.to(device, torch.float64))
+    return f64(trapz_weights(np.asarray(x, dtype=np.float64)), device)
 
 
 def on_device(key: str, device, make):
     """The host arrays of ``make()`` (a tuple) as tensors of their own
     dtype on ``device``: built and copied there once per (key, device), so
     a call on the card copies no static grid."""
-    import torch
-
     if (key, device) not in _ON_DEVICE:
         _ON_DEVICE[key, device] = tuple(
             torch.as_tensor(np.array(a), device=device) for a in make())

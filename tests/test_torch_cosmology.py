@@ -53,16 +53,7 @@ T = torch.as_tensor
 # yet, by the group of ROADMAP A9 that brings them, and the ones it will
 # not have (A10)
 NOT_PORTED = {
-    "cov": ("GaussianCov", "knox_cov", "bin_annuli", "get_avail_cls",
-            "shot_noise", "lensing_shape_noise", "angular_correlation",
-            "pk_cov_gaussian", "trispectrum_1h", "pk_response_ssc",
-            "sigma_b2_tophat", "pk_cov_ssc", "trispectrum_1h_terms",
-            "cl_cov_t1h", "sigma_b2_disk", "cl_cov_ssc"),
-    "bispectrum": ("f2_kernel", "tree_bispectrum", "b2_sheth_torman",
-                   "bispectrum_1halo", "bispectrum_2halo",
-                   "bispectrum_3halo", "bispectrum_total",
-                   "projected_bispectrum"),
-    "shear/ia/master": ("xi_plus", "xi_minus", "gamma_t", "wigner_d_sum",
+    "shear/ia/master": ("xi_plus", "xi_minus", "gamma_t",
                         "kappa_to_shear_cl_factor", "xi_gaussian_cov",
                         "wigner_d_outer_sum", "nla_amplitude", "ia_window",
                         "magnification_window", "shear_cls_with_ia", "C_II",
@@ -85,15 +76,13 @@ NOT_PORTED = {
                     "pk_velocity_1loop", "p22_velocity", "p13_dt", "p13_tt",
                     "kaiser_pk_mu", "rsd_multipoles",
                     "kaiser_multipole_factors", "correlation_multipoles",
-                    "mean_pairwise_velocity", "sigma_v_lin",
+                    "sigma_v_lin",
                     "scoccimarro_pk_mu", "scoccimarro_multipoles",
                     "tns_ab_integrals", "tns_a_term", "tns_b_term",
                     "tns_pk_mu", "tns_multipoles", "tns_power",
                     "tns_pk_mu_points", "ap_shift", "ap_multipoles",
                     "multipole_covariance", "multipole_snr",
                     "window_coupling", "window_convolve_multipoles"),
-    "pairwise": ("pairwise_ksz_signal", "pairwise_ksz_errors",
-                 "get_pairwise_ksz_snr", "tau_aperture_battaglia"),
     "boltz": ("BoltzEngine", "rs_drag_integral"),
     "emulator": ("Emulator", "fit_emulator", "pipeline_target",
                  "save_emulator", "load_emulator", "sample_params"),

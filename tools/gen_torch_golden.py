@@ -76,11 +76,27 @@ b_HI; sigma_1h (with and without miscentering), kappa_1h and kappa_2h at
 M = 3e14 Msun on 32 thetas; the BAO ratio, tau_*, z(tau), conformal time,
 C_L^kk to L = 3000 on the nonlinear power, and H0 from theta100 (~3 min).
 
+--config v: the covariance group through the JAX class at config 1's width
+and the bench cosmology, on the README example's profiles (Battaglia gas
+"e" and pressure "y" at nxs 5000, HOD "g") ->
+hmvec_tpu_torch/data/cov_bispectrum_config1_golden.npz with the connected
+C_ell covariance of "y" and Cov(C_yy, C_gg) and the super-sample one of
+"y" (fsky 0.4) on 60 ells in [30, 3000]; cluster_counts_obs /
+_q_bins / _covariance at q = 5, sigma_N = 1e-4, fsky 0.4, with the JAX
+test's scaling and z bins [0.2, 0.6, 1.0, 1.4]; joint_counts_cl_cov(...,
+"y", mmin=2e14, fsky=0.3), padded; get_pk_covariance(10 Gpc^3, "nfw"),
+its four blocks' diagonals and two k rows each at three z rows; the
+equilateral get_bispectrum on ks of "nfw" and of "g" with the second-order
+bias at three z rows; get_angular_bispectrum("y") on the 60 ells;
+get_mean_compton_y, get_tau_aperture(theta_arcmin=1.6); get_pairwise_ksz_snr
+at the z nearest 0.5; C_yy on ells 2..2000 and its angular_correlation on
+16 angles (~3 min).
+
 The machine with the GPU has no JAX, so chip_smoke.py compares the port
 against these files.  Each run writes only its own file.
 
 Run from the repository root:
-    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x]
+    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x|v]
 """
 
 from __future__ import annotations
@@ -103,7 +119,8 @@ OUT = {"1": DATA / "pmm_config1_golden.npz",
        "5": DATA / "ksz_config5_golden.npz",
        "m": DATA / "pmm_massfn_golden.npz",
        "c": DATA / "class_config1_golden.npz",
-       "x": DATA / "extensions_config1_golden.npz"}
+       "x": DATA / "extensions_config1_golden.npz",
+       "v": DATA / "cov_bispectrum_config1_golden.npz"}
 NXS, XMAX = 4096, 20          # bench.py config 2
 NGAL = 1e-4                   # bench.py config 3, per z
 ELLS, ZSOURCE = np.geomspace(30, 3000, 60), 1100.0   # bench.py config 4
@@ -321,6 +338,95 @@ def write_extensions_golden(zs, ms, ks):
                                         dtype=np.float64), **out)
 
 
+# the cov_bispectrum phase of chip_smoke.py: the C_ell multipoles, the
+# count selection (the JAX package's test scaling, tests/test_cluster_counts
+# .py), the z and k rows kept of the (nz, nk, nk) and (nz, nk) outputs, the
+# pairwise-kSZ survey and the angles of the correlation function
+COV_ELLS = np.geomspace(30.0, 3000.0, 60)
+COV_SCALING = dict(lnYstar=np.log(2.4e-4), alpha=1.79, beta=2.0 / 3.0,
+                   Mpivot=6e14, sigma_lnY=0.25)
+COV_COUNTS = {"q": 5.0, "sigma_noise": 1e-4, "fsky": 0.4}
+COV_Q_EDGES = np.array([5.0, 6.0, 8.0, np.inf])
+COV_Z_EDGES = np.array([0.2, 0.6, 1.0, 1.4])
+COV_JOINT = {"mmin": 2e14, "fsky": 0.3}
+COV_ROWS = np.array([0, 9, 19])
+COV_K_ROWS = np.array([200, 700])
+COV_VOLUME = 10.0
+COV_PAIRWISE = {"z": 0.5, "ngal_mpc3": 1e-4, "volume_gpc3": 10.0,
+                "sigma_meas_uK": 2.0, "theta_arcmin": 1.6}
+COV_R_EDGES = np.linspace(20.0, 150.0, 9)
+COV_CF_ELLS = np.arange(2, 2001)
+COV_THETAS = np.geomspace(1e-4, 0.1, 16)
+
+
+def write_cov_bispectrum_golden(zs, ms, ks):
+    """The covariance group through the JAX class API at the bench
+    cosmology, on the README example's profiles."""
+    import jax.numpy as jnp
+    import hmvec_tpu as hm
+    from hmvec_tpu.models import cov as jcov
+    from hmvec_tpu.models import pairwise as jpw
+
+    ngal = np.full(zs.size, NGAL)
+    hcos = hm.HaloModel(zs, ks, ms=ms, params=BENCH_OVERRIDES)
+    hcos.add_battaglia_profile("e", family="AGN")
+    hcos.add_battaglia_pres_profile("y")
+    hcos.add_hod("g", ngal=ngal)
+    out = {"t1h_yy": hcos.get_cl_cov_t1h(COV_ELLS, "y"),
+           "t1h_yy_gg": hcos.get_cl_cov_t1h(COV_ELLS, "y", name3="g",
+                                            name4="g"),
+           "ssc_yy": hcos.get_cl_cov_ssc(COV_ELLS, "y", fsky=0.4)}
+    c = COV_COUNTS
+    out["dndz_obs"], out["n_obs"] = hcos.cluster_counts_obs(
+        c["q"], c["sigma_noise"], fsky=c["fsky"], **COV_SCALING)
+    out["q_bins"] = hcos.cluster_counts_q_bins(
+        COV_Q_EDGES, c["sigma_noise"], fsky=c["fsky"], z_edges=COV_Z_EDGES,
+        **COV_SCALING)
+    out["n_cov"], out["counts_cov"] = hcos.cluster_counts_covariance(
+        COV_Z_EDGES, fsky=c["fsky"], q=c["q"], sigma_noise=c["sigma_noise"],
+        **COV_SCALING)
+    out["n_joint"], out["joint_cov"] = hcos.joint_counts_cl_cov(
+        COV_Z_EDGES, COV_ELLS, "y", **COV_JOINT)
+    pk = hcos.get_pk_covariance(COV_VOLUME, "nfw")
+    for key in ("gauss", "t1h", "ssc", "total"):
+        block = pk[key][COV_ROWS]
+        out[f"pk_{key}_diag"] = jnp.diagonal(block, axis1=1, axis2=2)
+        out[f"pk_{key}_rows"] = block[:, COV_K_ROWS]
+    out["b_nfw"] = hcos.get_bispectrum()[COV_ROWS]
+    out["b_g_b2"] = hcos.get_bispectrum(name="g", include_b2=True)[COV_ROWS]
+    out["b_ang_y"] = hcos.get_angular_bispectrum(COV_ELLS, name="y")
+    out["mean_y"] = hcos.get_mean_compton_y()
+    p = COV_PAIRWISE
+    out["tau_ap"] = hcos.get_tau_aperture(theta_arcmin=p["theta_arcmin"])
+    iz = int(np.argmin(np.abs(zs - p["z"])))
+    pw = jpw.get_pairwise_ksz_snr(hcos, iz, p["ngal_mpc3"], p["volume_gpc3"],
+                                  p["sigma_meas_uK"], COV_R_EDGES,
+                                  theta_arcmin=p["theta_arcmin"])
+    for key in ("snr", "T_bins", "sigma_bins", "tau_bar"):
+        out[f"pairwise_{key}"] = pw[key]
+    out["cl_yy"] = hcos.C_yy(COV_CF_ELLS, zs, ks, hcos.get_power("y"))
+    out["w_yy"] = jcov.angular_correlation(COV_CF_ELLS, out["cl_yy"],
+                                           COV_THETAS)
+    out = {k: np.asarray(v, dtype=np.float64) for k, v in out.items()}
+    for k, v in out.items():
+        print(f"{k}{v.shape}: flat[0] = {v.flat[0]!r}")
+    return dict(zs=zs, ms=ms, ks=ks, ngal=ngal, ells=COV_ELLS,
+                scaling=np.asarray([COV_SCALING[k] for k in (
+                    "lnYstar", "alpha", "beta", "Mpivot", "sigma_lnY")]),
+                counts=np.asarray([c["q"], c["sigma_noise"], c["fsky"]]),
+                q_edges=COV_Q_EDGES, z_edges=COV_Z_EDGES,
+                joint=np.asarray([COV_JOINT["mmin"], COV_JOINT["fsky"]]),
+                rows=COV_ROWS, k_rows=COV_K_ROWS, volume_gpc3=COV_VOLUME,
+                pairwise=np.asarray([p[k] for k in (
+                    "z", "ngal_mpc3", "volume_gpc3", "sigma_meas_uK",
+                    "theta_arcmin")]),
+                pairwise_iz=iz, r_edges=COV_R_EDGES, cf_ells=COV_CF_ELLS,
+                thetas=COV_THETAS,
+                param_names=np.asarray(list(BENCH_OVERRIDES)),
+                param_values=np.asarray(list(BENCH_OVERRIDES.values()),
+                                        dtype=np.float64), **out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(OUT), default="1")
@@ -340,13 +446,15 @@ def main():
             ("omch2", "As")), **write_batch_golden(jpl, jnp, zs, ms, ks))
         print(f"wrote {path.relative_to(REPO)} ({path.stat().st_size} bytes)")
         return
-    if args.config in ("5", "m", "c", "x"):
+    if args.config in ("5", "m", "c", "x", "v"):
         if args.config == "5":
             arrays = write_ksz_golden(jpl, jnp)
         elif args.config == "c":
             arrays = write_class_golden(zs, ms, ks)
         elif args.config == "x":
             arrays = write_extensions_golden(zs, ms, ks)
+        elif args.config == "v":
+            arrays = write_cov_bispectrum_golden(zs, ms, ks)
         else:
             arrays = dict(zs=zs, ms=ms, ks=ks,
                           **write_massfn_golden(jpl, jnp, zs, ms, ks))
