@@ -51,7 +51,16 @@ P(k) covariance, bispectra (plain and fast NFW, an HOD with the
 second-order bias, the angular y bispectrum), the mean Compton y, the
 aperture optical depth, the pairwise kSZ SNR and the angular correlation
 of C_yy, against its golden file, with each entry point's latency,
-launches, host reads and peak memory.  The extensions phase drives the
+launches, host reads and peak memory.  The rsd_nonlimber phase drives the
+exact (non-Limber) C_ell, one-loop and redshift-space group on the same
+build, with no kernel launch in its calls: C_gg (with RSD and
+magnification), C_kg and C_kk exact on 2048 chis at ells 2-200, the
+hybrid C_gg and C_kk on the build's P_gg and P_mm (analytic and fast NFW
+profile), P_mm_1loop with and without the IR resummation, the Kaiser,
+Scoccimarro and TNS multipoles of get_rsd_multipoles at 20 z x 100 k,
+get_galaxy_rsd_multipoles on the build's 1001 k, and the multi-l FFTLog
+transform in complex128, against its golden file, with each entry point's
+latency, launches, host reads and peak memory.  The extensions phase drives the
 first extension group through the class API at config 1's width:
 HaloModel(halofit="mead") (HMcode-2016), CIB tracers at 545 and 217 GHz
 and an HI tracer on the fast NFW profile, the Battaglia pressure profile,
@@ -119,6 +128,7 @@ GOLDEN_M = DATA / "pmm_massfn_golden.npz"
 GOLDEN_C = DATA / "class_config1_golden.npz"
 GOLDEN_X = DATA / "extensions_config1_golden.npz"
 GOLDEN_V = DATA / "cov_bispectrum_config1_golden.npz"
+GOLDEN_RN = DATA / "rsd_nonlimber_config1_golden.npz"
 
 # kernel vs plain version on the card (absolute on u; relative on S1, S2;
 # the resample kernel repeats the plain version's float64 operations in
@@ -172,6 +182,18 @@ GATE_H0 = 5e-11
 # (float32, within 5e-6 of the analytic u) enters
 GATE_COV = 1e-10
 GATE_COV_FAST = 1e-5
+# the exact C_ell, one-loop and redshift-space group
+# (tools/gen_torch_golden.py --config rsd_nonlimber) on the README
+# example's build: 1e-10; 1e-5 where the fast NFW profile's u enters (the
+# hybrid spectra on it, against the golden file's analytic-profile ones);
+# the multi-l FFTLog transform 1e-12 of each row's scale (on k^{3/2} F,
+# the irfft's own output); the TNS rows below k = 1/Mpc, whose A/B
+# integrals carry the rounding of whichever order evaluates their
+# catastrophically cancelling kernels (tools/tns_spread.py), GATE_RN_TNS_LOW
+GATE_RN = 1e-10
+GATE_RN_FAST = 1e-5
+GATE_RN_FFT = 1e-12
+GATE_RN_TNS_LOW = 1e-2
 # the mass-function modes of config 1 by NFW tier: (fast, gate)
 MASSFN_TIERS = {"plain": (False, 1e-10), "fast": (True, 1e-5)}
 # a batched call against the port's own single calls, row by row: the same
@@ -1415,6 +1437,166 @@ def main() -> int:
     print(f"[cov_bispectrum] the phase's wall time "
           f"{time.perf_counter() - t_phase_v:.1f} s (host clock)")
 
+    # ---- phase 4h': exact C_ell, one loop, redshift space -----------------
+    from hmvec_tpu_torch.models import nonlimber as nlm
+    from hmvec_tpu_torch.ops.fftlog import fftlog_lnkr, fftlog_sphbessel_multi
+
+    t_phase_rn = time.perf_counter()
+    grn = np.load(GOLDEN_RN)
+    for key in ("zs", "ks", "ms", "ngal"):
+        check(np.array_equal(gc[key], grn[key]), f"golden files share {key}")
+    check(dict(zip(grn["param_names"].tolist(),
+                   map(float, grn["param_values"]))) == cosmo_c,
+          "the rsd_nonlimber golden file is at the bench cosmology")
+    check(launches["class"] == want_class, f"the build this phase runs on "
+          f"launched what the class phase counted: {launches['class']}")
+    ells_rn, gzs_rn, dndz_rn = grn["ells"], grn["gzs"], grn["gdndz"]
+    bias_rn, smag_rn, lzs_rn = map(float, grn["scalars"])
+    ks_rn = grn["rsd_ks"]
+    chis_rn = nlm.chi_loggrid()
+    fft_ells = tuple(int(l) for l in grn["fft_ells"])
+    fx_rn = torch.as_tensor(grn["fft_fx"], device=dev)
+    # an HOD whose satellites ride on the fast NFW profile: its P_gg is
+    # the hybrid C_gg's input through B1's output
+    hm.add_hod("g_fast", ngal=gc["ngal"], satellite_profile_name="nfw_fast")
+    pk0_rn = hm.P_lin(ks_np, [0.0])[0]
+    gal_rn = dict(bias=bias_rn)
+    rn_calls = {
+        "C_gg_exact": lambda h: h.C_gg_exact(
+            ells_rn, ks_np, pk0_rn, gzs_rn, dndz_rn, **gal_rn),
+        "C_gg_exact rsd smag": lambda h: h.C_gg_exact(
+            ells_rn, ks_np, pk0_rn, gzs_rn, dndz_rn, rsd=True, smag=smag_rn,
+            **gal_rn),
+        "C_kg_exact": lambda h: h.C_kg_exact(
+            ells_rn, ks_np, pk0_rn, gzs_rn, dndz_rn, lzs=lzs_rn, **gal_rn),
+        "C_kk_exact": lambda h: h.C_kk_exact(ells_rn, ks_np, pk0_rn,
+                                             lzs1=lzs_rn),
+        "C_gg_hybrid": lambda h: h.C_gg_hybrid(
+            ells_rn, ks_np, pk0_rn, zs, h.get_power("g"), gzs_rn, dndz_rn,
+            **gal_rn),
+        "C_gg_hybrid g_fast": lambda h: h.C_gg_hybrid(
+            ells_rn, ks_np, pk0_rn, zs, h.get_power("g_fast"), gzs_rn,
+            dndz_rn, **gal_rn),
+        "C_kk_hybrid": lambda h: h.C_kk_hybrid(
+            ells_rn, ks_np, pk0_rn, zs, h.get_power("nfw"), lzs1=lzs_rn,
+            lzs2=lzs_rn),
+        "C_kk_hybrid nfw_fast": lambda h: h.C_kk_hybrid(
+            ells_rn, ks_np, pk0_rn, zs, h.get_power("nfw_fast"),
+            lzs1=lzs_rn, lzs2=lzs_rn),
+        "P_mm_1loop": lambda h: h.P_mm_1loop(zs, ks_rn),
+        "P_mm_1loop ir_resum": lambda h: h.P_mm_1loop(zs, ks_rn,
+                                                      ir_resum=True),
+        "get_rsd_multipoles kaiser": lambda h: h.get_rsd_multipoles(
+            zs, ks_rn, b=bias_rn, model="kaiser"),
+        "get_rsd_multipoles scoccimarro": lambda h: h.get_rsd_multipoles(
+            zs, ks_rn, b=bias_rn, model="scoccimarro"),
+        "get_rsd_multipoles tns": lambda h: h.get_rsd_multipoles(
+            zs, ks_rn, b=bias_rn, model="tns"),
+        "get_galaxy_rsd_multipoles": lambda h: h.get_galaxy_rsd_multipoles(
+            "g"),
+        "fftlog_sphbessel_multi": lambda h: fftlog_sphbessel_multi(
+            fx_rn, chis_rn, fft_ells, lnkr=fftlog_lnkr(chis_rn, mu=0.5)),
+    }
+    # (output name, golden key, gate, the ks of a TNS row)
+    rn_golden = {
+        "C_gg_exact": [("", "c_gg", GATE_RN, None)],
+        "C_gg_exact rsd smag": [("", "c_gg_rsd_smag", GATE_RN, None)],
+        "C_kg_exact": [("", "c_kg", GATE_RN, None)],
+        "C_kk_exact": [("", "c_kk", GATE_RN, None)],
+        "C_gg_hybrid": [("", "c_gg_hybrid", GATE_RN, None)],
+        "C_gg_hybrid g_fast": [("", "c_gg_hybrid", GATE_RN_FAST, None)],
+        "C_kk_hybrid": [("", "c_kk_hybrid", GATE_RN, None)],
+        "C_kk_hybrid nfw_fast": [("", "c_kk_hybrid", GATE_RN_FAST, None)],
+        "P_mm_1loop": [("", "p1loop", GATE_RN, None)],
+        "P_mm_1loop ir_resum": [("", "p1loop_ir", GATE_RN, None)],
+        **{f"get_rsd_multipoles {m}": [
+            (ell, f"rsd_{m}_{ell}", GATE_RN, ks_rn if m == "tns" else None)
+            for ell in (0, 2, 4)] for m in ("kaiser", "scoccimarro", "tns")},
+        "get_galaxy_rsd_multipoles": [
+            (ell, f"galaxy_tns_{ell}", GATE_RN, ks_np) for ell in (0, 2, 4)],
+        "fftlog_sphbessel_multi": [("ks", "fft_ks", GATE_RN, None),
+                                   ("F", "fft_F", GATE_RN_FFT, None)],
+    }
+
+    def rn_err(got, want, tns_ks):
+        """(close_err at k >= 1/Mpc, close_err below it) on a TNS row, None
+        for a band without a k; (close_err, None) on any other row."""
+        if tns_ks is None:
+            return close_err(got, want), None
+        lo = np.asarray(tns_ks) < 1.0
+        return tuple(close_err(got[..., m], want[..., m]) if m.any() else None
+                     for m in (~lo, lo))
+
+    # the main path of the phase: the class phase's build, then the
+    # group's calls on it with the counts set to 0 just before and read
+    # just after
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res_rn = {what: fn(hm) for what, fn in rn_calls.items()}
+    torch.cuda.synchronize()
+    launches["rsd_nonlimber"] = read_counts()
+    rn_peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    check(not any(launches["rsd_nonlimber"].values()),
+          f"the rsd_nonlimber group's calls launch no kernel: "
+          f"{launches['rsd_nonlimber']}")
+    for what, outs in rn_golden.items():
+        res = res_rn[what]
+        for key, gkey, gate, tns_ks in outs:
+            if what == "fftlog_sphbessel_multi":
+                got = res[0] if key == "ks" else res[1]
+            else:
+                got = res if key == "" else res[key]
+            want = grn[gkey]
+            check(got.is_cuda and got.dtype == torch.float64
+                  and tuple(got.shape) == want.shape
+                  and bool(torch.isfinite(got).all()),
+                  f"rsd_nonlimber {what} {key} output")
+            g_np = got.cpu().numpy()
+            if key == "F":
+                dress = grn["fft_ks"] ** 1.5
+                e = float(np.max(np.abs(g_np - want) * dress
+                                 / np.max(np.abs(want) * dress, -1,
+                                          keepdims=True)))
+                e_lo = None
+            else:
+                e, e_lo = rn_err(g_np, want, tns_ks)
+            check(e is None or e <= gate, f"rsd_nonlimber {what} {key} vs "
+                  f"golden: {e!r} > {gate}")
+            check(e_lo is None or e_lo <= GATE_RN_TNS_LOW, f"rsd_nonlimber "
+                  f"{what} {key} below k = 1/Mpc vs golden: {e_lo!r} > "
+                  f"{GATE_RN_TNS_LOW}")
+            bands = []
+            if e is not None:
+                bands.append(f"{'at k >= 1/Mpc ' if tns_ks is not None else ''}"
+                             f"{e!r} (gate {gate})")
+            if e_lo is not None:
+                bands.append(f"below k = 1/Mpc {e_lo!r} (gate "
+                             f"{GATE_RN_TNS_LOW})")
+            print(f"[rsd_nonlimber] {what} {key} {tuple(got.shape)}: max "
+                  f"rel err vs the JAX class's golden {'; '.join(bands)}")
+    print(f"[rsd_nonlimber] the class build's launches {launches['class']}, "
+          f"the {len(rn_calls)} calls' {launches['rsd_nonlimber']}; peak "
+          f"{rn_peak:.1f} MiB allocated ({card})")
+    del res_rn
+    # latency, launches, host reads and peak memory of each entry point
+    rn_stats = {}
+    for what, fn in rn_calls.items():
+        n_l, n_sync = traced(lambda: fn(hm))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_v = host_ms(lambda: fn(hm), n=2, warmup=0)
+        peak_v = torch.cuda.max_memory_allocated(dev) / 2**20
+        rn_stats[what] = {"ms": t_v, "launches": n_l, "host_reads": n_sync,
+                          "peak_mib": peak_v}
+        print(f"[time] rsd_nonlimber {what}: {t_v!r} ms (host clock to "
+              f"synchronize, median of 2), {n_l} launches and {n_sync} host "
+              f"reads (torch.profiler), peak {peak_v:.1f} MiB allocated "
+              f"({card})")
+    print(f"[rsd_nonlimber] the phase's wall time "
+          f"{time.perf_counter() - t_phase_rn:.1f} s (host clock)")
+
     del hm, b4_in_c, u_b1, u_e, got_e, u2_e, idx_e, i0_e
     torch.cuda.empty_cache()
 
@@ -1862,6 +2044,7 @@ def main() -> int:
     print("[class] " + json.dumps(class_stats))
     print("[extensions] " + json.dumps(ext_stats))
     print("[cov_bispectrum] " + json.dumps(cov_stats))
+    print("[rsd_nonlimber] " + json.dumps(rn_stats))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

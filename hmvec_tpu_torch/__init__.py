@@ -42,7 +42,23 @@ from .models.shear import wigner_d_sum  # noqa: F401
 from .models.pairwise import (  # noqa: F401
     get_pairwise_ksz_snr, pairwise_ksz_errors, pairwise_ksz_signal,
     tau_aperture_battaglia)
-from .models.rsd import mean_pairwise_velocity  # noqa: F401
+from .models.rsd import (  # noqa: F401
+    correlation_multipoles, kaiser_multipole_factors, kaiser_pk_mu,
+    mean_pairwise_velocity, rsd_multipoles, scoccimarro_multipoles,
+    scoccimarro_pk_mu, sigma_v_lin)
+from .models.nonlimber import (  # noqa: F401
+    C_gg_exact, C_gg_hybrid, C_kg_exact, C_kk_exact, C_kk_hybrid,
+    bessel_deltas, bessel_deltas_j2pp, bessel_deltas_over_x2)
+from .models.spt import (  # noqa: F401
+    p1loop, p1loop_ir, p13, p13_dt, p13_tt, p22, p22_velocity, pgg_1loop,
+    pgm_1loop, pk_velocity_1loop, pt_bias_integrals)
+from .models.tns import (  # noqa: F401
+    tns_a_term, tns_ab_integrals, tns_b_term, tns_multipoles, tns_pk_mu,
+    tns_power)
+from .models.rsd_obs import (  # noqa: F401
+    ap_multipoles, ap_shift, multipole_covariance, multipole_snr,
+    threej000_sq, tns_pk_mu_points, window_convolve_multipoles,
+    window_coupling)
 from .models.power import (  # noqa: F401
     exclusion_correction, total_matter_galaxy_power_spectrum,
     total_matter_power_spectrum)
@@ -66,7 +82,7 @@ from .ops.quadrature import interp  # noqa: F401
 from .ops.sine_transform import (  # noqa: F401
     analytic_fft_integral, fft_integral, generic_profile_fft, uk_brute_force,
     uk_fft)
-from .ops.fftlog import correlation_function  # noqa: F401
+from .ops.fftlog import correlation_function, projected_correlation  # noqa: F401
 from .pipeline import (  # noqa: F401
     fisher_jacobian, make_batched_fn, make_electron_fn, make_hod_fn,
     make_ksz_snr_fn, make_ksz_survey_fn, make_lensing_cls_fn, make_pmm_fn)

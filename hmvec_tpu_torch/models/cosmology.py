@@ -35,6 +35,7 @@ from . import background as bgmod
 from . import distances_ext as dext
 from . import limber as limb
 from . import linear_power as lpm
+from . import nonlimber as nlm
 from .transfer import transfer_eh98
 
 _F64 = torch.float64
@@ -56,13 +57,8 @@ def _deferred(name: str, group: str):
 
 # Cosmology methods whose module is still in A9, by group
 DEFERRED = {
-    "P_mm_1loop": "spt",
-    "get_rsd_multipoles": "rsd/tns/spt",
     "C_II": "ia", "C_kI": "ia", "C_gI": "ia", "shear_cls_with_ia": "ia",
     "C_gg_mag": "ia", "C_kg_mag": "ia",
-    "C_gg_exact": "fftlog/nonlimber", "C_kg_exact": "fftlog/nonlimber",
-    "C_gg_hybrid": "fftlog/nonlimber", "C_kk_hybrid": "fftlog/nonlimber",
-    "C_kk_exact": "fftlog/nonlimber",
     "get_cmb_cls": "boltz/lensed", "cmb_lensing_kk_exact": "boltz/lensed",
 }
 
@@ -262,6 +258,100 @@ class Cosmology:
         finally:
             self.halofit = old
 
+    def P_mm_1loop(self, zs, ks, n_q=512, n_x=256, n_q13=1024,
+                   qmin=1e-4, qmax=1e2, ir_resum=False):
+        """One-loop SPT matter power P_lin + P22 + P13 (models/spt.py) on
+        (zs, ks).  The loops are evaluated once at z = 0 and scaled by
+        D(z)^4; ir_resum=True applies the IR resummation of the BAO
+        wiggles (spt.p1loop_ir, the wiggles split against the EH98
+        zero-baryon template) at each z."""
+        from . import spt
+        from .transfer import _eh_scales
+        zs = torch.atleast_1d(self._t(zs))
+        ks = self._t(ks)
+        ks_tab = np.geomspace(1e-5, 1e3, 1200)
+        if not ir_resum:
+            pk0 = self.P_lin(ks_tab, [0.0])[0]
+            loops0 = (spt.p22(ks, ks_tab, pk0, n_q=n_q, n_x=n_x,
+                              qmin=qmin, qmax=qmax)
+                      + spt.p13(ks, ks_tab, pk0, n_q=n_q13,
+                                qmin=qmin, qmax=qmax))
+            Plin = self.P_lin(ks, zs)
+            D = self.D_growth(1.0 / (1.0 + zs))
+            D0 = self.D_growth(1.0)
+            return Plin + ((D / D0) ** 4)[:, None] * loops0[None, :]
+        sc = _eh_scales(self.bg)
+        ell_bao = sc["sh_d"] / sc["h"]
+        tmpl = lpm.plin_approx(self.bg, self._t([0.0]), self._t(ks_tab),
+                               "eisenhu", growth_mode=self.growth_mode)[0]
+        pk_z = self.P_lin(ks_tab, zs)                       # (nz, nkt)
+        rows = [spt.p1loop_ir(ks, ks_tab, pk_z[i], tmpl, ell_bao,
+                              n_q=n_q, n_x=n_x, n_q13=n_q13,
+                              qmin=qmin, qmax=qmax)
+                for i in range(zs.shape[0])]
+        return torch.stack(rows, dim=0)
+
+    def get_rsd_multipoles(self, zs, ks, b=1.0, model="tns",
+                           sigma_v=None, fog="gaussian", ells=(0, 2, 4),
+                           n_mu=32, n_q=256, n_x=128, n_q13=512,
+                           qmin=1e-4, qmax=1e2):
+        """Redshift-space power multipoles P_ell(k, z), {ell: (nz, nk)}.
+
+        model: 'kaiser' (linear), 'scoccimarro' (the nonlinear Kaiser
+        bracket on the one-loop density/velocity spectra) or 'tns' (with
+        the A/B terms).  f(z) is the growth rate; every loop ingredient
+        is computed once at z = 0 and carried to each z by powers of
+        D(z)/D(0) (P_lin ~ D^2, the loops and A/B ~ D^4).  b: linear
+        bias, scalar or (nz,); sigma_v: the FoG scale in Mpc, scalar,
+        (nz,) or None (f(z) D(z) sigma_v_lin(z = 0))."""
+        from . import rsd, spt, tns
+        zs = torch.atleast_1d(self._t(zs))
+        ks = self._t(ks)
+        nz = zs.shape[0]
+        a = 1.0 / (1.0 + zs)
+        Dz = self.D_growth(a) / self.D_growth(1.0)
+        fz = self.get_growth_rate_f(zs).expand(nz)
+        bz = self._t(b).expand(nz)
+        ks_tab = np.geomspace(1e-5, 1e3, 1200)
+        pk0 = self.P_lin(ks_tab, [0.0])[0]
+        if sigma_v is None:
+            sv = fz * Dz * rsd.sigma_v_lin(ks_tab, pk0)
+        else:
+            sv = self._t(sigma_v).expand(nz)
+        if model == "kaiser":
+            Plin = self.P_lin(ks, zs)                      # (nz, nk)
+            return rsd.rsd_multipoles(ks, Plin, bz, fz, sigma_v=sv,
+                                      ells=ells, fog=fog, n_mu=n_mu)
+        lnkt = torch.log(self._t(ks_tab))
+        Plin0 = spt._pk_eval(lnkt, torch.log(pk0), ks)     # (nk,)
+        pv0 = spt.pk_velocity_1loop(ks, ks_tab, pk0, n_q=n_q, n_x=n_x,
+                                    n_q13=n_q13, qmin=qmin, qmax=qmax)
+        loops0 = {ab: pv0[ab] - Plin0 for ab in ("dd", "dt", "tt")}
+        D2 = Dz[:, None] ** 2
+        D4 = Dz[:, None] ** 4
+        pz = {ab: D2 * Plin0[None, :] + D4 * loops0[ab][None, :]
+              for ab in ("dd", "dt", "tt")}
+        if model == "scoccimarro":
+            return rsd.scoccimarro_multipoles(
+                ks, pz["dd"], pz["dt"], pz["tt"], bz, fz, sigma_v=sv,
+                ells=ells, fog=fog, n_mu=n_mu)
+        if model != "tns":
+            raise ValueError(f"model {model!r}: expected 'kaiser', "
+                             "'scoccimarro' or 'tns'")
+        ab0 = tns.tns_ab_integrals(ks, ks_tab, pk0, n_q=n_q, n_x=n_x,
+                                   qmin=qmin, qmax=qmax)
+        rows = []
+        for i in range(nz):
+            abz = {"A": {k_: Dz[i] ** 4 * v for k_, v in
+                         ab0["A"].items()},
+                   "B": {k_: Dz[i] ** 4 * v for k_, v in
+                         ab0["B"].items()}}
+            rows.append(tns.tns_multipoles(
+                ks, pz["dd"][i], pz["dt"][i], pz["tt"][i], bz[i], fz[i],
+                abz, sigma_v=sv[i], ells=ells, fog=fog, n_mu=n_mu))
+        return {ell: torch.stack([r[ell] for r in rows], dim=0)
+                for ell in ells}
+
     def get_pk_interpolator(self, zs, kmax, var="weyl", nonlinear=False,
                             return_z_k=False, k_per_logint=None,
                             log_interp=True, extrap_kmax=None):
@@ -375,6 +465,31 @@ class Cosmology:
 
     def C_yy(self, ells, zs, ks, Ppp, **kw):
         return limb.C_yy(self.bg, ells, zs, ks, Ppp, **kw)
+
+    # ---- exact (non-Limber) linear projections (the nonlimber module) ----
+    def C_gg_exact(self, ells, ks, pk0, gzs, gdndz, **kw):
+        """Exact low-ell linear galaxy C_l (models/nonlimber.py)."""
+        kw.setdefault("growth_mode", self.growth_mode)
+        return nlm.C_gg_exact(self.bg, ells, ks, pk0, gzs, gdndz, **kw)
+
+    def C_kg_exact(self, ells, ks, pk0, gzs, gdndz, **kw):
+        kw.setdefault("growth_mode", self.growth_mode)
+        return nlm.C_kg_exact(self.bg, ells, ks, pk0, gzs, gdndz, **kw)
+
+    def C_kk_exact(self, ells, ks, pk0, **kw):
+        kw.setdefault("growth_mode", self.growth_mode)
+        return nlm.C_kk_exact(self.bg, ells, ks, pk0, **kw)
+
+    def C_gg_hybrid(self, ells, ks, pk0, zs_nl, pzk_nl, gzs, gdndz, **kw):
+        """Exact-low-ell + Limber-high-ell galaxy spectrum of a full
+        nonlinear P_gg (models/nonlimber.C_gg_hybrid)."""
+        return nlm.C_gg_hybrid(self.bg, ells, ks, pk0, zs_nl, pzk_nl,
+                               gzs, gdndz, **kw)
+
+    def C_kk_hybrid(self, ells, ks, pk0, zs_nl, pzk_nl, **kw):
+        """Exact-low-ell + Limber-high-ell convergence spectrum of a full
+        nonlinear P_mm (models/nonlimber.C_kk_hybrid)."""
+        return nlm.C_kk_hybrid(self.bg, ells, ks, pk0, zs_nl, pzk_nl, **kw)
 
     def get_Omega_nu(self):
         """Massive-neutrino density fraction."""

@@ -18,9 +18,10 @@ background.  The host keeps numpy copies of the grids (``zs_np``,
 Covariances (``models/cov.py``), cluster counts through a Y-M relation
 (``models/cluster_counts.py``), bispectra (``models/bispectrum.py``) and
 the pairwise-kSZ ingredients (``models/pairwise.py``) run on the
-registered profiles and launch no kernel of their own.  The one method
-whose module is still to be ported raises NotImplementedError naming its
-group of ROADMAP A9 (``DEFERRED``).
+registered profiles and launch no kernel of their own, as do the
+redshift-space multipoles of an HOD tracer
+(``get_galaxy_rsd_multipoles``, on models/spt.py and models/tns.py).
+``DEFERRED`` is empty: every method of the JAX class is ported.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ _HOD_PARAM_KEYS = [
 ]
 
 # HaloModel methods whose module is still in A9, by group
-DEFERRED = {"get_galaxy_rsd_multipoles": "rsd/tns/spt"}
+DEFERRED = {}
 
 # the y-units of the pressure profile: Thomson cross-section [m^2],
 # electron mass [Msun] and c [m/s]
@@ -543,6 +544,17 @@ class HaloModel(Cosmology):
             tb2 = him.mean_brightness_temp_mk(
                 self.zs, ez, self.get_omega_hi(name2), self.h)
         return (tb1 * tb2)[:, None] * self.get_power(name, name2)
+
+    def get_galaxy_rsd_multipoles(self, hod_name, ks=None, model="tns",
+                                  **kw):
+        """Redshift-space multipoles of a registered HOD tracer: its
+        linear bias b_g(z) from the HOD mass integral, f(z) from the
+        growth rate, the PT ingredients by ``get_rsd_multipoles`` (model
+        'kaiser', 'scoccimarro' or 'tns'); ks defaults to the model grid.
+        Returns {ell: (nz, nk)}."""
+        bg = self.hods[hod_name]["bg"]
+        ks = self.ks if ks is None else ks
+        return self.get_rsd_multipoles(self.zs, ks, b=bg, model=model, **kw)
 
     # ---- spectra ----
     def get_power_1halo(self, name="nfw", name2=None):

@@ -34,6 +34,8 @@ derivative of their own, as in the JAX package's ``_pair_lerp_tpu_jvp``).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..models.profiles import nfw_uk_x
@@ -45,18 +47,40 @@ _MAX_GRID_Y = 65535
 _UK_KS = 128            # k per block, csrc/nfw_kernels.cu kUkK * kUkTiles
 
 
+@contextlib.contextmanager
+def _calling_thread(t):
+    """On CPU tensors, the block runs in the calling thread alone (torch's
+    intra-op pool set to one thread, then restored).  torch evaluates
+    float64 sin/cos/log on the CPU through MKL's vector math, split
+    between its OpenMP threads, and once a second thread's share of a
+    process's first such call came out at MKL's low-accuracy level (~1e-8
+    relative, tools/vml_ep_repro.py); in one thread the plain version is
+    the same whatever the thread count."""
+    if t.device.type != "cpu":
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def nfw_uk_plain(ks, scales, cs):
     """u(k | row), shape (B, nk), from ks (nk,), scales = r_s (1+z) (B,) and
     concentrations cs (B,): profiles.nfw_uk_x on the (B, nk) grid."""
-    return nfw_uk_x(ks[None, :] * scales[:, None], cs[:, None])
+    with _calling_thread(ks):
+        return nfw_uk_x(ks[None, :] * scales[:, None], cs[:, None])
 
 
 def nfw_contract_plain(ks, scales, cs, a, b):
     """(S1, S2), each (nz, nk): S1 = sum_m a u^2, S2 = sum_m b u, with u on
     the (nz, nm, nk) grid from scales, cs, a, b of shape (nz, nm)."""
-    u = nfw_uk_x(ks[None, None, :] * scales[..., None], cs[..., None])
-    return (torch.einsum("zm,zmk->zk", a, u**2),
-            torch.einsum("zm,zmk->zk", b, u))
+    with _calling_thread(ks):
+        u = nfw_uk_x(ks[None, None, :] * scales[..., None], cs[..., None])
+        return (torch.einsum("zm,zmk->zk", a, u**2),
+                torch.einsum("zm,zmk->zk", b, u))
 
 
 def _partials(ks, scales, cs):
@@ -67,8 +91,9 @@ def _partials(ks, scales, cs):
     s = scales.detach()[..., None].expand(shape)
     c = cs.detach()[..., None].expand(shape)
     k = ks.detach()
-    u, vjp = torch.func.vjp(lambda s_, c_: nfw_uk_x(k * s_, c_), s, c)
-    du_ds, du_dc = vjp(torch.ones_like(u))
+    with _calling_thread(k):
+        u, vjp = torch.func.vjp(lambda s_, c_: nfw_uk_x(k * s_, c_), s, c)
+        du_ds, du_dc = vjp(torch.ones_like(u))
     return u, du_ds, du_dc
 
 

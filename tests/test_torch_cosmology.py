@@ -65,24 +65,8 @@ NOT_PORTED = {
         "lens_cls_flat_sky_resummed", "lens_cls_flat_sky", "white_noise_nl",
         "total_cl_tt", "n0_flat_sky", "n0_minimum_variance",
         "n0_kappa_from_phi", "lensed_bb_from_ee", "n0_eb_iterative",
-        "n0_tt_fullsky", "threej000_sq", "n1_tt_flat_sky",
+        "n0_tt_fullsky", "n1_tt_flat_sky",
         "n0_pair_flat_sky", "n0_cross_flat_sky", "n0_mv_flat_sky"),
-    "fftlog/nonlimber": ("C_gg_exact", "C_kg_exact", "C_kk_exact",
-                         "C_gg_hybrid", "C_kk_hybrid", "bessel_deltas",
-                         "bessel_deltas_j2pp", "bessel_deltas_over_x2",
-                         "projected_correlation"),
-    "rsd/tns/spt": ("p1loop", "p22", "p13", "p1loop_ir",
-                    "pt_bias_integrals", "pgg_1loop", "pgm_1loop",
-                    "pk_velocity_1loop", "p22_velocity", "p13_dt", "p13_tt",
-                    "kaiser_pk_mu", "rsd_multipoles",
-                    "kaiser_multipole_factors", "correlation_multipoles",
-                    "sigma_v_lin",
-                    "scoccimarro_pk_mu", "scoccimarro_multipoles",
-                    "tns_ab_integrals", "tns_a_term", "tns_b_term",
-                    "tns_pk_mu", "tns_multipoles", "tns_power",
-                    "tns_pk_mu_points", "ap_shift", "ap_multipoles",
-                    "multipole_covariance", "multipole_snr",
-                    "window_coupling", "window_convolve_multipoles"),
     "boltz": ("BoltzEngine", "rs_drag_integral"),
     "emulator": ("Emulator", "fit_emulator", "pipeline_target",
                  "save_emulator", "load_emulator", "sample_params"),

@@ -194,7 +194,11 @@ def _jit(fn, *args, host_grids=True):
 # ---- the refusal list --------------------------------------------------------
 
 def test_the_group_leaves_only_rsd_deferred():
-    assert thm.DEFERRED == {"get_galaxy_rsd_multipoles": "rsd/tns/spt"}
+    """This group's methods answer; the last one that was left
+    (get_galaxy_rsd_multipoles, tests/test_torch_rsd.py) answers too."""
+    assert thm.DEFERRED == {}
+    assert not hasattr(thm.HaloModel.get_galaxy_rsd_multipoles,
+                       "deferred_group")
     for meth in PORTED:
         assert callable(getattr(jhm.HaloModel, meth)), meth
         assert not hasattr(getattr(thm.HaloModel, meth), "deferred_group")

@@ -70,13 +70,13 @@ PORTED = {
                   "kappa_2h_profiles"),
 }
 STILL_DEFERRED = {
-    "Cosmology": {"P_mm_1loop", "get_rsd_multipoles", "C_II", "C_kI", "C_gI",
-                  "shear_cls_with_ia", "C_gg_mag", "C_kg_mag", "C_gg_exact",
-                  "C_kg_exact", "C_gg_hybrid", "C_kk_hybrid", "C_kk_exact",
-                  "get_cmb_cls", "cmb_lensing_kk_exact"},
+    # the exact C_ell, one-loop and redshift-space methods are held by
+    # tests/test_torch_nonlimber.py and tests/test_torch_rsd.py
+    "Cosmology": {"C_II", "C_kI", "C_gI", "shear_cls_with_ia", "C_gg_mag",
+                  "C_kg_mag", "get_cmb_cls", "cmb_lensing_kk_exact"},
     # the covariance group's 11 methods are held by
     # tests/test_torch_cov_bispectrum.py (PORTED there)
-    "HaloModel": {"get_galaxy_rsd_multipoles"},
+    "HaloModel": set(),
 }
 
 

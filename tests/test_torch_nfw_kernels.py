@@ -97,6 +97,61 @@ def test_plain_matches_jax_analytic(sweep):
     assert np.abs(got - want[rows][:, cols]).max() <= 1e-12
 
 
+_FIRST_CALL = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(int(sys.argv[1]))
+from hmvec_tpu_torch.ops import nfw_kernels as nk
+a = np.load(sys.argv[2])
+u = nk.nfw_uk_plain(*(torch.as_tensor(a[k]) for k in ("ks", "s", "c")))
+np.save(sys.argv[3], u.numpy())
+"""
+
+
+def test_plain_is_the_same_in_any_thread_setting(tmp_path):
+    """The random sweep's plain u, bit for bit, under 1, 2 and 4 torch
+    threads, row by row, among other rows, and as the first math of a
+    fresh process with two threads.  Once, in a full run, this sweep came
+    out 6.9e-9 from the JAX profile (1e-12 gate): the second OpenMP
+    thread's half of the profile's first sin, the process's first call of
+    MKL's vector sin, was at MKL's low-accuracy (VML_EP) level
+    (tools/vml_ep_repro.py reproduces that run's numbers to the last
+    digit).  The plain version now runs in the calling thread.  Each run
+    equals the JAX float64 profile within 1e-12."""
+    import subprocess
+    import sys
+
+    name, zs, cs, rss, ks = SWEEPS[0]
+    scales, c = _rows(zs, cs, rss)
+    want, take = _analytic_on_union()
+    rows, cols = take[name]
+    old = torch.get_num_threads()
+    try:
+        runs = {}
+        for n in (1, 2, 4):
+            torch.set_num_threads(n)
+            runs[f"threads{n}"] = nk.nfw_uk_plain(_t(ks), _t(scales),
+                                                  _t(c)).numpy()
+    finally:
+        torch.set_num_threads(old)
+    runs["by row"] = np.concatenate([
+        nk.nfw_uk_plain(_t(ks), _t(scales[i:i + 1]), _t(c[i:i + 1])).numpy()
+        for i in range(c.size)])
+    big = nk.nfw_uk_plain(_t(ks), _t(np.tile(scales, 9)), _t(np.tile(c, 9)))
+    runs["among others"] = big.numpy()[-c.size:]
+    np.savez(tmp_path / "in.npz", ks=ks, s=scales, c=c)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    subprocess.run([sys.executable, "-c", _FIRST_CALL, "2",
+                    str(tmp_path / "in.npz"), str(tmp_path / "u.npy")],
+                   check=True, cwd=root, timeout=120,
+                   env={**__import__("os").environ, "PYTHONPATH": str(root)})
+    runs["fresh process"] = np.load(tmp_path / "u.npy")
+    ref = runs["threads1"]
+    for what, u in runs.items():
+        np.testing.assert_array_equal(u, ref, err_msg=what)
+    assert np.abs(ref - want[rows][:, cols]).max() <= 1e-12
+
 def _union(sweeps):
     """The rows of several sweeps stacked, on the union of their ks, and
     for each sweep the slices that take its own rows and ks back out: one

@@ -92,11 +92,25 @@ get_mean_compton_y, get_tau_aperture(theta_arcmin=1.6); get_pairwise_ksz_snr
 at the z nearest 0.5; C_yy on ells 2..2000 and its angular_correlation on
 16 angles (~3 min).
 
+--config rsd_nonlimber: the exact C_ell, one-loop and redshift-space
+group through the JAX class at config 1's width and the bench cosmology,
+on the README example's build (its HOD "g") -> hmvec_tpu_torch/data/
+rsd_nonlimber_config1_golden.npz with C_gg_exact (and with RSD and
+magnification), C_kg_exact and C_kk_exact (CMB lensing) on the default
+2048-point chi grid at ells 2..200; C_gg_hybrid on get_power("g") and
+C_kk_hybrid on get_power("nfw"); P_mm_1loop at its defaults, with and
+without the IR resummation, and get_rsd_multipoles for the kaiser,
+scoccimarro and tns models, on the build's 20 z and 100 ks in
+[0.01, 0.3]; get_galaxy_rsd_multipoles("g") (tns, the class defaults) on
+the build's 1001 ks; and fftlog_sphbessel_multi of the galaxy kernel at
+four ells, with its input (~2 min).  Every JAX call is one compiled
+program.
+
 The machine with the GPU has no JAX, so chip_smoke.py compares the port
 against these files.  Each run writes only its own file.
 
 Run from the repository root:
-    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x|v]
+    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x|v|rsd_nonlimber]
 """
 
 from __future__ import annotations
@@ -120,7 +134,8 @@ OUT = {"1": DATA / "pmm_config1_golden.npz",
        "m": DATA / "pmm_massfn_golden.npz",
        "c": DATA / "class_config1_golden.npz",
        "x": DATA / "extensions_config1_golden.npz",
-       "v": DATA / "cov_bispectrum_config1_golden.npz"}
+       "v": DATA / "cov_bispectrum_config1_golden.npz",
+       "rsd_nonlimber": DATA / "rsd_nonlimber_config1_golden.npz"}
 NXS, XMAX = 4096, 20          # bench.py config 2
 NGAL = 1e-4                   # bench.py config 3, per z
 ELLS, ZSOURCE = np.geomspace(30, 3000, 60), 1100.0   # bench.py config 4
@@ -427,6 +442,86 @@ def write_cov_bispectrum_golden(zs, ms, ks):
                                         dtype=np.float64), **out)
 
 
+# the rsd_nonlimber phase of chip_smoke.py: the multipoles, the galaxy
+# sample and lensing source of the exact C_ell, the loops' ks, the bias
+RN_ELLS = np.arange(2, 201)
+RN_GZS = np.linspace(0.05, 2.0, 100)
+RN_GDNDZ = np.exp(-0.5 * ((RN_GZS - 0.7) / 0.25) ** 2)
+RN_BIAS, RN_SMAG, RN_LZS = 1.8, 0.4, 1100.0
+RN_KS = np.geomspace(0.01, 0.3, 100)
+RN_FFT_ELLS = (2, 10, 50, 200)
+
+
+def write_rsd_nonlimber_golden(zs, ms, ks):
+    """The exact C_ell, one-loop and redshift-space group through the JAX
+    class API at the bench cosmology, on the README example's build."""
+    import jax
+    import jax.numpy as jnp
+    import hmvec_tpu as hm
+    from hmvec_tpu.models import nonlimber as jnl
+    from hmvec_tpu.ops import fftlog as jfft
+
+    def jit(fn):
+        def body():
+            with jax.ensure_compile_time_eval():
+                return fn()
+        return jax.jit(body)()
+
+    ngal = np.full(zs.size, NGAL)
+    hcos = hm.HaloModel(zs, ks, ms=ms, params=BENCH_OVERRIDES)
+    hcos.add_battaglia_profile("e", family="AGN")
+    hcos.add_battaglia_pres_profile("y")
+    hcos.add_hod("g", ngal=ngal)
+    pk0 = np.asarray(hcos.P_lin(ks, np.array([0.0]))[0])
+    pgg = np.asarray(hcos.get_power("g"))
+    pmm = np.asarray(hcos.get_power("nfw"))
+    chis = jnl.chi_loggrid()
+    ells = RN_ELLS
+    gal = dict(bias=RN_BIAS)
+    out = {}
+    out["c_gg"], out["c_gg_rsd_smag"], out["c_kg"], out["c_kk"] = jit(
+        lambda: (hcos.C_gg_exact(ells, ks, pk0, RN_GZS, RN_GDNDZ, **gal),
+                 hcos.C_gg_exact(ells, ks, pk0, RN_GZS, RN_GDNDZ, rsd=True,
+                                 smag=RN_SMAG, **gal),
+                 hcos.C_kg_exact(ells, ks, pk0, RN_GZS, RN_GDNDZ,
+                                 lzs=RN_LZS, **gal),
+                 hcos.C_kk_exact(ells, ks, pk0, lzs1=RN_LZS)))
+    out["c_gg_hybrid"], out["c_kk_hybrid"] = jit(
+        lambda: (hcos.C_gg_hybrid(ells, ks, pk0, zs, pgg, RN_GZS, RN_GDNDZ,
+                                  **gal),
+                 hcos.C_kk_hybrid(ells, ks, pk0, zs, pmm, lzs1=RN_LZS,
+                                  lzs2=RN_LZS)))
+    out["p1loop"], out["p1loop_ir"] = jit(
+        lambda: (hcos.P_mm_1loop(zs, RN_KS),
+                 hcos.P_mm_1loop(zs, RN_KS, ir_resum=True)))
+    for model in ("kaiser", "scoccimarro", "tns"):
+        mp = jit(lambda: hcos.get_rsd_multipoles(zs, RN_KS, b=RN_BIAS,
+                                                 model=model))
+        for ell, v in mp.items():
+            out[f"rsd_{model}_{ell}"] = v
+    mp = jit(lambda: hcos.get_galaxy_rsd_multipoles("g"))
+    for ell, v in mp.items():
+        out[f"galaxy_tns_{ell}"] = v
+    # the multi-l transform of the galaxy kernel as bessel_deltas feeds it
+    phi = jit(lambda: jnl.galaxy_kernel(hcos.bg, chis, RN_GZS, RN_GDNDZ,
+                                        RN_BIAS))
+    fx = np.asarray(phi) * jnl._edge_taper(chis.size, 0.03) / chis**2
+    out["fft_fx"] = fx
+    out["fft_ks"], out["fft_F"] = jax.jit(
+        lambda f: jfft.fftlog_sphbessel_multi(
+            f, chis, RN_FFT_ELLS, lnkr=jfft.fftlog_lnkr(chis, mu=0.5)))(fx)
+    out = {k: np.asarray(v, dtype=np.float64) for k, v in out.items()}
+    for k, v in out.items():
+        print(f"{k}{v.shape}: flat[0] = {v.flat[0]!r}")
+    return dict(zs=zs, ms=ms, ks=ks, ngal=ngal, ells=ells, gzs=RN_GZS,
+                gdndz=RN_GDNDZ,
+                scalars=np.asarray([RN_BIAS, RN_SMAG, RN_LZS]),
+                rsd_ks=RN_KS, fft_ells=np.asarray(RN_FFT_ELLS),
+                param_names=np.asarray(list(BENCH_OVERRIDES)),
+                param_values=np.asarray(list(BENCH_OVERRIDES.values()),
+                                        dtype=np.float64), **out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(OUT), default="1")
@@ -446,7 +541,7 @@ def main():
             ("omch2", "As")), **write_batch_golden(jpl, jnp, zs, ms, ks))
         print(f"wrote {path.relative_to(REPO)} ({path.stat().st_size} bytes)")
         return
-    if args.config in ("5", "m", "c", "x", "v"):
+    if args.config in ("5", "m", "c", "x", "v", "rsd_nonlimber"):
         if args.config == "5":
             arrays = write_ksz_golden(jpl, jnp)
         elif args.config == "c":
@@ -455,6 +550,8 @@ def main():
             arrays = write_extensions_golden(zs, ms, ks)
         elif args.config == "v":
             arrays = write_cov_bispectrum_golden(zs, ms, ks)
+        elif args.config == "rsd_nonlimber":
+            arrays = write_rsd_nonlimber_golden(zs, ms, ks)
         else:
             arrays = dict(zs=zs, ms=ms, ks=ks,
                           **write_massfn_golden(jpl, jnp, zs, ms, ks))
