@@ -60,7 +60,18 @@ profile), P_mm_1loop with and without the IR resummation, the Kaiser,
 Scoccimarro and TNS multipoles of get_rsd_multipoles at 20 z x 100 k,
 get_galaxy_rsd_multipoles on the build's 1001 k, and the multi-l FFTLog
 transform in complex128, against its golden file, with each entry point's
-latency, launches, host reads and peak memory.  The extensions phase drives the
+latency, launches, host reads and peak memory.  The lensing phase drives the
+weak- and CMB-lensing group on the same build, with no kernel launch in
+its calls: the intrinsic-alignment and magnification spectra (also on the
+fast NFW profile), xi_+/-, gamma_t and their Gaussian covariance, the
+MASTER chain (coupling matrices for spins 00, 02, 22, couple, bin,
+decouple, the NKA covariance), the resummed and first-order lensed CMB
+spectra, the quadratic-estimator N0 family, N0 full sky, N1, iterative EB
+delensing, threej000_sq and the tabulated CMB spectra, against its golden
+file, with each entry point's latency, launches and host reads (CardOps,
+a count of aten operations on the card) and peak memory; then the float64
+resample kernel at the three 4,000-row tables beside an empty launch.
+The extensions phase drives the
 first extension group through the class API at config 1's width:
 HaloModel(halofit="mead") (HMcode-2016), CIB tracers at 545 and 217 GHz
 and an HI tracer on the fast NFW profile, the Battaglia pressure profile,
@@ -81,7 +92,8 @@ and the NFW kernels' occupancy and waves at config 1, and it holds each
 kernel against its plain version: the NFW kernels at config 1 and on
 adversarial rows, among them inputs that put x and (1+c)x on the Si/Ci
 domain edges inside single warps; the contraction also against itself on
-a second call (bit for bit).  With the NFW kernels' device times it
+a second call (bit for bit) and at 70,000 redshifts, more than a grid's
+y dimension holds.  With the NFW kernels' device times it
 prints each one's bare launch (its ctypes call into preallocated outputs)
 beside the wrapper call.
 
@@ -114,6 +126,7 @@ import time
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DATA = ROOT / "hmvec_tpu_torch" / "data"
@@ -129,6 +142,8 @@ GOLDEN_C = DATA / "class_config1_golden.npz"
 GOLDEN_X = DATA / "extensions_config1_golden.npz"
 GOLDEN_V = DATA / "cov_bispectrum_config1_golden.npz"
 GOLDEN_RN = DATA / "rsd_nonlimber_config1_golden.npz"
+GOLDEN_LC = DATA / "lensing_cmb_golden.npz"
+FIXTURE_CMB = ROOT / "tests" / "fixtures" / "camb_table_fixture.npz"
 
 # kernel vs plain version on the card (absolute on u; relative on S1, S2;
 # the resample kernel repeats the plain version's float64 operations in
@@ -194,6 +209,21 @@ GATE_RN = 1e-10
 GATE_RN_FAST = 1e-5
 GATE_RN_FFT = 1e-12
 GATE_RN_TNS_LOW = 1e-2
+# the weak- and CMB-lensing group (tools/gen_torch_golden.py --config
+# lensing) on the README example's build: 1e-10 element by element; 1e-5
+# where the fast NFW profile's u enters (the shear spectra on it); 1e-10 of
+# the row's largest value for the Wigner-d sums (xi_+/-, gamma_t, their
+# covariance) and lensed_cf (its J2-J6 come from an upward recurrence,
+# absolute error at the seeds' ~1e-13); 1e-9 for threej000_sq and
+# n0_tt_fullsky (3j^2 through log-gamma sums of ~4e4, whose absolute
+# rounding exp turns into relative error); n0_eb_iterative's iteration
+# count equal to JAX's
+GATE_LC = 1e-10
+GATE_LC_FAST = 1e-5
+GATE_LC_ROW = 1e-10
+GATE_LC_3J = 1e-9
+# nfw_contract beyond gridDim.y's 65,535: redshifts on gridDim.x (C13)
+C13_NZ, C13_NM, C13_NK = 70_000, 200, 16
 # the mass-function modes of config 1 by NFW tier: (fast, gate)
 MASSFN_TIERS = {"plain": (False, 1e-10), "fast": (True, 1e-5)}
 # a batched call against the port's own single calls, row by row: the same
@@ -475,6 +505,59 @@ def close_err(got, want):
     return float(np.max(np.abs(got - want) / scale))
 
 
+def row_err(got, want):
+    """Max error along the last axis relative to the row's largest
+    |want|."""
+    got, want = np.atleast_1d(got), np.atleast_1d(want)
+    scale = np.max(np.abs(want), -1, keepdims=True)
+    return float(np.max(np.abs(got - want) / np.where(scale > 0, scale, 1)))
+
+
+class CardOps(TorchDispatchMode):
+    """Counts, far more cheaply than torch.profiler's traces, the aten
+    operations that write a tensor on the card (one kernel launch each,
+    give or take: a view writes nothing and launches nothing; a matmul may
+    launch more than one kernel) and the host reads (a tensor's value
+    copied from the card: .item(), float(), a copy to the CPU).  The port's
+    own kernels are ctypes calls, not aten operations: their wrappers
+    count them."""
+
+    def __init__(self):
+        super().__init__()
+        self.launches = 0
+        self.host_reads = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        ins = [a for a in args if isinstance(a, torch.Tensor)]
+        if func is torch.ops.aten._local_scalar_dense.default:
+            self.host_reads += 1
+        elif func in (torch.ops.aten._to_copy.default,
+                      torch.ops.aten.copy_.default) and any(
+                t.is_cuda for t in ins) and any(
+                not t.is_cuda for t in (out if isinstance(out, (list, tuple))
+                                        else [out])
+                if isinstance(t, torch.Tensor)):
+            self.host_reads += 1
+        elif not any(r.alias_info is not None and not r.alias_info.is_write
+                     for r in func._schema.returns):
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            if any(isinstance(t, torch.Tensor) and t.is_cuda
+                   and t.numel() > 0 for t in outs):
+                self.launches += 1
+        return out
+
+
+def card_ops(fn):
+    """(launches, host reads) of one call of fn, by CardOps."""
+    torch.cuda.synchronize()
+    with CardOps() as ops:
+        fn()
+    torch.cuda.synchronize()
+    return ops.launches, ops.host_reads
+
+
 def joint_err(got, want, nb):
     """close_err on each block of a joint (counts, C_ell) covariance with
     nb count bins: the counts block, the counts x C_ell block (a row per
@@ -675,6 +758,37 @@ def main() -> int:
           "nfw_contract gives the same bits on a second call")
     print("[kernel] nfw_contract: a second call on config1 gives the same "
           "bits")
+    # more redshifts than gridDim.y's 65,535 (C13): scales and
+    # concentrations drawn log-uniform over config 1's ranges, positive
+    # weights; the plain version in slices of 2,000 redshifts
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def log_uniform(t, shape):
+        lo, hi = math.log(t.min().item()), math.log(t.max().item())
+        return torch.exp(lo + (hi - lo) * torch.rand(
+            shape, generator=gen, device=dev, dtype=torch.float64))
+
+    k_c13 = torch.exp(torch.linspace(math.log(ks_np[0]), math.log(ks_np[-1]),
+                                     C13_NK, dtype=torch.float64, device=dev))
+    s_c13 = log_uniform(scales, (C13_NZ, C13_NM))
+    c_c13 = log_uniform(cs, (C13_NZ, C13_NM))
+    a_c13, b_c13 = (torch.rand((C13_NZ, C13_NM), generator=gen, device=dev,
+                               dtype=torch.float64) for _ in range(2))
+    got_c13 = nk.nfw_contract(k_c13, s_c13, c_c13, a_c13, b_c13)
+    torch.cuda.synchronize()
+    ref_c13 = [torch.cat(x) for x in zip(*(
+        nk.nfw_contract_plain(k_c13, *cut) for cut in zip(
+            *(t.split(2000) for t in (s_c13, c_c13, a_c13, b_c13)))))]
+    rel_c13 = max(((x - y).abs() / y.abs()).max().item()
+                  for x, y in zip(got_c13, ref_c13))
+    check(rel_c13 <= GATE_CONTRACT_REL, f"nfw_contract at {C13_NZ} "
+          f"redshifts: rel err {rel_c13!r}")
+    err["nfw_contract_c13"] = rel_c13
+    print(f"[kernel] nfw_contract vs nfw_contract_plain at {C13_NZ} "
+          f"redshifts (more than gridDim.y's 65,535; z on gridDim.x) x "
+          f"{C13_NM} m x {C13_NK} k: max rel err {rel_c13!r} (gate "
+          f"{GATE_CONTRACT_REL})")
+    del s_c13, c_c13, a_c13, b_c13, got_c13, ref_c13
 
     # the resample kernel on the config-2 u(kt) table of each tier at the
     # bench cosmology, and on the adversarial batch
@@ -1597,6 +1711,342 @@ def main() -> int:
     print(f"[rsd_nonlimber] the phase's wall time "
           f"{time.perf_counter() - t_phase_rn:.1f} s (host clock)")
 
+    # ---- phase 4h'': weak lensing and CMB lensing --------------------------
+    from hmvec_tpu_torch import Cosmology as TorchCosmology
+    from hmvec_tpu_torch.models import lensed_cf as lcf
+    from hmvec_tpu_torch.models import lensed_cls as lcl
+    from hmvec_tpu_torch.models import lensing_noise as lnm
+    from hmvec_tpu_torch.models import master as mst
+    from hmvec_tpu_torch.models import shear as shm
+
+    t_phase_lc = time.perf_counter()
+    glc = np.load(GOLDEN_LC)
+    for key in ("zs", "ks", "ms", "ngal"):
+        check(np.array_equal(gc[key], glc[key]), f"golden files share {key}")
+    check(dict(zip(glc["param_names"].tolist(),
+                   map(float, glc["param_values"]))) == cosmo_c,
+          "the lensing golden file is at the bench cosmology")
+    check(launches["class"] == want_class, f"the build this phase runs on "
+          f"launched what the class phase counted: {launches['class']}")
+    ells_lc, szs, sdndz = glc["ells"], glc["szs"], glc["sdndz"]
+    gzs_lc, gdndz_lc = glc["gzs"], glc["gdndz"]
+    ia_kw = dict(zip(("A_ia", "eta_ia", "z0"), map(float, glc["ia"])))
+    smag, shape_n, fsky_lc, nl_g, noise_t, beam = map(float, glc["scalars"])
+    thetas_lc = glc["thetas"]
+    lm, cap = int(glc["lmax_m"]), float(glc["cap"])
+    edges, mrows = glc["edges"], glc["rows"]
+    lmax_out, Ls, Ls8 = int(glc["lmax_out"]), glc["Ls"], glc["Ls8"]
+    lmax_cmb = glc["unlensed"].shape[0] - 1
+    # the inputs on the card: the build's spectra, the synthetic unlensed
+    # CMB spectra and noise, C_phiphi from the build's nonlinear C_kk
+    pmm_lc, pgm_lc = hm.get_power("nfw"), hm.get_power("g", "nfw")
+    pgg_lc, pmm_fast_lc = hm.get_power("g"), hm.get_power("nfw_fast")
+    unl = torch.as_tensor(glc["unlensed"], device=dev)
+    cl_tt, cl_ee, cl_te = unl[:, 0], unl[:, 1], unl[:, 3]
+    lv = torch.arange(lmax_cmb + 1, dtype=torch.float64, device=dev)
+    nl_p = lnm.white_noise_nl(lv, noise_t * math.sqrt(2.0), beam)
+    ells_kk, clkk = hm.cmb_lensing_limber(lmax_cmb, nonlinear=True)
+    L_int = np.arange(lmax_cmb + 1, dtype=float)
+    clkk_int = np.interp(L_int, ells_kk.cpu().numpy(), clkk.cpu().numpy())
+    clpp_np = np.zeros(lmax_cmb + 1)
+    clpp_np[2:] = 4.0 * clkk_int[2:] / (L_int[2:] * (L_int[2:] + 1.0)) ** 2
+    e_clpp = close_err(clpp_np[2:], glc["clpp"][2:])
+    check(e_clpp <= GATE_LC, f"lensing C_phiphi vs golden: {e_clpp!r}")
+    print(f"[lensing] C_phiphi from cmb_lensing_limber({lmax_cmb}, "
+          f"nonlinear=True): max rel err vs golden {e_clpp!r} (gate "
+          f"{GATE_LC})")
+    clpp = torch.as_tensor(clpp_np, device=dev)
+    tot_tt = lnm.total_cl_tt(cl_tt, noise_t, beam)
+    tot_ee = cl_ee + nl_p
+    tot_bb = lnm.lensed_bb_from_ee(cl_ee, clpp, lmax_out=lmax_cmb) + nl_p
+    grad_lc = {"TT": cl_tt, "EE": cl_ee, "TE": cl_te}
+    total_lc = {"TT": tot_tt, "EE": tot_ee, "BB": tot_bb, "TE": cl_te}
+    n0_kw = dict(lmin=30, lmax=lmax_cmb)
+    gdndz_s = glc["gdndz_on_szs"]
+    table = dict(np.load(FIXTURE_CMB))
+    cmb_t = TorchCosmology(params=cosmo_c, cls_table=table, device=dev)
+    fix_lmax = int(glc["fixture_lmax"])
+    tri = torch.as_tensor(glc["tri"].astype(np.float64), device=dev)
+    ells_m = np.arange(2, lm + 1, dtype=np.float64)
+    cl_m = [torch.cat([torch.zeros(2, dtype=torch.float64, device=dev), c])
+            for c in (hm.C_gg(ells_m, zs, ks_np, pgg_lc, gzs_lc,
+                              gdndz=gdndz_lc),
+                      hm.C_kk(ells_m, zs, ks_np, pmm_lc, lzs1=szs,
+                              ldndz1=sdndz, lzs2=szs, ldndz2=sdndz),
+                      hm.C_kg(ells_m, zs, ks_np, pgm_lc, gzs_lc,
+                              gdndz=gdndz_lc, lzs=szs, ldndz=sdndz))]
+    tt_m = cl_m[0] + nl_g
+    ee_m, bb_m = cl_m[1] + shape_n, torch.full_like(tt_m, shape_n)
+    wl_m = mst.cap_mask_cl(2 * lm, cap, device=dev)
+    shear_tot = hm.shear_cls_with_ia(ells_lc, zs, ks_np, pmm_lc, szs, sdndz,
+                                     **ia_kw)["total"]
+    kg_tot = hm.C_kg_mag(ells_lc, zs, ks_np, pgm_lc, pmm_lc, gzs_lc,
+                         gdndz_lc, smag, lzs=szs, ldndz=sdndz)["total"]
+    xi_tot = shear_tot + shape_n
+    m00 = mst.coupling_matrix(lm, wl_m, (0, 0))
+    m02 = mst.coupling_matrix(lm, wl_m, (0, 2))
+    m22 = mst.coupling_matrix(lm, wl_m, (2, 2))
+    p00, p02 = mst.couple_cls(m00, tt_m), mst.couple_cls(m02, cl_m[2])
+    pee, pbb = mst.couple_cls(m22, (ee_m, bb_m))
+    cov_nka = mst.gaussian_covariance_nka(lm, wl_m, tt_m, tt_m, tt_m, tt_m)
+    torch.cuda.synchronize()
+    lc_calls = {
+        # intrinsic alignments and magnification on the build's spectra
+        "shear_cls_with_ia": lambda: hm.shear_cls_with_ia(
+            ells_lc, zs, ks_np, pmm_lc, szs, sdndz, **ia_kw),
+        "shear_cls_with_ia nfw_fast": lambda: hm.shear_cls_with_ia(
+            ells_lc, zs, ks_np, pmm_fast_lc, szs, sdndz, **ia_kw),
+        "C_II": lambda: hm.C_II(ells_lc, zs, ks_np, pmm_lc, szs, sdndz,
+                                **ia_kw),
+        "C_kI": lambda: hm.C_kI(ells_lc, zs, ks_np, pmm_lc, szs, sdndz,
+                                lzs=1100.0, **ia_kw),
+        "C_gI": lambda: hm.C_gI(ells_lc, zs, ks_np, pgm_lc, szs, gdndz_s,
+                                sdndz, **ia_kw),
+        "C_gg_mag": lambda: hm.C_gg_mag(ells_lc, zs, ks_np, pgg_lc, pgm_lc,
+                                        pmm_lc, gzs_lc, gdndz_lc, smag),
+        "C_kg_mag": lambda: hm.C_kg_mag(ells_lc, zs, ks_np, pgm_lc, pmm_lc,
+                                        gzs_lc, gdndz_lc, smag, lzs=szs,
+                                        ldndz=sdndz),
+        # real space
+        "xi_plus": lambda: shm.xi_plus(ells_lc, shear_tot, thetas_lc,
+                                       input_kind="convergence"),
+        "xi_minus": lambda: shm.xi_minus(ells_lc, shear_tot, thetas_lc,
+                                         input_kind="convergence"),
+        "gamma_t": lambda: shm.gamma_t(ells_lc, kg_tot, thetas_lc),
+        "xi_gaussian_cov plus plus": lambda: shm.xi_gaussian_cov(
+            ells_lc, xi_tot, xi_tot, xi_tot, xi_tot, thetas_lc, "plus",
+            "plus", fsky=fsky_lc),
+        "xi_gaussian_cov plus minus": lambda: shm.xi_gaussian_cov(
+            ells_lc, xi_tot, xi_tot, xi_tot, xi_tot, thetas_lc, "plus",
+            "minus", fsky=fsky_lc),
+        # MASTER
+        "cap_mask_cl": lambda: mst.cap_mask_cl(2 * lm, cap, device=dev),
+        "coupling_matrix 00": lambda: mst.coupling_matrix(lm, wl_m, (0, 0)),
+        "coupling_matrix 02": lambda: mst.coupling_matrix(lm, wl_m, (0, 2)),
+        "coupling_matrix 22": lambda: mst.coupling_matrix(lm, wl_m, (2, 2)),
+        "couple_cls": lambda: (mst.couple_cls(m00, tt_m),
+                               mst.couple_cls(m02, cl_m[2]),
+                               *mst.couple_cls(m22, (ee_m, bb_m))),
+        "decouple_bandpowers": lambda: (
+            mst.decouple_bandpowers(m00, p00, lm, edges),
+            mst.decouple_bandpowers(m02, p02, lm, edges),
+            torch.stack(mst.decouple_bandpowers(m22, (pee, pbb), lm, edges))),
+        "gaussian_covariance_nka": lambda: mst.gaussian_covariance_nka(
+            lm, wl_m, tt_m, tt_m, tt_m, tt_m),
+        "decoupled_covariance": lambda: mst.decoupled_covariance(
+            m00, cov_nka, lm, edges),
+        # CMB lensing
+        "lens_cls_flat_sky_resummed": lambda: lcf.lens_cls_flat_sky_resummed(
+            unl, clpp, lmax_out=lmax_out),
+        "lens_cls_flat_sky": lambda: lcl.lens_cls_flat_sky(
+            unl, clpp, lmax_out=lmax_out),
+        "lensed_bb_from_ee": lambda: lnm.lensed_bb_from_ee(
+            cl_ee, clpp, lmax_out=lmax_cmb),
+        "n0_flat_sky TT EE EB": lambda: (
+            lnm.n0_flat_sky(Ls, "TT", cl_tt, tot_tt, **n0_kw),
+            lnm.n0_flat_sky(Ls, "EE", cl_ee, tot_ee, **n0_kw),
+            lnm.n0_flat_sky(Ls, "EB", cl_ee, tot_ee, cl_total2=tot_bb,
+                            **n0_kw)),
+        "n0_pair_flat_sky TE TB": lambda: (
+            lnm.n0_pair_flat_sky(Ls, "TE", grad_lc, total_lc, **n0_kw),
+            lnm.n0_pair_flat_sky(Ls, "TB", grad_lc, total_lc, **n0_kw)),
+        "n0_cross_flat_sky TT TE": lambda: lnm.n0_cross_flat_sky(
+            Ls, "TT", "TE", grad_lc, total_lc, **n0_kw),
+        "n0_mv_flat_sky": lambda: lnm.n0_mv_flat_sky(
+            Ls, grad_lc, total_lc, return_matrix=True, **n0_kw),
+        "n0_eb_iterative": lambda: lnm.n0_eb_iterative(
+            Ls, cl_ee, tot_ee, clpp, nl_p, return_info=True, **n0_kw),
+        "n0_tt_fullsky": lambda: lnm.n0_tt_fullsky(Ls8, cl_tt, tot_tt,
+                                                   **n0_kw),
+        "n1_tt_flat_sky": lambda: lnm.n1_tt_flat_sky(Ls8, cl_tt, tot_tt,
+                                                     clpp, **n0_kw),
+        "threej000_sq": lambda: lnm.threej000_sq(
+            tri[0], float(lmax_cmb), tri[1]),
+        # the tabulated CMB spectra
+        "get_cmb_cls": lambda: cmb_t.get_cmb_cls(lmax=fix_lmax),
+        "cmb_lensing_kk_exact": lambda: cmb_t.cmb_lensing_kk_exact(
+            fix_lmax),
+    }
+    # the main path of the phase: the class phase's build, then the
+    # group's calls on it with the counts set to 0 just before and read
+    # just after
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res_lc = {what: fn() for what, fn in lc_calls.items()}
+    torch.cuda.synchronize()
+    launches["lensing"] = read_counts()
+    lc_peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    check(not any(launches["lensing"].values()),
+          f"the lensing group's calls launch no kernel: "
+          f"{launches['lensing']}")
+
+    def master_rows(mat):
+        return mat.diagonal(), mat[torch.as_tensor(mrows, device=dev)]
+
+    spectra_rows = lambda a: np.asarray(a).T[:, 2:]
+    # output -> (tensor, golden array, gate, measure; None: bit for bit)
+    fields = {
+        **{f"shear_cls_with_ia {k}": (res_lc["shear_cls_with_ia"][k],
+                                      glc[f"shear_{k}"], GATE_LC, close_err)
+           for k in ("GG", "GI", "II", "total")},
+        **{f"shear_cls_with_ia nfw_fast {k}": (
+            res_lc["shear_cls_with_ia nfw_fast"][k], glc[f"shear_{k}"],
+            GATE_LC_FAST, close_err) for k in ("GG", "GI", "II", "total")},
+        "C_II": (res_lc["C_II"], glc["c_ii"], GATE_LC, close_err),
+        "C_kI": (res_lc["C_kI"], glc["c_ki"], GATE_LC, close_err),
+        "C_gI": (res_lc["C_gI"], glc["c_gi"], GATE_LC, close_err),
+        **{f"C_gg_mag {k}": (v, glc[f"gg_mag_{k}"], GATE_LC, close_err)
+           for k, v in res_lc["C_gg_mag"].items()},
+        **{f"C_kg_mag {k}": (v, glc[f"kg_mag_{k}"], GATE_LC, close_err)
+           for k, v in res_lc["C_kg_mag"].items()},
+        **{what: (res_lc[what], glc[key], GATE_LC_ROW, row_err)
+           for what, key in (("xi_plus", "xi_plus"),
+                             ("xi_minus", "xi_minus"),
+                             ("gamma_t", "gamma_t"),
+                             ("xi_gaussian_cov plus plus", "xi_cov_pp"),
+                             ("xi_gaussian_cov plus minus", "xi_cov_pm"))},
+        "cap_mask_cl": (res_lc["cap_mask_cl"], glc["cap_mask"], GATE_LC,
+                        close_err),
+        # a coupling matrix is a Gauss-Legendre sum of Wigner-d products:
+        # its diagonal element by element, its rows (whose far entries are
+        # the sum's rounding) relative to the row's largest value
+        **{f"{name} {part}": (master_rows(mat)[i], glc[f"{key}_{part}"],
+                              GATE_LC, measure)
+           for name, key, mat in (
+               ("coupling_matrix 00", "m00", res_lc["coupling_matrix 00"]),
+               ("coupling_matrix 02", "m02", res_lc["coupling_matrix 02"]),
+               ("coupling_matrix 22 ++", "mpp",
+                res_lc["coupling_matrix 22"]["++"]),
+               ("coupling_matrix 22 --", "mmm",
+                res_lc["coupling_matrix 22"]["--"]),
+               ("gaussian_covariance_nka", "cov_nka",
+                res_lc["gaussian_covariance_nka"]))
+           for i, (part, measure) in enumerate((("diag", close_err),
+                                                ("rows", row_err)))},
+        **{f"couple_cls {k}": (v, glc[f"master_pseudo_{k}"], GATE_LC,
+                               close_err)
+           for k, v in zip(("00", "02", "ee", "bb"), res_lc["couple_cls"])},
+        **{f"decouple_bandpowers {k}": (v, glc[f"master_bp_{k}"], GATE_LC,
+                                        close_err)
+           for k, v in zip(("00", "02", "ee_bb"),
+                           res_lc["decouple_bandpowers"])},
+        "decoupled_covariance": (res_lc["decoupled_covariance"],
+                                 glc["master_cov_bp"], GATE_LC, close_err),
+        "lens_cls_flat_sky_resummed": (
+            res_lc["lens_cls_flat_sky_resummed"].T[:, 2:],
+            spectra_rows(glc["lensed_resummed"]), GATE_LC_ROW, row_err),
+        "lens_cls_flat_sky": (res_lc["lens_cls_flat_sky"].T[:, 2:],
+                              spectra_rows(glc["lensed_first_order"]),
+                              GATE_LC, close_err),
+        "lensed_bb_from_ee": (res_lc["lensed_bb_from_ee"][2:],
+                              glc["lensed_bb"][2:], GATE_LC, close_err),
+        **{f"n0_flat_sky {k}": (v, glc[f"n0_{k.lower()}"], GATE_LC,
+                                close_err)
+           for k, v in zip(("TT", "EE", "EB"),
+                           res_lc["n0_flat_sky TT EE EB"])},
+        **{f"n0_pair_flat_sky {k}": (v, glc[f"n0_pair_{k.lower()}"],
+                                     GATE_LC, close_err)
+           for k, v in zip(("TE", "TB"), res_lc["n0_pair_flat_sky TE TB"])},
+        "n0_cross_flat_sky TT TE": (res_lc["n0_cross_flat_sky TT TE"],
+                                    glc["n0_cross_tt_te"], GATE_LC,
+                                    close_err),
+        "n0_mv_flat_sky": (res_lc["n0_mv_flat_sky"][0], glc["n0_mv"],
+                           GATE_LC, close_err),
+        "n0_mv_flat_sky matrix": (
+            res_lc["n0_mv_flat_sky"][1].reshape(len(Ls), -1),
+            glc["n0_mv_matrix"].reshape(len(Ls), -1), GATE_LC, close_err),
+        "n0_eb_iterative": (res_lc["n0_eb_iterative"][0],
+                            glc["n0_eb_iterative"], GATE_LC, close_err),
+        "n0_tt_fullsky": (res_lc["n0_tt_fullsky"], glc["n0_tt_fullsky"],
+                          GATE_LC_3J, close_err),
+        "n1_tt_flat_sky": (res_lc["n1_tt_flat_sky"], glc["n1_tt"], GATE_LC,
+                           close_err),
+        "threej000_sq": (res_lc["threej000_sq"], glc["threej"], GATE_LC_3J,
+                         close_err),
+        **{f"get_cmb_cls {k}": (v, glc[f"cmb_{k}"], 0.0, None)
+           for k, v in res_lc["get_cmb_cls"].items()},
+        "cmb_lensing_kk_exact": (res_lc["cmb_lensing_kk_exact"][1],
+                                 glc["kk_exact"], 0.0, None),
+    }
+    lc_err = {}
+    for what, (got, want, gate, measure) in fields.items():
+        check(got.is_cuda and got.dtype == torch.float64
+              and tuple(got.shape) == want.shape,
+              f"lensing {what} output {tuple(got.shape)}")
+        g_np = got.cpu().numpy()
+        if measure is None:
+            # a table's rows as they are: equal bit for bit, NaN padding
+            # where the table ends
+            same = np.array_equal(np.isnan(g_np), np.isnan(want)) and \
+                np.array_equal(g_np[~np.isnan(g_np)], want[~np.isnan(want)])
+            check(same, f"lensing {what}: the table's values")
+            e = 0.0
+        else:
+            check(bool(np.all(np.isfinite(g_np))), f"lensing {what} finite")
+            e = measure(g_np, want)
+        check(e <= gate, f"lensing {what} vs golden: {e!r} > {gate}")
+        lc_err[what] = e
+        kind = {row_err: "of the row's largest value", close_err:
+                "element by element", None: "(bit for bit)"}[measure]
+        print(f"[lensing] {what} {tuple(got.shape)}: max rel err vs the JAX "
+              f"golden {e!r} {kind} (gate {gate})")
+    iters = res_lc["n0_eb_iterative"][1]["iters"]
+    check(iters == int(glc["n0_eb_iters"]), f"n0_eb_iterative stopped after "
+          f"{iters} iterations, JAX after {int(glc['n0_eb_iters'])}")
+    print(f"[lensing] n0_eb_iterative: {iters} iterations, as JAX's")
+    print(f"[lensing] the class build's launches {launches['class']}, "
+          f"the {len(lc_calls)} calls' {launches['lensing']}; peak "
+          f"{lc_peak:.1f} MiB allocated ({card})")
+    del res_lc
+    # latency, launches, host reads and peak memory of each entry point
+    lc_stats = {}
+    for what, fn in lc_calls.items():
+        n_l, n_sync = card_ops(fn)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_v = host_ms(fn, n=5, warmup=0)
+        peak_v = torch.cuda.max_memory_allocated(dev) / 2**20
+        lc_stats[what] = {"ms": t_v, "launches": n_l, "host_reads": n_sync,
+                          "peak_mib": peak_v}
+        print(f"[time] lensing {what}: {t_v!r} ms (host clock to "
+              f"synchronize, median of 5), {n_l} launches and {n_sync} host "
+              f"reads (aten operations on the card, CardOps), peak "
+              f"{peak_v:.1f} MiB allocated ({card})")
+    # CardOps beside the profiler's kernel count on two of the calls
+    for what in ("shear_cls_with_ia", "n0_mv_flat_sky"):
+        n_prof, sync_prof = traced(lc_calls[what])
+        print(f"[lensing] {what}: CardOps {lc_stats[what]['launches']} "
+              f"launches and {lc_stats[what]['host_reads']} host reads, "
+              f"torch.profiler {n_prof} kernels and {sync_prof} host reads")
+    print(f"[lensing] the phase's wall time "
+          f"{time.perf_counter() - t_phase_lc:.1f} s (host clock)")
+
+    # B4a at the 4,000-row shapes beside the device time of an empty launch
+    # (a one-element zero_ replayed in a CUDA graph): the electron path's
+    # table (4,000 x 2,049 kt) and the class build's gas and pressure tables
+    # (4,000 x 2,501 kt), in one run
+    one = torch.zeros(1, dtype=torch.float64, device=dev)
+    empty_ms = device_ms(lambda: one.zero_())
+    b4a_settle = []
+    for what, args in (("electron table", tables["pair_lerp_f64"]),
+                       ("class gas table", b4_in_c[0]),
+                       ("class pressure table", b4_in_c[1])):
+        t_k = device_ms(lambda: rk.pair_lerp_f64(*args))
+        nbytes, ops = pair_lerp_work(*args)
+        b_ms, b_by = bound(nbytes, ops)
+        row = {"table": what, "shape": f"{args[1].numel()} x "
+               f"{args[0].shape[-1]} kt -> {args[2].numel()} k", "ms": t_k,
+               "bound_ms": b_ms, "bound_by": b_by, "time_over_bound":
+               t_k / b_ms, "empty_launch_ms": empty_ms,
+               "half_of_bound": t_k <= 2.0 * b_ms}
+        b4a_settle.append(row)
+        print(f"[time] pair_lerp_f64 at the {what} {row['shape']}: {t_k!r} "
+              f"ms (device time, CUDA-graph replays of 25 calls), bound "
+              f"{b_ms!r} ms by {b_by}, time / bound {t_k / b_ms!r} ("
+              f"{'reaches' if row['half_of_bound'] else 'below'} half its "
+              f"bound); an empty launch {empty_ms!r} ms ({card})")
+
     del hm, b4_in_c, u_b1, u_e, got_e, u2_e, idx_e, i0_e
     torch.cuda.empty_cache()
 
@@ -2036,6 +2486,10 @@ def main() -> int:
             row["class"] = class_rows[name]
         if name in ext_rows:
             row["extensions"] = ext_rows[name]
+        if name == "pair_lerp_f64":
+            row["settle_4000_rows"] = b4a_settle
+        if name == "nfw_contract":
+            row["c13_max_rel_err"] = err["nfw_contract_c13"]
         kernels.append(row)
     check(all(math.isfinite(k["ms"]) and math.isfinite(k["plain_ms"])
               and math.isfinite(k["bound_ms"]) for k in kernels), "timings")
@@ -2045,6 +2499,7 @@ def main() -> int:
     print("[extensions] " + json.dumps(ext_stats))
     print("[cov_bispectrum] " + json.dumps(cov_stats))
     print("[rsd_nonlimber] " + json.dumps(rn_stats))
+    print("[lensing] " + json.dumps(lc_stats))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

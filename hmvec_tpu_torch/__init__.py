@@ -16,8 +16,11 @@ kernel's plain version.  The pipelines, in ``hmvec_tpu_torch.pipeline``
 ``make_batched_fn``, which batches any of them over sets of parameters),
 take ``device=`` explicitly.
 
-The public names of ``hmvec_tpu`` whose modules are still to be ported
-are listed in ROADMAP.md (A9) and the README.
+The free functions of the lensing modules (``shear``, ``master``,
+``lensed_cls``, ``lensed_cf``, ``lensing_noise``) run on the device of
+their first tensor argument, or on ``device=`` (the card by default) when
+given only host data.  The public names of ``hmvec_tpu`` whose modules are still to be ported are
+listed in ROADMAP.md (A9) and the README.
 """
 
 from .params import battaglia_defaults, default_params, merge_params  # noqa: F401
@@ -38,7 +41,17 @@ from .models.cov import (  # noqa: F401
 from .models.bispectrum import (  # noqa: F401
     b2_sheth_torman, bispectrum_1halo, bispectrum_2halo, bispectrum_3halo,
     bispectrum_total, f2_kernel, projected_bispectrum, tree_bispectrum)
-from .models.shear import wigner_d_sum  # noqa: F401
+from .models.shear import (  # noqa: F401
+    gamma_t, kappa_to_shear_cl_factor, wigner_d_outer_sum, wigner_d_sum,
+    xi_gaussian_cov, xi_minus, xi_plus)
+from .models.ia import (  # noqa: F401
+    C_gg_mag, C_gI, C_II, C_kg_mag, C_kI, ia_window, magnification_window,
+    nla_amplitude, shear_cls_with_ia)
+from .models.master import (  # noqa: F401
+    bin_operator, cap_mask_cl, couple_cls, coupling_matrix,
+    decouple_bandpowers, decoupled_covariance, gaussian_covariance_nka)
+from .models.lensed_cf import lens_cls_flat_sky_resummed  # noqa: F401
+from .models.lensed_cls import lens_cls_flat_sky  # noqa: F401
 from .models.pairwise import (  # noqa: F401
     get_pairwise_ksz_snr, pairwise_ksz_errors, pairwise_ksz_signal,
     tau_aperture_battaglia)
@@ -57,8 +70,14 @@ from .models.tns import (  # noqa: F401
     tns_power)
 from .models.rsd_obs import (  # noqa: F401
     ap_multipoles, ap_shift, multipole_covariance, multipole_snr,
-    threej000_sq, tns_pk_mu_points, window_convolve_multipoles,
-    window_coupling)
+    tns_pk_mu_points, window_convolve_multipoles, window_coupling)
+# the root's threej000_sq is lensing_noise's (a tensor function of
+# arrays), as in the JAX package's root; rsd_obs keeps its exact scalar
+from .models.lensing_noise import (  # noqa: F401
+    lensed_bb_from_ee, n0_cross_flat_sky, n0_eb_iterative, n0_flat_sky,
+    n0_kappa_from_phi, n0_minimum_variance, n0_mv_flat_sky,
+    n0_pair_flat_sky, n0_tt_fullsky, n1_tt_flat_sky, threej000_sq,
+    total_cl_tt, white_noise_nl)
 from .models.power import (  # noqa: F401
     exclusion_correction, total_matter_galaxy_power_spectrum,
     total_matter_power_spectrum)

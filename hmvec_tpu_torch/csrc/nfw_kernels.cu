@@ -103,8 +103,8 @@ nfw_contract_kernel(const double* __restrict__ ks,
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kContractK + tx;
-  const int j = blockIdx.x * kContractK + tx;
-  const int z = blockIdx.y;
+  const int j = blockIdx.y * kContractK + tx;
+  const int z = blockIdx.x;
   const double k = j < nk ? ks[j] : 0.0;
 
   double acc1 = 0.0, acc2 = 0.0;
@@ -153,8 +153,10 @@ dim3 uk_grid(int nrows, int nk) {
               (nk + kUkK * kUkTiles - 1) / (kUkK * kUkTiles));
 }
 
+// z rides on gridDim.x (up to 2^31 - 1), so a batch folded into z is not
+// held to gridDim.y's 65,535; the k tiles take gridDim.y
 dim3 contract_grid(int nz, int nk) {
-  return dim3((nk + kContractK - 1) / kContractK, nz);
+  return dim3(nz, (nk + kContractK - 1) / kContractK);
 }
 
 template <typename T>

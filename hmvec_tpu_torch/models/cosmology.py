@@ -21,8 +21,9 @@ a tabulated engine's nonlinear table, else HMcode for 'mead*' and halofit
 for the other versions.  ``theta100`` solves H0 on the host before the
 background is built.
 
-The methods whose module is still to be ported raise NotImplementedError
-naming its group of ROADMAP A9 (``DEFERRED``).
+Every method of the JAX class answers (``DEFERRED`` is empty); the one
+path still to be ported, ``get_cmb_cls(approx=True)`` without a table,
+raises NotImplementedError naming the Boltzmann group of ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from ..params import merge_params, to_torch_params
 from . import background as bgmod
 from . import distances_ext as dext
+from . import ia as iam
 from . import limber as limb
 from . import linear_power as lpm
 from . import nonlimber as nlm
@@ -41,26 +43,8 @@ from .transfer import transfer_eh98
 _F64 = torch.float64
 
 
-def _deferred(name: str, group: str):
-    """A method that raises NotImplementedError until ``group`` is ported."""
-
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__}.{name} needs the {group} group of "
-            f"ROADMAP A9, which is not ported yet")
-
-    method.__name__ = name
-    method.__doc__ = f"Not ported yet: lands with the {group} group of A9."
-    method.deferred_group = group
-    return method
-
-
-# Cosmology methods whose module is still in A9, by group
-DEFERRED = {
-    "C_II": "ia", "C_kI": "ia", "C_gI": "ia", "shear_cls_with_ia": "ia",
-    "C_gg_mag": "ia", "C_kg_mag": "ia",
-    "get_cmb_cls": "boltz/lensed", "cmb_lensing_kk_exact": "boltz/lensed",
-}
+# Cosmology methods whose module is still in A9, by group: none is left
+DEFERRED = {}
 
 
 def a2z(a):
@@ -466,6 +450,39 @@ class Cosmology:
     def C_yy(self, ells, zs, ks, Ppp, **kw):
         return limb.C_yy(self.bg, ells, zs, ks, Ppp, **kw)
 
+    # ---- intrinsic alignments and magnification (the ia module) ----
+    def C_II(self, ells, zs, ks, Pmm, gzs, dndz1, **kw):
+        """NLA intrinsic-intrinsic spectrum (models/ia.py)."""
+        kw.setdefault("growth_mode", self.growth_mode)
+        return iam.C_II(self.bg, ells, zs, ks, Pmm, gzs, dndz1, **kw)
+
+    def C_kI(self, ells, zs, ks, Pmm, gzs, sdndz, **kw):
+        """NLA GI spectrum, lensing x intrinsic (models/ia.py)."""
+        kw.setdefault("growth_mode", self.growth_mode)
+        return iam.C_kI(self.bg, ells, zs, ks, Pmm, gzs, sdndz, **kw)
+
+    def C_gI(self, ells, zs, ks, Pgm, gzs, gdndz, sdndz, **kw):
+        """Lens density x source intrinsic alignment (models/ia.py)."""
+        kw.setdefault("growth_mode", self.growth_mode)
+        return iam.C_gI(self.bg, ells, zs, ks, Pgm, gzs, gdndz, sdndz, **kw)
+
+    def shear_cls_with_ia(self, ells, zs, ks, Pmm, gzs, sdndz1, **kw):
+        """{'GG', 'GI', 'II', 'total'} observed shear spectra
+        (models/ia.py)."""
+        kw.setdefault("growth_mode", self.growth_mode)
+        return iam.shear_cls_with_ia(self.bg, ells, zs, ks, Pmm, gzs,
+                                     sdndz1, **kw)
+
+    def C_gg_mag(self, ells, zs, ks, Pgg, Pgm, Pmm, gzs, gdndz, s_mag, **kw):
+        """Clustering with magnification bias (models/ia.py)."""
+        return iam.C_gg_mag(self.bg, ells, zs, ks, Pgg, Pgm, Pmm, gzs,
+                            gdndz, s_mag, **kw)
+
+    def C_kg_mag(self, ells, zs, ks, Pgm, Pmm, gzs, gdndz, s_mag, **kw):
+        """Lensing x galaxies with lens magnification (models/ia.py)."""
+        return iam.C_kg_mag(self.bg, ells, zs, ks, Pgm, Pmm, gzs, gdndz,
+                            s_mag, **kw)
+
     # ---- exact (non-Limber) linear projections (the nonlimber module) ----
     def C_gg_exact(self, ells, ks, pk0, gzs, gdndz, **kw):
         """Exact low-ell linear galaxy C_l (models/nonlimber.py)."""
@@ -516,6 +533,71 @@ class Cosmology:
     def cmb_lensing_limber(self, lmax, nonlinear=False):
         return dext.cmb_lensing_limber(self, lmax, nonlinear=nonlinear)
 
+    # ---- primary CMB spectra from a table ----
+    def get_cmb_cls(self, lmax=3000, lens_potential_accuracy=4,
+                    nonlinear=True, approx=False, lens_method="resummed"):
+        """Primary CMB power spectra from the constructor's ``cls_table``
+        (as CAMB would give them; tools/gen_camb_table.py writes one): the
+        dict {'total', 'unlensed_scalar', 'lens_potential'} of the table's
+        keys ('cls_lensed', 'cls_unlensed', 'cls_lens_potential'; muK^2,
+        raw C_l, rows 0..lmax), cut or NaN-padded to lmax + 1, as float64
+        tensors on the instance's device.  Without a table, approx=True
+        asks for the built-in Boltzmann solver, which the port does not
+        have yet (the Boltzmann group of ROADMAP A9)."""
+        del lens_potential_accuracy, nonlinear, lens_method
+        if self.cls_table is None:
+            if not approx:
+                raise NotImplementedError(
+                    "Primary CMB Cls need a Boltzmann product; pass "
+                    "cls_table=... to the ctor (generate offline with "
+                    "tools/gen_camb_table.py)")
+            raise NotImplementedError(
+                "get_cmb_cls(approx=True) needs the boltzlite solver of the "
+                "boltz group (recomb, boltzlite, boltz_engine) of ROADMAP "
+                "A9, which is not ported yet; pass cls_table=...")
+
+        def cut(arr):
+            arr = np.asarray(arr, dtype=np.float64)
+            n = lmax + 1
+            if arr.shape[0] >= n:
+                return self._t(arr[:n])
+            pad = [(0, n - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
+            return self._t(np.pad(arr, pad, constant_values=np.nan))
+
+        keys = {"total": "cls_lensed", "unlensed_scalar": "cls_unlensed",
+                "lens_potential": "cls_lens_potential"}
+        out = {name: cut(self.cls_table[key]) for name, key in keys.items()
+               if key in self.cls_table}
+        if not out:
+            raise ValueError(
+                "cls_table has none of the recognized keys "
+                "('cls_lensed', 'cls_unlensed', 'cls_lens_potential')")
+        return out
+
+    def cmb_lensing_kk_exact(self, lmax, lens_potential_accuracy=4):
+        """Exact (non-Limber) C_kappakappa from the table's lensing
+        potential (CAMB's deflection C_l [L(L+1)]^2 C_phiphi / 2pi, times
+        2pi / 4), NaN-padded to lmax + 1: (ells, C_kk) on the instance's
+        device."""
+        del lens_potential_accuracy
+        if self.cls_table is None or "cls_lens_potential" not in (
+                self.cls_table or {}):
+            raise NotImplementedError(
+                "Exact C_kk requires a tabulated lensing potential "
+                "(cls_table['cls_lens_potential'], from "
+                "tools/gen_camb_table.py); use cmb_lensing_limber "
+                "otherwise.")
+        cl = np.asarray(self.cls_table["cls_lens_potential"],
+                        dtype=np.float64)
+        if cl.ndim > 1:          # CAMB's get_lens_potential_cls: (nl, 3)
+            cl = cl[:, 0]
+        if cl.size < lmax + 1:   # NaN-padded like get_cmb_cls
+            cl = np.concatenate([cl, np.full(lmax + 1 - cl.size, np.nan)])
+        cl = cl[:lmax + 1]
+        ells = np.arange(cl.size)
+        return (torch.as_tensor(ells, device=self.device),
+                self._t(cl * 2.0 * np.pi / 4.0))
+
     # ---- baryon combinators ----
     def total_matter_power_spectrum(self, Pnn, Pne, Pee):
         from .power import total_matter_power_spectrum
@@ -527,6 +609,3 @@ class Cosmology:
         return total_matter_galaxy_power_spectrum(self.p["omch2"],
                                                   self.p["ombh2"], Pgn, Pge)
 
-
-for _name, _group in DEFERRED.items():
-    setattr(Cosmology, _name, _deferred(_name, _group))

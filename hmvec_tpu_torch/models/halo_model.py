@@ -47,7 +47,7 @@ from . import mass_function as mfm
 from . import pairwise as pwm
 from . import power as pwr
 from . import profiles as prof
-from .cosmology import Cosmology, _deferred
+from .cosmology import Cosmology
 from .hod import build_hod, build_hod_zheng05
 from .mass_conversion import mdelta_from_mdelta
 
@@ -907,6 +907,3 @@ class HaloModel(Cosmology):
         return clm.kappa_2h_profiles(self.bg, self.zs, self.ks, self.Pzk,
                                      bh_at_m, thetas, zsource, lmin, lmax)
 
-
-for _name, _group in DEFERRED.items():
-    setattr(HaloModel, _name, _deferred(_name, _group))

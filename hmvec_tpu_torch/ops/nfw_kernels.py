@@ -45,6 +45,7 @@ TIERS = ("fast", "exact")
 _MAX_ROWS = 2**31 - 1   # the C interface counts rows in an int
 _MAX_GRID_Y = 65535
 _UK_KS = 128            # k per block, csrc/nfw_kernels.cu kUkK * kUkTiles
+_CONTRACT_KS = 32       # k per block, csrc/nfw_kernels.cu kContractK
 
 
 @contextlib.contextmanager
@@ -151,6 +152,15 @@ def _check_uk_grid(nrows, nk):
                          f"{_UK_KS * _MAX_GRID_Y} k, got {nrows} and {nk}")
 
 
+def _check_contract_grid(nz, nk):
+    """Redshifts (a batch folds into them) ride on gridDim.x and k, 32 to
+    a block, on gridDim.y (csrc/nfw_kernels.cu)."""
+    if nz > _MAX_ROWS or -(-nk // _CONTRACT_KS) > _MAX_GRID_Y:
+        raise ValueError(f"nfw_contract takes at most {_MAX_ROWS} redshifts "
+                         f"and {_CONTRACT_KS * _MAX_GRID_Y} k, got {nz} and "
+                         f"{nk}")
+
+
 def _launch_nfw_uk(ks, scales, cs, tier, out=None):
     """One launch of the tier's kernel into ``out`` (allocated if None)."""
     from ..kernels._build import load_library
@@ -188,9 +198,7 @@ def _launch_nfw_contract(ks, scales, cs, a, b, out=None):
         return s1, s2
     if nm == 0:
         return s1.zero_(), s2.zero_()
-    if nz > _MAX_GRID_Y:
-        raise ValueError(f"nfw_contract takes at most {_MAX_GRID_Y} "
-                         f"redshifts (a batch folds into them), got {nz}")
+    _check_contract_grid(nz, nk)
     _check_contiguous(ks=ks, scales=scales, cs=cs, a=a, b=b)
     lib = load_library()
     err = lib.hmvec_nfw_contract(

@@ -26,6 +26,13 @@ def device_of(*xs):
     return next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
 
 
+def pick_device(*xs, device="cuda") -> torch.device:
+    """Where a free function runs: the device of the first tensor among
+    xs, else ``device`` (the card unless the caller asks for the CPU)."""
+    dev = device_of(*xs)
+    return dev if dev is not None else torch.device(device)
+
+
 def host(x) -> np.ndarray:
     """A grid as a float64 numpy array (a tensor is read back)."""
     if isinstance(x, torch.Tensor):

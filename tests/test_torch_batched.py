@@ -384,6 +384,19 @@ def test_row_count_above_the_old_grid_limit():
     assert torch.equal(u[-3:], nk.nfw_uk_plain(ks, scales[-3:], cs[-3:]))
 
 
+def test_redshift_count_above_the_old_grid_limit():
+    """Redshifts (a batch folds into them) ride on the contraction's
+    gridDim.x: 70,000 of them (more than gridDim.y's 65,535, the limit
+    while they rode there) pass the launch's checks; k, 32 to a block,
+    takes gridDim.y."""
+    nk._check_contract_grid(70_000, 1001)
+    nk._check_contract_grid(2**31 - 1, 32 * 65535)
+    with pytest.raises(ValueError, match="at most"):
+        nk._check_contract_grid(2**31, 64)
+    with pytest.raises(ValueError, match="at most"):
+        nk._check_contract_grid(20, 32 * 65535 + 1)
+
+
 @pytest.mark.gpu
 def test_batched_call_launches_each_kernel_once_on_the_card():
     if not torch.cuda.is_available():

@@ -53,20 +53,6 @@ T = torch.as_tensor
 # yet, by the group of ROADMAP A9 that brings them, and the ones it will
 # not have (A10)
 NOT_PORTED = {
-    "shear/ia/master": ("xi_plus", "xi_minus", "gamma_t",
-                        "kappa_to_shear_cl_factor", "xi_gaussian_cov",
-                        "wigner_d_outer_sum", "nla_amplitude", "ia_window",
-                        "magnification_window", "shear_cls_with_ia", "C_II",
-                        "C_kI", "C_gI", "C_gg_mag", "C_kg_mag",
-                        "coupling_matrix", "couple_cls",
-                        "decouple_bandpowers", "bin_operator", "cap_mask_cl",
-                        "gaussian_covariance_nka", "decoupled_covariance"),
-    "lensed/lensing_noise": (
-        "lens_cls_flat_sky_resummed", "lens_cls_flat_sky", "white_noise_nl",
-        "total_cl_tt", "n0_flat_sky", "n0_minimum_variance",
-        "n0_kappa_from_phi", "lensed_bb_from_ee", "n0_eb_iterative",
-        "n0_tt_fullsky", "n1_tt_flat_sky",
-        "n0_pair_flat_sky", "n0_cross_flat_sky", "n0_mv_flat_sky"),
     "boltz": ("BoltzEngine", "rs_drag_integral"),
     "emulator": ("Emulator", "fit_emulator", "pipeline_target",
                  "save_emulator", "load_emulator", "sample_params"),
@@ -152,12 +138,14 @@ def test_every_public_method_is_ported_or_deferred(name):
 
 
 def test_deferred_methods_raise_naming_their_group():
+    """No method is deferred any more; the one path still refused,
+    get_cmb_cls(approx=True) without a table, names its group (the
+    Boltzmann solver of ROADMAP A9)."""
     hm = thm.HaloModel(ZS[:2], KS[:8], ms=np.geomspace(1e11, 1e15, 6),
                        device="cpu")
-    for table, obj in ((tcos.DEFERRED, hm), (thm.DEFERRED, hm)):
-        for meth, group in table.items():
-            with pytest.raises(NotImplementedError, match=group):
-                getattr(obj, meth)()
+    assert tcos.DEFERRED == {} and thm.DEFERRED == {}
+    with pytest.raises(NotImplementedError, match="boltz group"):
+        hm.get_cmb_cls(lmax=100, approx=True)
 
 
 def test_the_classes_need_a_card_unless_asked_for_the_cpu():

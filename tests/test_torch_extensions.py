@@ -71,9 +71,10 @@ PORTED = {
 }
 STILL_DEFERRED = {
     # the exact C_ell, one-loop and redshift-space methods are held by
-    # tests/test_torch_nonlimber.py and tests/test_torch_rsd.py
-    "Cosmology": {"C_II", "C_kI", "C_gI", "shear_cls_with_ia", "C_gg_mag",
-                  "C_kg_mag", "get_cmb_cls", "cmb_lensing_kk_exact"},
+    # tests/test_torch_nonlimber.py and tests/test_torch_rsd.py; the ia
+    # methods by tests/test_torch_lensing.py, the CMB ones by
+    # tests/test_torch_cmb_lensing.py
+    "Cosmology": set(),
     # the covariance group's 11 methods are held by
     # tests/test_torch_cov_bispectrum.py (PORTED there)
     "HaloModel": set(),

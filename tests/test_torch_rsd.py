@@ -429,7 +429,11 @@ def test_window_coupling_and_convolution_match_jax():
     np.testing.assert_array_equal(
         tro.window_coupling((0, 2), (0, 2, 4), (0, 2)),
         jro.window_coupling((0, 2), (0, 2, 4), (0, 2)))
-    assert hmvec_tpu_torch.threej000_sq is tro.threej000_sq
+    # the package root's threej000_sq is lensing_noise's (the JAX root
+    # imports rsd_obs's first and lensing_noise's over it); rsd_obs keeps
+    # its exact form for the window coupling
+    from hmvec_tpu_torch.models import lensing_noise as tln
+    assert hmvec_tpu_torch.threej000_sq is tln.threej000_sq
     ks = np.geomspace(1e-4, 1e2, 384)
     base = 2e4 * (ks / 0.02) / (1.0 + (ks / 0.02) ** 2.6)
     pk_ells = {0: 1.4 * base, 2: 0.7 * base, 4: 0.06 * base}

@@ -106,11 +106,24 @@ the build's 1001 ks; and fftlog_sphbessel_multi of the galaxy kernel at
 four ells, with its input (~2 min).  Every JAX call is one compiled
 program.
 
+--config lensing: the weak-lensing and CMB-lensing group at the bench
+cosmology on the README example's build -> hmvec_tpu_torch/data/
+lensing_cmb_golden.npz: shear_cls_with_ia, C_II, C_kI, C_gI, C_gg_mag and
+C_kg_mag on ells 60-2000 (examples/forecast_3x2pt.py's n(z)); xi_+, xi_-,
+gamma_t and the xi_+ x xi_+/- covariance at 20 thetas; the MASTER chain of
+examples/pseudo_cl.py at LMAX 500 (each coupling matrix's diagonal and
+three rows, the pseudo-spectra, bandpowers, the decoupled covariance);
+the resummed and first-order lensed spectra to 2,600, lensed BB, the N0
+family at 40 L, n0_eb_iterative with its iteration count, n0_tt_fullsky
+and n1_tt_flat_sky at 8 L, 20,000 threej000_sq triangles at L = 3,000,
+on C_phiphi from cmb_lensing_limber(3000, nonlinear=True); the tabulated
+get_cmb_cls and cmb_lensing_kk_exact of tests/fixtures/camb_table_fixture.npz.
+
 The machine with the GPU has no JAX, so chip_smoke.py compares the port
 against these files.  Each run writes only its own file.
 
 Run from the repository root:
-    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x|v|rsd_nonlimber]
+    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x|v|rsd_nonlimber|lensing]
 """
 
 from __future__ import annotations
@@ -135,7 +148,8 @@ OUT = {"1": DATA / "pmm_config1_golden.npz",
        "c": DATA / "class_config1_golden.npz",
        "x": DATA / "extensions_config1_golden.npz",
        "v": DATA / "cov_bispectrum_config1_golden.npz",
-       "rsd_nonlimber": DATA / "rsd_nonlimber_config1_golden.npz"}
+       "rsd_nonlimber": DATA / "rsd_nonlimber_config1_golden.npz",
+       "lensing": DATA / "lensing_cmb_golden.npz"}
 NXS, XMAX = 4096, 20          # bench.py config 2
 NGAL = 1e-4                   # bench.py config 3, per z
 ELLS, ZSOURCE = np.geomspace(30, 3000, 60), 1100.0   # bench.py config 4
@@ -522,6 +536,239 @@ def write_rsd_nonlimber_golden(zs, ms, ks):
                                         dtype=np.float64), **out)
 
 
+# the lensing phase of chip_smoke.py: examples/forecast_3x2pt.py's ells
+# (:33-34), lens n(z) (:29-30) and source n(z) (:114-116); the IA and
+# magnification parameters of tests/test_ia.py; 20 thetas over 2.5-250
+# arcmin; a DES-like shape noise; examples/pseudo_cl.py's MASTER chain
+# (LMAX 500, a 40-degree cap); the synthetic CMB spectra of
+# tests/test_lensing_noise.py at lmax 3,000 (with a TE made the same way)
+# and examples/cmb_forecast.py's L grid (:50)
+LC_ELLS = np.arange(60, 2001)
+LC_GZS = np.linspace(0.3, 0.95, 40)
+LC_GDNDZ = np.exp(-0.5 * ((LC_GZS - 0.6) / 0.12) ** 2)
+LC_SZS = np.linspace(0.5, 1.3, 30)
+LC_SDNDZ = np.exp(-0.5 * ((LC_SZS - 0.9) / 0.1) ** 2)
+LC_IA = {"A_ia": 0.9, "eta_ia": -0.7, "z0": 0.62}
+LC_SMAG = 0.85
+LC_THETAS = np.deg2rad(np.geomspace(2.5, 250.0, 20) / 60.0)
+LC_SHAPE_NOISE = 0.26**2 / (6.0 * 1.18e7)     # sigma_e^2 / n, 6 / arcmin^2
+LC_FSKY = 0.12
+LC_LMAX_M = 500
+LC_CAP = np.deg2rad(40.0)
+LC_EDGES = np.unique(np.geomspace(30, LC_LMAX_M + 1, 9).astype(int))
+LC_ROWS = np.array([30, 200, 450])
+LC_LMAX = 3000
+LC_LMAX_OUT = 2600
+LC_LS = np.unique(np.geomspace(20, 2000, 40).astype(int)).astype(float)
+LC_LS8 = LC_LS[::5]
+LC_NOISE = (10.0, 1.4)                        # muK-arcmin, arcmin
+LC_FIXTURE = REPO / "tests" / "fixtures" / "camb_table_fixture.npz"
+LC_FIXTURE_LMAX = 600
+LC_3J = 20000
+
+
+def lensing_cmb_inputs():
+    """The synthetic unlensed TT, EE, TE at lmax 3,000 (the recipe of
+    tests/test_lensing_noise.py) and the triangles of the threej000_sq
+    check: (l1, L = 3000, l2) with l1, l2 in [30, 3000], drawn from a
+    seed."""
+    l = np.arange(LC_LMAX + 1, dtype=np.float64)
+    ls = np.maximum(l, 1.0)
+    dl_tt = 2500.0 * np.exp(-((l / 1800.0) ** 2)) \
+        * (1.0 + 0.25 * np.sin(l / 48.0)) + 20.0
+    dl_ee = 40.0 * np.exp(-((l / 1500.0) ** 2)) \
+        * (1.0 + 0.4 * np.sin(l / 48.0 + 1.0)) + 0.5
+    dl_te = 100.0 * np.exp(-((l / 1500.0) ** 2)) * np.sin(l / 48.0 + 0.5)
+    cls = [2.0 * np.pi * d / (ls * (ls + 1.0)) for d in (dl_tt, dl_ee, dl_te)]
+    for c in cls:
+        c[:2] = 0.0
+    rng = np.random.default_rng(3000)
+    tri = rng.integers(30, LC_LMAX + 1, (2, LC_3J)).astype(np.int16)
+    return (*cls, tri)
+
+
+def clpp_from_clkk(ells_kk, clkk, lmax):
+    """C_phiphi on integer L from a C_kappakappa row (examples/
+    cmb_forecast.py:52-55)."""
+    L = np.arange(lmax + 1, dtype=float)
+    clkk_int = np.interp(L, np.asarray(ells_kk), np.asarray(clkk))
+    clpp = np.zeros(lmax + 1)
+    clpp[2:] = 4.0 * clkk_int[2:] / (L[2:] * (L[2:] + 1.0)) ** 2
+    return clpp
+
+
+def write_lensing_cmb_golden(zs, ms, ks):
+    """The weak-lensing and CMB-lensing group at the bench cosmology on the
+    README example's build: IA and magnification spectra, xi_+/-,
+    gamma_t and their covariance, the MASTER chain (each matrix's diagonal
+    and three rows, not the 501^2 matrices), lensed spectra, the N0 family,
+    N0 full sky, N1, iterative EB delensing, the tabulated CMB spectra."""
+    import jax
+    import jax.numpy as jnp
+    import hmvec_tpu as hm
+    from hmvec_tpu.models import lensing_noise as jln
+    from hmvec_tpu.models import master as jmst
+    from hmvec_tpu.models import shear as jsh
+
+    def jit(fn):
+        def body():
+            with jax.ensure_compile_time_eval():
+                return fn()
+        return jax.jit(body)()
+
+    ngal = np.full(zs.size, NGAL)
+    hcos = hm.HaloModel(zs, ks, ms=ms, params=BENCH_OVERRIDES)
+    hcos.add_battaglia_profile("e", family="AGN")
+    hcos.add_battaglia_pres_profile("y")
+    hcos.add_hod("g", ngal=ngal)
+    pmm = np.asarray(hcos.get_power("nfw"))
+    pgm = np.asarray(hcos.get_power("g", "nfw"))
+    pgg = np.asarray(hcos.get_power("g"))
+    out = {}
+    ells, ia = LC_ELLS, LC_IA
+    sh = jit(lambda: hcos.shear_cls_with_ia(ells, zs, ks, pmm, LC_SZS,
+                                            LC_SDNDZ, **ia))
+    for k, v in sh.items():
+        out[f"shear_{k}"] = v
+    gdndz_s = np.exp(-0.5 * ((LC_SZS - 0.6) / 0.12) ** 2)
+    out["c_ii"], out["c_ki"], out["c_gi"] = jit(lambda: (
+        hcos.C_II(ells, zs, ks, pmm, LC_SZS, LC_SDNDZ, **ia),
+        hcos.C_kI(ells, zs, ks, pmm, LC_SZS, LC_SDNDZ, lzs=1100.0, **ia),
+        hcos.C_gI(ells, zs, ks, pgm, LC_SZS, gdndz_s, LC_SDNDZ, **ia)))
+    gmag = jit(lambda: hcos.C_gg_mag(ells, zs, ks, pgg, pgm, pmm, LC_GZS,
+                                     LC_GDNDZ, LC_SMAG))
+    kmag = jit(lambda: hcos.C_kg_mag(ells, zs, ks, pgm, pmm, LC_GZS,
+                                     LC_GDNDZ, LC_SMAG, lzs=LC_SZS,
+                                     ldndz=LC_SDNDZ))
+    for k, v in gmag.items():
+        out[f"gg_mag_{k}"] = v
+    for k, v in kmag.items():
+        out[f"kg_mag_{k}"] = v
+    # real space
+    tot = np.asarray(sh["total"]) + LC_SHAPE_NOISE
+    out["xi_plus"], out["xi_minus"], out["gamma_t"] = jax.jit(
+        lambda c, k: (jsh.xi_plus(ells, c, LC_THETAS,
+                                  input_kind="convergence"),
+                      jsh.xi_minus(ells, c, LC_THETAS,
+                                   input_kind="convergence"),
+                      jsh.gamma_t(ells, k, LC_THETAS)))(
+        np.asarray(sh["total"]), np.asarray(kmag["total"]))
+    out["xi_cov_pp"], out["xi_cov_pm"] = jax.jit(lambda t: (
+        jsh.xi_gaussian_cov(ells, t, t, t, t, LC_THETAS, "plus", "plus",
+                            fsky=LC_FSKY),
+        jsh.xi_gaussian_cov(ells, t, t, t, t, LC_THETAS, "plus", "minus",
+                            fsky=LC_FSKY)))(tot)
+    # MASTER
+    lm = LC_LMAX_M
+    ells_m = np.arange(2, lm + 1, dtype=np.float64)
+    cl_gg, cl_kk, cl_gk = (np.asarray(c) for c in jit(lambda: (
+        hcos.C_gg(ells_m, zs, ks, pgg, LC_GZS, gdndz=LC_GDNDZ),
+        hcos.C_kk(ells_m, zs, ks, pmm, lzs1=LC_SZS, ldndz1=LC_SDNDZ,
+                  lzs2=LC_SZS, ldndz2=LC_SDNDZ),
+        hcos.C_kg(ells_m, zs, ks, pgm, LC_GZS, gdndz=LC_GDNDZ, lzs=LC_SZS,
+                  ldndz=LC_SDNDZ))))
+    cl = np.zeros((3, lm + 1))
+    cl[:, 2:] = cl_gg, cl_kk, cl_gk
+    wl = np.asarray(jmst.cap_mask_cl(2 * lm, LC_CAP))
+    out["cap_mask"] = wl
+    nl_g = 1.0 / (6.0 * 1.18e7)
+    tt = cl[0] + nl_g
+    ee, bb = cl[1] + LC_SHAPE_NOISE, np.full(lm + 1, LC_SHAPE_NOISE)
+
+    def master(w, tt, ee, bb, gk):
+        m00 = jmst.coupling_matrix(lm, w, (0, 0))
+        m02 = jmst.coupling_matrix(lm, w, (0, 2))
+        m22 = jmst.coupling_matrix(lm, w, (2, 2))
+        p00 = jmst.couple_cls(m00, tt)
+        p02 = jmst.couple_cls(m02, gk)
+        pee, pbb = jmst.couple_cls(m22, (ee, bb))
+        cov = jmst.gaussian_covariance_nka(lm, w, tt, tt, tt, tt)
+        return {"m00": m00, "m02": m02, "mpp": m22["++"],
+                "mmm": m22["--"], "pseudo_00": p00, "pseudo_02": p02,
+                "pseudo_ee": pee, "pseudo_bb": pbb,
+                "bp_00": jmst.decouple_bandpowers(m00, p00, lm, LC_EDGES),
+                "bp_02": jmst.decouple_bandpowers(m02, p02, lm, LC_EDGES),
+                "bp_ee_bb": jnp.stack(jmst.decouple_bandpowers(
+                    m22, (pee, pbb), lm, LC_EDGES)),
+                "cov_nka": cov,
+                "cov_bp": jmst.decoupled_covariance(m00, cov, lm, LC_EDGES)}
+
+    res = {k: np.asarray(v) for k, v in jax.jit(master)(
+        wl, tt, ee, bb, cl[2]).items()}
+    for k in ("m00", "m02", "mpp", "mmm", "cov_nka"):
+        mat = res.pop(k)
+        out[f"{k}_diag"] = np.diag(mat)
+        out[f"{k}_rows"] = mat[LC_ROWS]
+    out.update({f"master_{k}": v for k, v in res.items()})
+    # CMB lensing
+    cl_tt, cl_ee, cl_te, tri = lensing_cmb_inputs()
+    ells_kk, clkk = hcos.cmb_lensing_limber(LC_LMAX, nonlinear=True)
+    clpp = clpp_from_clkk(ells_kk, clkk, LC_LMAX)
+    out["clpp"] = clpp
+    unl = np.stack([cl_tt, cl_ee, np.zeros_like(cl_tt), cl_te], -1)
+    lv = np.arange(LC_LMAX + 1, dtype=np.float64)
+    nl_t = np.asarray(jln.white_noise_nl(lv, *LC_NOISE))
+    nl_p = np.asarray(jln.white_noise_nl(lv, LC_NOISE[0] * np.sqrt(2.0),
+                                         LC_NOISE[1]))
+    out["lensed_resummed"] = np.asarray(hm.lens_cls_flat_sky_resummed(
+        unl, clpp, lmax_out=LC_LMAX_OUT))
+    out["lensed_first_order"] = np.asarray(hm.lens_cls_flat_sky(
+        unl, clpp, lmax_out=LC_LMAX_OUT))
+    bb_l = np.asarray(hm.lensed_bb_from_ee(cl_ee, clpp, lmax_out=LC_LMAX))
+    out["lensed_bb"] = bb_l
+    tot_tt = np.asarray(hm.total_cl_tt(cl_tt, *LC_NOISE))
+    tot_ee, tot_bb = cl_ee + nl_p, bb_l + nl_p
+    Ls = LC_LS
+    kw = dict(lmin=30, lmax=LC_LMAX)
+    out["n0_tt"] = np.asarray(hm.n0_flat_sky(Ls, "TT", cl_tt, tot_tt, **kw))
+    out["n0_ee"] = np.asarray(hm.n0_flat_sky(Ls, "EE", cl_ee, tot_ee, **kw))
+    out["n0_eb"] = np.asarray(hm.n0_flat_sky(Ls, "EB", cl_ee, tot_ee,
+                                             cl_total2=tot_bb, **kw))
+    grad = {"TT": cl_tt, "EE": cl_ee, "TE": cl_te}
+    total = {"TT": tot_tt, "EE": tot_ee, "BB": tot_bb, "TE": cl_te}
+    out["n0_pair_te"] = np.asarray(hm.n0_pair_flat_sky(Ls, "TE", grad, total,
+                                                       **kw))
+    out["n0_pair_tb"] = np.asarray(hm.n0_pair_flat_sky(Ls, "TB", grad, total,
+                                                       **kw))
+    out["n0_cross_tt_te"] = np.asarray(hm.n0_cross_flat_sky(
+        Ls, "TT", "TE", grad, total, **kw))
+    n_mv, N = hm.n0_mv_flat_sky(Ls, grad, total, return_matrix=True, **kw)
+    out["n0_mv"], out["n0_mv_matrix"] = np.asarray(n_mv), np.asarray(N)
+    it, info = hm.n0_eb_iterative(Ls, cl_ee, tot_ee, clpp, nl_p,
+                                  return_info=True, **kw)
+    out["n0_eb_iterative"] = np.asarray(it)
+    out["n0_eb_iters"] = np.asarray(info["iters"])
+    out["n0_tt_fullsky"] = np.asarray(hm.n0_tt_fullsky(LC_LS8, cl_tt, tot_tt,
+                                                       **kw))
+    out["n1_tt"] = np.asarray(hm.n1_tt_flat_sky(LC_LS8, cl_tt, tot_tt, clpp,
+                                                **kw))
+    out["threej"] = np.asarray(hm.threej000_sq(
+        tri[0].astype(float), float(LC_LMAX), tri[1].astype(float)))
+    # the tabulated CMB spectra
+    table = dict(np.load(LC_FIXTURE))
+    cmb = hm.Cosmology(params=BENCH_OVERRIDES, cls_table=table)
+    for k, v in cmb.get_cmb_cls(lmax=LC_FIXTURE_LMAX).items():
+        out[f"cmb_{k}"] = v
+    out["kk_exact"] = cmb.cmb_lensing_kk_exact(LC_FIXTURE_LMAX)[1]
+    out = {k: np.asarray(v, dtype=np.float64) for k, v in out.items()}
+    for k, v in out.items():
+        print(f"{k}{v.shape}: flat[0] = {v.flat[0]!r}")
+    print(f"n0_eb_iterative: {int(out['n0_eb_iters'])} iterations")
+    return dict(zs=zs, ms=ms, ks=ks, ngal=ngal, ells=ells, gzs=LC_GZS,
+                gdndz=LC_GDNDZ, szs=LC_SZS, sdndz=LC_SDNDZ,
+                gdndz_on_szs=gdndz_s,
+                ia=np.asarray([ia["A_ia"], ia["eta_ia"], ia["z0"]]),
+                scalars=np.asarray([LC_SMAG, LC_SHAPE_NOISE, LC_FSKY,
+                                    nl_g, *LC_NOISE]),
+                thetas=LC_THETAS, lmax_m=np.asarray(lm), cap=np.asarray(
+                    LC_CAP), edges=LC_EDGES, rows=LC_ROWS,
+                unlensed=unl, lmax_out=np.asarray(LC_LMAX_OUT), Ls=Ls,
+                Ls8=LC_LS8, tri=tri, fixture_lmax=np.asarray(LC_FIXTURE_LMAX),
+                param_names=np.asarray(list(BENCH_OVERRIDES)),
+                param_values=np.asarray(list(BENCH_OVERRIDES.values()),
+                                        dtype=np.float64), **out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(OUT), default="1")
@@ -541,7 +788,7 @@ def main():
             ("omch2", "As")), **write_batch_golden(jpl, jnp, zs, ms, ks))
         print(f"wrote {path.relative_to(REPO)} ({path.stat().st_size} bytes)")
         return
-    if args.config in ("5", "m", "c", "x", "v", "rsd_nonlimber"):
+    if args.config in ("5", "m", "c", "x", "v", "rsd_nonlimber", "lensing"):
         if args.config == "5":
             arrays = write_ksz_golden(jpl, jnp)
         elif args.config == "c":
@@ -552,6 +799,8 @@ def main():
             arrays = write_cov_bispectrum_golden(zs, ms, ks)
         elif args.config == "rsd_nonlimber":
             arrays = write_rsd_nonlimber_golden(zs, ms, ks)
+        elif args.config == "lensing":
+            arrays = write_lensing_cmb_golden(zs, ms, ks)
         else:
             arrays = dict(zs=zs, ms=ms, ks=ks,
                           **write_massfn_golden(jpl, jnp, zs, ms, ks))
