@@ -310,13 +310,17 @@ def check(ok: bool, what: str):
 
 def kernel_name(symbol: str) -> str:
     """The readable name of one of the port's kernels in a mangled symbol
-    (nfw_uk_kernel<float>, nfw_contract_kernel, ...); other symbols as
-    they are."""
-    m = re.search(r"(nfw_uk_kernel|nfw_contract_kernel|pair_lerp_kernel)"
-                  r"(?:I([fd])E)?", symbol)
+    (nfw_uk_kernel<float>, nfw_contract_kernel, pair_lerp_kernel<double,
+    2, 2, true>, ...); other symbols as they are."""
+    m = re.search(r"(nfw_uk_kernel|nfw_contract_kernel|pair_lerp_rows_kernel"
+                  r"|pair_lerp_kernel)"
+                  r"(?:I([fd])((?:L[ib]\d+E)*)E)?", symbol)
     if not m:
         return symbol
-    return m.group(1) + {"f": "<float>", "d": "<double>", None: ""}[m.group(2)]
+    args = [{"f": "float", "d": "double"}[m.group(2)]] if m.group(2) else []
+    for kind, val in re.findall(r"L([ib])(\d+)E", m.group(3) or ""):
+        args.append(val if kind == "i" else ("false", "true")[int(val)])
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def sass_counts(text: str) -> dict:
@@ -642,6 +646,57 @@ def adversarial_lerp(dev):
             t(np.sort(ks)), dkt)
 
 
+def lerp_edge_cases(dev):
+    """(name, (u, scales, ks, dkt)) for the resample kernel at the shapes
+    that break a tiled, vectorised or row-packed design: nk 1, 2, 3, 101,
+    1,001 and 4,097 against 1, 3 and 4,001 rows, nkt odd and even down to
+    3; targets on a grid of quarters with dkt = 1/4 and scales 1/2, 1, 2
+    and nkt - 1, so that positions land exactly on 1 and nkt - 1; targets
+    unsorted and repeated, below 1 and above Nyquist; a (2, 3) batch; and
+    one nkt of 40,001 (float64 u; each case is also run on float32 u)."""
+    rng = np.random.default_rng(21)
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+    for n, (nk, rows) in enumerate(
+            [(nk, rows) for nk in (1, 2, 3, 101, 1001, 4097)
+             for rows in (1, 3, 4001)]):
+        nkt = (3, 4, 1031, 2050)[n % 4]
+        m = np.round(rng.uniform(-1.0, nkt + 2.0, nk) * 4.0) / 4.0
+        special = [1.0, nkt - 1.0, 0.5, nkt + 0.25, 0.0][:nk]
+        m[:len(special)] = special
+        if nk > 5:
+            m[5:8] = m[0]
+        rng.shuffle(m)
+        scales = 2.0 ** rng.integers(-1, 2, rows).astype(np.float64)
+        scales[:3] = [1.0, nkt - 1.0, 0.5][:rows]
+        yield (f"{rows}x{nkt}->{nk}",
+               (t(rng.standard_normal((rows, nkt))), t(scales), t(m * 0.25),
+                0.25))
+    yield ("(2,3)x7->33", (t(rng.standard_normal((2, 3, 7))),
+                           t(np.full((2, 3), 1.0)), t(np.arange(33) * 0.25),
+                           0.25))
+    yield ("3x40001->101", (t(rng.standard_normal((3, 40001))),
+                            t([1.0, 3.0, 7.0]),
+                            t(np.sort(rng.uniform(0.0, 40001.0, 101)) * 0.25),
+                            0.25))
+
+
+def lerp_wide_case(dev, dtype):
+    """(u, scales, ks, dkt) on the card whose offsets into u pass 2^31
+    elements, so that the resample kernel takes its 64-bit instantiation
+    (as a batch of ~210 cosmologies at 2,049 kt does): (rows + 1) x nkt
+    just above 2^31 at nkt = 2,049, nk = 5 (odd: pairs straddle rows),
+    targets on quarters with dkt = 1/4 and scales 1/2, 1 and 2 (positions
+    on 1 and nkt - 1, below 1 and above Nyquist)."""
+    nkt = 2049
+    rows = 2**31 // nkt + 64
+    g = torch.Generator(device=dev).manual_seed(23)
+    u = torch.randn((rows, nkt), generator=g, dtype=dtype, device=dev)
+    scales = 2.0 ** torch.randint(-1, 2, (rows,), generator=g, device=dev)
+    ks = torch.tensor([0.25, (nkt - 1) * 0.25, 0.1, nkt * 0.25, 300.125],
+                      dtype=torch.float64, device=dev)
+    return u, scales.to(torch.float64), ks, 0.25
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -803,6 +858,7 @@ def main() -> int:
           and bool(on_int.any()),
           "the adversarial resample case reaches both boundaries and "
           "integer positions inside the lerp window")
+    edges = list(lerp_edge_cases(dev))
     for name, (u, s_, k_, dkt) in tables.items():
         dtype = u.dtype
         for case, args in (("config2", (u, s_, k_, dkt)),
@@ -814,12 +870,54 @@ def main() -> int:
             check(got.is_cuda and got.shape == ref.shape
                   and got.dtype == torch.float64, f"{name} output")
             e = (got - ref).abs().max().item()
-            check(e <= GATE_LERP, f"{name} on {case}: {e!r} > {GATE_LERP}")
+            check(e <= GATE_LERP and torch.equal(got, ref),
+                  f"{name} on {case}: {e!r} > {GATE_LERP}")
             if case == "config2":
                 err[name] = e
             print(f"[kernel] {name} vs pair_lerp_plain on {case} "
                   f"{tuple(args[0].shape)} -> {args[2].numel()} k: "
                   f"max abs err {e!r} (gate {GATE_LERP})")
+        # the edge cases, bit for bit, one launch each, and a vmapped call
+        # over a leading batch of 5 (one launch for the batch)
+        n_edge = 0
+        for case, (u_c, s_c, k_c, dkt_c) in edges:
+            args = (u_c.to(dtype), s_c, k_c, dkt_c)
+            n0 = wrappers[name].launches
+            got = wrappers[name](*args)
+            torch.cuda.synchronize()
+            check(wrappers[name].launches == n0 + 1
+                  and torch.equal(got, rk.pair_lerp_plain(*args)),
+                  f"{name} on the edge case {case}: one launch, bit for bit")
+            n_edge += 1
+        u_v = torch.stack([u_adv[0] + i for i in range(5)]).to(dtype)
+        n0 = wrappers[name].launches
+        got = torch.func.vmap(
+            lambda a: wrappers[name](a, s_adv[0], k_adv, dkt_adv))(u_v)
+        torch.cuda.synchronize()
+        check(wrappers[name].launches == n0 + 1 and torch.equal(
+            got, torch.stack([rk.pair_lerp_plain(a, s_adv[0], k_adv, dkt_adv)
+                              for a in u_v])),
+              f"{name} under vmap: one launch, bit for bit")
+        # offsets into u past 2^31 elements: the 64-bit instantiation,
+        # held 2^17 rows at a time
+        u_w, s_w, k_w, dkt_w = lerp_wide_case(dev, dtype)
+        n0 = wrappers[name].launches
+        got = wrappers[name](u_w, s_w, k_w, dkt_w)
+        torch.cuda.synchronize()
+        check(wrappers[name].launches == n0 + 1 and all(
+            torch.equal(got[a:a + 2**17], rk.pair_lerp_plain(
+                u_w[a:a + 2**17], s_w[a:a + 2**17], k_w, dkt_w))
+            for a in range(0, u_w.shape[0], 2**17)),
+              f"{name} past 32-bit offsets {tuple(u_w.shape)} -> "
+              f"{k_w.numel()} k: one launch, bit for bit")
+        del u_w, s_w, got
+        torch.cuda.empty_cache()
+        print(f"[kernel] {name} vs pair_lerp_plain on {n_edge} edge cases "
+              f"(nk 1-4,097 x rows 1-4,001, nkt 3-40,001, positions on 1 "
+              f"and nkt - 1, unsorted and repeated targets, a (2, 3) batch), "
+              f"a vmapped call over 5 tables and a table of 1,048,128 x "
+              f"2,049 (offsets past 2^31): equal bit for bit, one launch "
+              f"each")
 
     # ---- phase 3: both main paths at full width vs the golden files -----
     def reset_counts():

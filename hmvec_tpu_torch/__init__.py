@@ -16,11 +16,14 @@ kernel's plain version.  The pipelines, in ``hmvec_tpu_torch.pipeline``
 ``make_batched_fn``, which batches any of them over sets of parameters),
 take ``device=`` explicitly.
 
-The free functions of the lensing modules (``shear``, ``master``,
-``lensed_cls``, ``lensed_cf``, ``lensing_noise``) run on the device of
-their first tensor argument, or on ``device=`` (the card by default) when
-given only host data.  The public names of ``hmvec_tpu`` whose modules are still to be ported are
-listed in ROADMAP.md (A9) and the README.
+The free functions that make tensors of what they are given run on the
+device of their first tensor argument, or on ``device=`` (the card by
+default) when given only host data, all by one rule
+(``utils.weights.on_device_of_inputs``); those that compute in the array
+library they are given (numpy in, numpy out) do so as the JAX package's
+do, and ``distances_ext.solve_h0_from_theta100`` bisects on the host.
+The public names of ``hmvec_tpu`` whose modules are still to be ported
+are listed in ROADMAP.md (A9) and the README.
 """
 
 from .params import battaglia_defaults, default_params, merge_params  # noqa: F401

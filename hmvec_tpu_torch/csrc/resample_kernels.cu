@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernel for the resample step of the numeric
+// Hand-written Hopper (sm_90a) kernels for the resample step of the numeric
 // profile transform (hmvec_tpu_torch/ops/sine_transform.py:
 // resample_uniform_source), with a plain C interface for ctypes
 // (hmvec_tpu_torch/kernels/_build.py builds it with nvcc; the Python
@@ -15,92 +15,303 @@
 //   val  = u[b, i0] + frac (u[b, i0 + 1] - u[b, i0])
 //   val  = u[b, 1]  where p < 1         (flat below the first kt > 0)
 //   val  = 0        where p > nkt - 1   (zero above Nyquist)
-// so neither i0 nor frac is ever written to device memory.
+// so neither i0 nor frac is ever written to device memory.  Below p = 1
+// the clamp gives i0 = 1, so u[b, i0] is already u[b, 1]: every target
+// loads the same two samples, whatever its branch.
 //
 // The TPU kernel's one-hot lane reductions and hi/lo split existed because
 // Mosaic has no float64 and XLA's TPU gather was slow; here each thread
-// loads its two samples directly.  T is only the storage type of u: the
-// index math and the lerp run in float64 for both instantiations, and the
-// output is float64.  The arithmetic uses the round-to-nearest intrinsics
-// in the plain version's order (multiply, then divide by dkt; no FMA
-// contraction of the lerp), so the kernel agrees with
+// loads its samples directly.  T is only the storage type of u: the index
+// math and the lerp run in float64 for both instantiations, and the output
+// is float64.  The arithmetic uses the round-to-nearest intrinsics in the
+// plain version's order (multiply, then divide by dkt; no reciprocal, no
+// FMA contraction of the lerp), so the kernel agrees with
 // resample_kernels.pair_lerp_plain bit for bit.
 //
-// What bounds it on this card: a few float64 operations per output
-// element against 8 bytes written and two samples read, so device memory
-// bandwidth.  This first version is the simple one: one thread per output
-// element, rows on gridDim.x (the kSZ paths bring batches of ~1,000 masses
-// per redshift), 256 targets per block along gridDim.y, read-only cached
-// loads; the samples a warp touches are neighbours in one row, since the
-// targets are sorted.  Staging each row's touched window in shared memory
-// and vector loads are left for later.
+// What bounds it on this card: the float64 output, 8 bytes per target,
+// against a sparse read of the table (a row's targets touch a few hundred
+// of its thousands of samples) and ~20 float64 operations per target (the
+// correctly rounded division among them).  A large call is bound by
+// device memory, mostly the write stream, with the instructions that
+// issue the gathers close behind; a small one by the latency of one chain
+// of two dependent loads.  So two kernels:
+// - large calls (the 4,000-row tables, 4.0 M targets): the output is one
+//   flat array of rows x nk doubles, written in 16-byte pairs (one
+//   st.global.v2.f64 each) whatever the row length; a pair may straddle
+//   two rows when nk is odd, its two targets then taking their own row's
+//   scale and samples.  A thread owns two pairs, pair i of thread t at
+//   i x 256 + t of its block's range, so that each store instruction of a
+//   warp writes 512 contiguous bytes; it computes its four positions,
+//   issues its eight sample loads and only then lerps and stores, so that
+//   its own loads cover each other's latency.  The grid is one wave
+//   (blocks per SM from the occupancy API), each block striding over the
+//   output.  Indices are 32-bit where they fit, the column of a flat
+//   index by a multiply-high with a magic number (no division by nk).
+// - small calls (one wave of one-target threads: the kSZ call's 500 x 101,
+//   the survey's 2,000 x 101): as many whole rows a block as 256 threads
+//   hold, one target a thread on a 2-d block (column, row: no division),
+//   loading only the samples its branch reads, so that a row stays in one
+//   block and one L1.
+// Tried and not kept (PERF.md, PR 12): streaming stores (st.global.cs,
+// faster only while the L2 holds the table, not with the L2 flushed);
+// loads predicated by branch in the large kernel (more registers, fewer
+// blocks per SM); one or two targets a thread of the flat output (slower
+// than two pairs on the large tables and than whole rows on the small);
+// 128-thread blocks; in the small kernel, the clamp before the first
+// load and __launch_bounds__ (kSZ ~1% slower).  Staging each row's
+// touched window of u in shared memory was not tried: the window, 16-29%
+// of a row on average at the 4,000-row tables, holds more bytes than the
+// 32-byte sectors that the gathers read.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;  // targets per block
+constexpr int kThreads = 256;  // threads per block
+constexpr int kPairs = 2;      // 16-byte target pairs a thread, large calls
 
-template <typename T>
-__global__ void pair_lerp_kernel(const T* __restrict__ u,
-                                 const double* __restrict__ scales,
-                                 const double* __restrict__ ks, double dkt,
-                                 double* __restrict__ out, int nkt, int nk) {
-  const int j = blockIdx.y * kThreads + threadIdx.x;
-  if (j >= nk) return;
-  const long long b = blockIdx.x;
-  const T* row = u + b * nkt;
-  const double p = __ddiv_rn(__dmul_rn(__ldg(ks + j), __ldg(scales + b)), dkt);
-  double val;
-  if (p > static_cast<double>(nkt - 1)) {
-    val = 0.0;
-  } else if (p < 1.0) {
-    val = static_cast<double>(__ldg(row + 1));
-  } else {
-    // p >= 1, so floor(p) >= 1 and only the upper clamp can act
-    const double i0d = fmin(floor(p), static_cast<double>(nkt - 2));
-    const int i0 = static_cast<int>(i0d);
-    const double frac = __dsub_rn(p, i0d);
-    const double u0 = static_cast<double>(__ldg(row + i0));
-    const double u1 = static_cast<double>(__ldg(row + i0 + 1));
-    val = __dadd_rn(u0, __dmul_rn(frac, __dsub_rn(u1, u0)));
+// n / d and n % d for the launch's one divisor d = nk: in 32 bits by a
+// multiply-high with a magic number where every flat index is below
+// 2^31 (Narrow), else in 64 bits.  For d > 1, m = ceil(2^p / d) with p =
+// 31 + ceil(log2 d) gives floor(n m / 2^p) = floor(n / d) for n < 2^31
+// (the error n (m - 2^p / d) / 2^p stays below 1/d); d = 1 is n itself.
+struct Divisor {
+  long long d;
+  unsigned magic;
+  int shift;
+};
+
+Divisor make_divisor(int d) {
+  Divisor out{d, 0u, 0};
+  if (d > 1) {
+    int log2d = 0;
+    while ((1LL << log2d) < d) ++log2d;
+    const int p = 31 + log2d;
+    out.magic = static_cast<unsigned>(((1ULL << p) + d - 1) / d);
+    out.shift = p - 32;
   }
-  out[b * nk + j] = val;
+  return out;
+}
+
+template <bool Narrow>
+__device__ __forceinline__ void row_col(long long e, const Divisor& div,
+                                        long long& b, long long& j) {
+  if (Narrow) {
+    const unsigned n = static_cast<unsigned>(e);
+    const unsigned q = div.magic ? __umulhi(n, div.magic) >> div.shift : n;
+    b = q;
+    j = n - q * static_cast<unsigned>(div.d);
+  } else {
+    b = e / div.d;
+    j = e - b * div.d;
+  }
+}
+
+// The resample of one target at position p in a row of u: only the
+// samples its branch reads are loaded (none above Nyquist, u[b, 1] below
+// p = 1, before any clamp), which shortens the one chain of a
+// latency-bound call.
+template <typename T>
+__device__ __forceinline__ double lerp_one(const T* __restrict__ row,
+                                           double p, int nkt) {
+  if (p > static_cast<double>(nkt - 1)) return 0.0;
+  if (p < 1.0) return static_cast<double>(__ldg(row + 1));
+  // p >= 1, so floor(p) >= 1 and only the upper clamp can act
+  const double i0d = fmin(floor(p), static_cast<double>(nkt - 2));
+  const int i0 = static_cast<int>(i0d);
+  const double u0 = static_cast<double>(__ldg(row + i0));
+  const double u1 = static_cast<double>(__ldg(row + i0 + 1));
+  return __dadd_rn(u0, __dmul_rn(__dsub_rn(p, i0d), __dsub_rn(u1, u0)));
+}
+
+// Small calls (one wave of one-target threads, nk <= 256): whole rows a
+// block, thread (x, y) on column x of the block's row y, the block nk
+// rounded up to whole warps wide, so that a row's targets and samples stay
+// in one block and its SM's L1 and a thread finds its target without a
+// division.
+template <typename T>
+__global__ void pair_lerp_rows_kernel(const T* __restrict__ u,
+                                      const double* __restrict__ scales,
+                                      const double* __restrict__ ks,
+                                      double dkt, double* __restrict__ out,
+                                      int nkt, int nk, int rows) {
+  const int j = threadIdx.x;
+  const long long b =
+      static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
+  if (j >= nk || b >= rows) return;
+  const double p =
+      __ddiv_rn(__dmul_rn(__ldg(ks + j), __ldg(scales + b)), dkt);
+  out[b * nk + j] = lerp_one(u + b * nkt, p, nkt);
+}
+
+// Large calls: the flat output in 16-byte pairs, kPairs pairs a thread.
+template <typename T, bool Narrow>
+__global__ void __launch_bounds__(kThreads)
+    pair_lerp_kernel(const T* __restrict__ u,
+                     const double* __restrict__ scales,
+                     const double* __restrict__ ks, double dkt,
+                     double* __restrict__ out, int nkt, Divisor nk,
+                     long long total) {
+  // flat indices, row offsets of u and columns in 32 bits where they fit
+  using Index = typename std::conditional<Narrow, int, long long>::type;
+  constexpr int V = 2 * kPairs;  // targets a thread
+  const Index n = static_cast<Index>(total);
+  const Index npairs = (n + 1) / 2;
+  const Index per_block = kThreads * kPairs;
+  const double top = static_cast<double>(nkt - 1);
+  const double last = static_cast<double>(nkt - 2);
+  for (Index base = static_cast<Index>(blockIdx.x) * per_block;
+       base < npairs; base += static_cast<Index>(gridDim.x) * per_block) {
+    double p[V], i0d[V], u0[V], u1[V];
+    Index off[V];
+    bool ok[V];
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const Index e =
+          2 * (base + i * kThreads + static_cast<Index>(threadIdx.x));
+      long long b, j;
+      row_col<Narrow>(e, nk, b, j);
+      // the pair's second target: the next column, or the next row's
+      // first (a pair straddles two rows when nk is odd)
+      const bool seam = j + 1 == nk.d;
+      ok[2 * i] = e < n;
+      ok[2 * i + 1] = e + 1 < n;
+      const double s0 = ok[2 * i] ? __ldg(scales + b) : 0.0;
+      const double s[2] = {
+          s0, seam && ok[2 * i + 1] ? __ldg(scales + b + 1) : s0};
+      const double k[2] = {
+          ok[2 * i] ? __ldg(ks + j) : 0.0,
+          ok[2 * i + 1] ? __ldg(ks + (seam ? 0 : j + 1)) : 0.0};
+      const Index row0 = static_cast<Index>(b) * nkt;
+      const Index row[2] = {row0, seam ? row0 + nkt : row0};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int v = 2 * i + h;
+        p[v] = __ddiv_rn(__dmul_rn(k[h], s[h]), dkt);
+        i0d[v] = fmin(fmax(floor(p[v]), 1.0), last);
+        off[v] = row[h] + static_cast<int>(i0d[v]);
+      }
+    }
+    // every sample load of the thread in flight before the first lerp;
+    // each target loads both samples, whatever its branch (predicating
+    // them by branch costs registers, and so occupancy, more than the
+    // loads: PERF.md, PR 12)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      u0[v] = ok[v] ? static_cast<double>(__ldg(u + off[v])) : 0.0;
+      u1[v] = ok[v] ? static_cast<double>(__ldg(u + off[v] + 1)) : 0.0;
+    }
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      double val[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int v = 2 * i + h;
+        const double frac = __dsub_rn(p[v], i0d[v]);
+        const double lerp =
+            __dadd_rn(u0[v], __dmul_rn(frac, __dsub_rn(u1[v], u0[v])));
+        val[h] = p[v] > top ? 0.0 : (p[v] < 1.0 ? u0[v] : lerp);
+      }
+      const Index e =
+          2 * (base + i * kThreads + static_cast<Index>(threadIdx.x));
+      if (ok[2 * i + 1]) {
+        *reinterpret_cast<double2*>(out + e) = make_double2(val[0], val[1]);
+      } else if (ok[2 * i]) {
+        out[e] = val[0];
+      }
+    }
+  }
 }
 
 template <typename T>
 int launch_pair_lerp(const T* u, const double* scales, const double* ks,
                      double dkt, double* out, int rows, int nkt, int nk,
-                     int device, void* stream) {
+                     int blocks, int rows_per_block, int device,
+                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(rows, (nk + kThreads - 1) / kThreads);
-  pair_lerp_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      u, scales, ks, dkt, out, nkt, nk);
+  if (reinterpret_cast<std::uintptr_t>(out) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows_per_block > 0) {
+    const dim3 block((nk + 31) / 32 * 32, rows_per_block);
+    if (static_cast<long long>(block.x) * block.y > kThreads) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    pair_lerp_rows_kernel<T><<<blocks, block, 0, s>>>(u, scales, ks, dkt,
+                                                       out, nkt, nk, rows);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long total = static_cast<long long>(rows) * nk;
+  // every flat index a launch forms, and every offset into u, below 2^31
+  const bool narrow =
+      total + 2LL * kThreads * kPairs * blocks < (1LL << 31) &&
+      static_cast<long long>(rows + 1) * nkt < (1LL << 31);
+  const Divisor div = make_divisor(nk);
+  if (narrow) {
+    pair_lerp_kernel<T, true><<<blocks, kThreads, 0, s>>>(
+        u, scales, ks, dkt, out, nkt, div, total);
+  } else {
+    pair_lerp_kernel<T, false><<<blocks, kThreads, 0, s>>>(
+        u, scales, ks, dkt, out, nkt, div, total);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// resident blocks per SM of the kernel of whole rows a block (rows) or of
+// the flat one, at 256 threads a block (the flat kernel's 32-bit
+// instantiation, which every launch at the main path's shapes takes)
+template <typename T>
+int blocks_per_sm(bool rows, int* out) {
+  return static_cast<int>(
+      rows ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 out, pair_lerp_rows_kernel<T>, kThreads, 0)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 out, pair_lerp_kernel<T, true>, kThreads, 0));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each function launches on `stream` (PyTorch's current stream), does not
-// synchronise, and returns the cudaError_t of the launch (0 on success).
-// u is (rows, nkt), scales (rows,), ks (nk,), out (rows, nk), all
-// contiguous; the wrapper checks rows <= 2^31 - 1 and the grid's y limit.
+// Each launch function launches on `stream` (PyTorch's current stream),
+// does not synchronise, and returns the cudaError_t of the launch (0 on
+// success).  u is (rows, nkt), scales (rows,), ks (nk,), out (rows, nk), all
+// contiguous, out 16-byte aligned.  With rows_per_block > 0, `blocks`
+// blocks of rows_per_block whole rows, one target a thread (nk rounded up
+// to whole warps, times rows_per_block, at most 256 threads); else
+// `blocks` blocks of 256 threads, each two pairs of targets of the flat
+// output per pass of its block's stride (resample_kernels.
+// pair_lerp_geometry chooses both).
 
 int hmvec_pair_lerp_f64(const double* u, const double* scales,
                         const double* ks, double dkt, double* out, int rows,
-                        int nkt, int nk, int device, void* stream) {
+                        int nkt, int nk, int blocks, int rows_per_block,
+                        int device, void* stream) {
   return launch_pair_lerp<double>(u, scales, ks, dkt, out, rows, nkt, nk,
-                                  device, stream);
+                                  blocks, rows_per_block, device, stream);
 }
 
 int hmvec_pair_lerp_f32(const float* u, const double* scales,
                         const double* ks, double dkt, double* out, int rows,
-                        int nkt, int nk, int device, void* stream) {
+                        int nkt, int nk, int blocks, int rows_per_block,
+                        int device, void* stream) {
   return launch_pair_lerp<float>(u, scales, ks, dkt, out, rows, nkt, nk,
-                                 device, stream);
+                                 blocks, rows_per_block, device, stream);
+}
+
+// Resident blocks per SM of the kernel of whole rows (rows != 0) or the
+// flat one for float32 (f32 != 0) or float64 storage, into *out; returns
+// the cudaError_t.
+int hmvec_pair_lerp_blocks_per_sm(int f32, int rows, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return f32 ? blocks_per_sm<float>(rows != 0, out)
+             : blocks_per_sm<double>(rows != 0, out);
 }
 
 }  // extern "C"

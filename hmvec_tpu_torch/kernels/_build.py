@@ -249,8 +249,11 @@ def _declare(lib):
     fn.restype = i
     for name in ("hmvec_pair_lerp_f64", "hmvec_pair_lerp_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, d, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, d, p, i, i, i, i, i, i, p]
         fn.restype = i
+    fn = lib.hmvec_pair_lerp_blocks_per_sm
+    fn.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = i
     return lib
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.quadrature import lerp_index, trapz_traced
+from ..utils.weights import on_device_of_inputs, tensor_or_f64
 from .power import CIBTracer, HODTracer, _leg, _mass_integral, _term
 
 _F64 = torch.float64
@@ -289,6 +290,7 @@ def bispectrum_total(t1, t2, t3, nzm, bh, ms, ks, pzk_lin, rho_matter0,
 
 # ---- projection -------------------------------------------------------------
 
+@on_device_of_inputs
 def projected_bispectrum(ells1, ells2, ells3, zs, hzs, chis,
                          Wz1s, Wz2s, Wz3s, B_fn):
     """Flat-sky Limber reduced bispectrum in limber_integral's window
@@ -298,6 +300,7 @@ def projected_bispectrum(ells1, ells2, ells3, zs, hzs, chis,
 
     B_fn mapping three (nz, nl) leg-wavenumber tensors to B(z, l); the ell
     triplets broadcast to one (nl,) shape, a window None is unity."""
+    chis, hzs = tensor_or_f64(chis), tensor_or_f64(hzs)
     dev = chis.device
     e1, e2, e3 = torch.broadcast_tensors(*(
         torch.atleast_1d(torch.as_tensor(e, dtype=_F64, device=dev))

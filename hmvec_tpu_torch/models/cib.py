@@ -20,7 +20,8 @@ import math
 import numpy as np
 import torch
 
-from ..utils.weights import f64, host, mass_weights, trapz_weights
+from ..utils.weights import (f64, host, mass_weights, on_device_of_inputs,
+                             tensor_or_f64, trapz_weights)
 from .mass_function import n_ln_m_sub
 from .power import CIBTracer
 
@@ -55,10 +56,12 @@ def _sed_transition_x(beta, gamma):
     return x
 
 
+@on_device_of_inputs
 def sed_graybody(nu_ghz, zs, params):
     """Theta(nu, z), (nz,): nu^beta B_nu(T_d) below nu0(z), its
     (nu / nu0)^-gamma continuation above, at the rest-frame (1+z) nu of
-    the observed frequency nu_ghz; zs a float64 tensor."""
+    the observed frequency nu_ghz; zs a float64 tensor or array."""
+    zs = tensor_or_f64(zs)
     beta = params["cib_beta"]
     gamma = params["cib_gamma"]
     td = params["cib_T0"] * (1.0 + zs) ** params["cib_alpha"]
@@ -80,6 +83,7 @@ def sigma_lum_mass(ms, params):
     return ms / math.sqrt(2.0 * math.pi * var) * torch.exp(-arg)
 
 
+@on_device_of_inputs
 def cib_luminosity(ms, zs, nu_ghz, params):
     """L_(1+z)nu(M, z) on the (nz, nm) grid, in L0 units; ms and zs on one
     device (ms may be a host array)."""

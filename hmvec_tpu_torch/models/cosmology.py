@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..params import merge_params, to_torch_params
+from ..utils.weights import on_device_of_inputs
 from . import background as bgmod
 from . import distances_ext as dext
 from . import ia as iam
@@ -47,6 +48,7 @@ _F64 = torch.float64
 DEFERRED = {}
 
 
+@on_device_of_inputs
 def a2z(a):
     """Scale factor -> redshift."""
     return 1.0 / torch.atleast_1d(torch.as_tensor(a, dtype=_F64)) - 1.0

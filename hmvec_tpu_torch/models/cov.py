@@ -23,12 +23,14 @@ import torch
 
 from ..ops.quadrature import gradient, lerp_index, linear_interp
 from ..ops.special import Wkr, disk_window
-from ..utils.weights import device_of, f64, grid_weights, host
+from ..utils.weights import (device_of, f64, grid_weights, host,
+                             on_device_of_inputs, tensor_or_f64)
 from .limber import interp_pzk_at_curve
 
 _F64 = torch.float64
 
 
+@on_device_of_inputs
 def angular_correlation(ells, cls, thetas_rad):
     """w(theta) = sum_l (2l+1)/(4pi) C_l P_l(cos theta) for consecutive
     integer ells (nl,), cls (..., nl) and thetas (nt,): the (0, 0) Wigner
@@ -37,6 +39,7 @@ def angular_correlation(ells, cls, thetas_rad):
     return wigner_d_sum(ells, cls, thetas_rad, mn=(0, 0))
 
 
+@on_device_of_inputs
 def bin_annuli(ells, cls, bin_edges):
     """ell-weighted bandpower binning; the last bin holds its right edge
     (scipy's binned_statistic)."""
@@ -126,20 +129,25 @@ class GaussianCov:
             / fsky
 
 
+@on_device_of_inputs
 def knox_cov(cl_xw, cl_yz, cl_xz, cl_yw, ell_mids, delta_ells, fsky):
     """The Knox formula on binned total spectra."""
+    cl_xw, cl_yz, cl_xz, cl_yw = map(tensor_or_f64,
+                                     (cl_xw, cl_yz, cl_xz, cl_yw))
     clsum = cl_xw * cl_yz + cl_xz * cl_yw
-    dev = device_of(clsum)
+    dev = clsum.device
     return clsum / (2.0 * f64(ell_mids, dev) + 1.0) / f64(delta_ells, dev) \
         / fsky
 
 
 # ---- P(k) covariance: Gaussian + 1-halo trispectrum + super-sample ---------
 
+@on_device_of_inputs
 def pk_cov_gaussian(ks, pk_tot, volume_mpc3, dks=None):
     """Diagonal Gaussian covariance of shell-averaged P(k) in a volume:
     2 P(k_i)^2 / N_i, N_i = V k_i^2 dk_i / (2 pi^2) modes (dk by unit-
     spacing np.gradient of ks); pk_tot (..., nk).  Returns (..., nk, nk)."""
+    pk_tot = tensor_or_f64(pk_tot)
     dev = pk_tot.device
     ks = f64(ks, dev)
     dks = torch.gradient(ks)[0] if dks is None else f64(dks, dev)
@@ -157,22 +165,24 @@ def _contract_m(nzm, ms, t12, t34):
                      t34)
 
 
+@on_device_of_inputs
 def trispectrum_1h(nzm, ms, rho_matter0, uk1, uk2=None):
     """Connected 1-halo matter trispectrum T(z, k, k') = int dm n (m /
     rho_m0)^4 u1(k)^2 u2(k')^2, contracted over m, never materializing the
     (z, m, k, k') grid."""
-    if uk2 is None:
-        uk2 = uk1
+    nzm, uk1 = tensor_or_f64(nzm), tensor_or_f64(uk1)
+    uk2 = uk1 if uk2 is None else tensor_or_f64(uk2)
     mfac = (f64(ms, nzm.device) / rho_matter0) ** 2
     a1 = uk1**2 * mfac[None, :, None]
     a2 = uk2**2 * mfac[None, :, None]
     return _contract_m(nzm, ms, a1, a2)
 
 
+@on_device_of_inputs
 def trispectrum_1h_terms(nzm, ms, term12, term34):
     """T(z, k, k') = int dm n t1 t2(k) t3 t4(k') from two (z, m, k) 1-halo
     pair terms (power.one_halo_square_term), for any tracer pairing."""
-    return _contract_m(nzm, ms, term12, term34)
+    return _contract_m(*map(tensor_or_f64, (nzm, ms, term12, term34)))
 
 
 def _interp2_loglog(t_zkk, lks, lke):
@@ -193,6 +203,7 @@ def _interp2_loglog(t_zkk, lks, lke):
             + torch.gather(A, 1, ia + 1) * ta)               # (nz, nl, nl)
 
 
+@on_device_of_inputs
 def cl_cov_t1h(ells, zs, ks, t_zkk, Wz1s, Wz2s, hzs, chis, fsky=1.0,
                Wz3s=None, Wz4s=None):
     """Connected (1-halo trispectrum) covariance of C_ell bandpowers,
@@ -202,6 +213,7 @@ def cl_cov_t1h(ells, zs, ks, t_zkk, Wz1s, Wz2s, hzs, chis, fsky=1.0,
 
     with limber_integral's window, H and chi conventions; Wz3s/Wz4s
     default to Wz1s/Wz2s."""
+    t_zkk = tensor_or_f64(t_zkk)
     dev = t_zkk.device
     ells = f64(ells, dev)
     lks = torch.log(f64(ks, dev))
@@ -216,10 +228,12 @@ def cl_cov_t1h(ells, zs, ks, t_zkk, Wz1s, Wz2s, hzs, chis, fsky=1.0,
     return torch.tensordot(wz, integrand, dims=1)
 
 
+@on_device_of_inputs
 def sigma_b2_disk(fsky, chis, ks_lin, plin):
     """Per-z variance of the background mode over the flat-sky survey disk,
     sigma_b^2(z) = (1/2 pi) int dk k P_lin(z, k) W^2(k chi theta_s), W the
     disk window 2 J1(x)/x of the cap of area 4 pi fsky.  plin (nz, nk)."""
+    plin = tensor_or_f64(plin)
     dev = plin.device
     theta_s = math.acos(1.0 - 2.0 * fsky)
     ks = f64(ks_lin, dev)
@@ -332,20 +346,24 @@ def joint_counts_cl_cov(N_i, bN_i, sigma2_ij, r_bl, cov_cl_gauss=None):
                       torch.cat([top_right.T, bot_right], dim=1)], dim=0)
 
 
+@on_device_of_inputs
 def pk_response_ssc(ks, pk):
     """Linear response dP/d(delta_b) = (68/21 - (1/3) dln(k^3 P)/dln k) P
     (beat coupling and dilation, Takada & Hu 2013), along the last axis of
     pk (..., nk)."""
+    pk = tensor_or_f64(pk)
     ks = f64(ks, pk.device)
     lnk3p = torch.log(ks**3 * pk)
     dlnk3p = gradient(lnk3p, torch.log(ks), dim=-1)
     return (68.0 / 21.0 - dlnk3p / 3.0) * pk
 
 
+@on_device_of_inputs
 def sigma_b2_tophat(volume_mpc3, ks_lin, plin):
     """Variance of the background mode over a spherical volume,
     sigma_b^2 = (1/2 pi^2) int dk k^2 P_lin(k) W^2(kR), R = (3V/4pi)^(1/3);
     plin (..., nk) -> (...,)."""
+    plin = tensor_or_f64(plin)
     dev = plin.device
     ks = f64(ks_lin, dev)
     R = (3.0 * volume_mpc3 / (4.0 * math.pi)) ** (1.0 / 3.0)
@@ -354,9 +372,11 @@ def sigma_b2_tophat(volume_mpc3, ks_lin, plin):
     return integrand @ grid_weights(ks_lin, dev)
 
 
+@on_device_of_inputs
 def pk_cov_ssc(response, sigma_b2):
     """Super-sample covariance R(k) R(k') sigma_b^2: rank one per leading
     index; response (..., nk), sigma_b2 (...,)."""
+    response = tensor_or_f64(response)
     return (response[..., :, None] * response[..., None, :]
             * torch.as_tensor(sigma_b2, dtype=_F64,
                               device=response.device)[..., None, None])

@@ -106,7 +106,10 @@ def solve_h0_from_theta100(params: dict, theta100: float,
     """H0 that reproduces the requested 100 theta_s, by a 60-step bisection
     on the host: each step builds the background on the CPU in float64 and
     evaluates ``theta_star_approx`` (which increases with H0).  Tensor
-    parameters are read once, as Python floats."""
+    parameters are read once, as Python floats.  The one free function
+    that stays on the CPU by design, whatever the caller's device: each of
+    its 60 steps branches on one scalar, which on the card would be a
+    launch and a read back per step, and the answer is a Python float."""
     base = {k: (float(v.detach()) if isinstance(v, torch.Tensor) else v)
             for k, v in params.items()}
     cpu = torch.device("cpu")

@@ -25,7 +25,8 @@ import torch
 
 from ..ops.quadrature import linear_interp
 from ..ops.rootfind import invert_monotone
-from ..utils.weights import device_of, f64, mass_weights
+from ..utils.weights import (device_of, f64, mass_weights, on_device_of_inputs,
+                             tensor_or_f64)
 
 _F64 = torch.float64
 
@@ -43,6 +44,7 @@ def _behroozi_core(log10mstar, a, p):
             + 10.0 ** (delta * d) / (1.0 + 10.0 ** (-gamma * d)))
 
 
+@on_device_of_inputs
 def Mhalo_stellar_core(log10mstellar, a, Mstar00, Mstara, M1, M1a,
                        beta0, beta_a, gamma0, gamma_a, delta0, delta_a):
     """log10 M_halo from log10 M* at scale factor a, with the ten Behroozi
@@ -58,6 +60,7 @@ _BEHROOZI_LOWZ = (10.72, 0.55, 12.35, 0.28, 0.44, 0.18, 1.56, 2.51, 0.57, 0.17)
 _BEHROOZI_HIZ = (11.09, 0.56, 12.27, -0.84, 0.65, 0.31, 1.12, -0.53, 0.56, -0.12)
 
 
+@on_device_of_inputs
 def mhalo_from_mstellar(zs, log10mstellar):
     """log10 M_halo(M*).  zs: (nz,) or (nz, 1); log10mstellar:
     broadcastable to (nz, n)."""
@@ -74,6 +77,7 @@ def mhalo_from_mstellar(zs, log10mstellar):
 _MSTAR_GRID = np.linspace(-18.0, 18.0, 4000)
 
 
+@on_device_of_inputs
 def mstellar_from_mhalo(zs, log10mhalo):
     """log10 M*(M_halo): the Behroozi relation inverted on a dense grid,
     shape (nz, n) for log10mhalo (n,) or (1, n)."""
@@ -114,10 +118,12 @@ def avg_ns(log10mhalo, zs, log10mstellar_thresh, Nc, hod_params,
             * torch.exp(-Mcut / masses))
 
 
+@on_device_of_inputs
 def avg_nsnsm1(Nc, Ns, corr="max"):
     """<Ns(Ns-1)>.  Nc counts as zero where numpy.isclose(Nc, 0) holds with
     its default tolerances, |Nc| <= 1e-8, as in the JAX package (written
     out: torch.isclose has no batching rule under vmap)."""
+    Nc, Ns = tensor_or_f64(Nc), tensor_or_f64(Ns)
     if corr == "max":
         zero = Nc.abs() <= 1e-8
         return torch.where(zero, 0.0, Ns**2 / torch.where(zero, 1.0, Nc))
@@ -144,6 +150,7 @@ avg_NcNs = avg_ncns
 hod_default_mfunc = _default_mfunc
 
 
+@on_device_of_inputs
 def avg_Ns(log10mhalo, z, log10mstellar_thresh, Nc=None,
            sig_log_mstellar=None, alphasat=None, Bsat=None, betasat=None,
            Bcut=None, betacut=None, Msat_override=None, Mcut_override=None):
@@ -156,16 +163,20 @@ def avg_Ns(log10mhalo, z, log10mstellar_thresh, Nc=None,
                   Msat_override=Msat_override, Mcut_override=Mcut_override)
 
 
+@on_device_of_inputs
 def avg_nc_zheng05(log10mhalo, log10mmin, siglogm):
     """Zheng et al. 2005/2007 central occupation
     <Nc> = (1/2)[1 + erf((log10 M - log10 Mmin) / sigma_logM)]."""
-    return 0.5 * (1.0 + torch.erf((log10mhalo - log10mmin) / siglogm))
+    return 0.5 * (1.0 + torch.erf((tensor_or_f64(log10mhalo) - log10mmin)
+                                  / siglogm))
 
 
+@on_device_of_inputs
 def avg_ns_zheng05(masses, Nc, m0, m1, alpha):
     """Zheng-05 satellite occupation <Ns> = Nc ((M - M0) / M1')^alpha for
     M > M0, else 0 (the double where keeps the gradient finite at the
     cutoff for a non-integer alpha)."""
+    masses, Nc = tensor_or_f64(masses), tensor_or_f64(Nc)
     pos = masses > m0
     frac = torch.where(pos, (masses - m0) / m1, 1.0)
     return torch.where(pos, Nc * frac**alpha, 0.0)
@@ -191,6 +202,7 @@ def _finish(grid_at, thresh, nzm, bh, w, corr):
                    log10mthresh=thresh)
 
 
+@on_device_of_inputs
 def build_hod_zheng05(zs, ms, nzm, bh, hod_params, ngal=None, corr="max"):
     """Zheng-05 HOD grid on (zs, ms); if ``ngal`` (nz,) is given, solve
     log10 Mmin for it by the same fixed-count bisection as the
@@ -198,6 +210,7 @@ def build_hod_zheng05(zs, ms, nzm, bh, hod_params, ngal=None, corr="max"):
 
     Returns an HODGrid whose log10mthresh carries log10 Mmin.
     """
+    nzm, bh = tensor_or_f64(nzm), tensor_or_f64(bh)
     dev = nzm.device
     zs, ms = f64(zs, dev), f64(ms, dev)
     w = mass_weights(ms)
@@ -256,10 +269,12 @@ def _nc_ns_precomp(log10mstar, masses, zs, thresh, hod_params,
     return Nc, Ns
 
 
+@on_device_of_inputs
 def ngal_from_mthresh(log10mthresh, zs, nzm, ms, hod_params,
                       Msat_override=None, Mcut_override=None, weights=None):
     """n_gal(z) = int dm n(z, m) (Nc + Ns).  ``weights``: optional
     precomputed trapezoid weights of the mass grid."""
+    nzm = tensor_or_f64(nzm)
     dev = nzm.device
     ms = f64(ms, dev)
     log10mhalo = torch.log10(ms)[None, :]

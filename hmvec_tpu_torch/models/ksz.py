@@ -25,6 +25,7 @@ import torch
 
 from ..ops.quadrature import linear_interp, trapz, trapz_traced
 from ..params import default_params, merge_params
+from ..utils.weights import on_device_of_inputs, tensor_or_f64
 from . import background as bgmod
 from .cosmology import Cosmology
 from .halo_model import HaloModel
@@ -69,6 +70,7 @@ def ne0_shaw(ombh2, Yp, NHe=0, me=1.14, gasfrac=0.9):
     return chi_ion(Yp, NHe) * omgh2 * fact / mu_e
 
 
+@on_device_of_inputs
 def ksz_radial_function(z, ombh2, Yp, gasfrac=0.9, xe=1, tau=0, params=None):
     """K(z) = T_CMB sigma_T n_e0 x_e exp(-tau) (1+z)^2 (1810.13423 eq. 4).
 
@@ -92,6 +94,7 @@ def _sanitize(x):
     return torch.where(torch.isfinite(x), x, 0.0)
 
 
+@on_device_of_inputs
 def get_interpolated_cls(Cls, chistar, kss):
     """C_tot(l = chistar k) by integer lookup: l truncated to an integer,
     zero below l = 2, inf beyond lmax."""
@@ -108,6 +111,7 @@ def get_interpolated_cls(Cls, chistar, kss):
     return torch.where(ell <= n - 1, vals, math.inf)
 
 
+@on_device_of_inputs
 def Nvv_core_integral(chi_star, Fstar, mu, kL, kSs, Cls, Pge, Pgg_tot,
                       Pgg_photo_tot=None, errs=False, robust_term=False,
                       photo=True):
@@ -117,6 +121,9 @@ def Nvv_core_integral(chi_star, Fstar, mu, kL, kSs, Cls, Pge, Pgg_tot,
     is one trapezoid on the kSs grid."""
     if robust_term and photo:
         photo = False
+    Pge, Pgg_tot = tensor_or_f64(Pge), tensor_or_f64(Pgg_tot)
+    if Pgg_photo_tot is not None:
+        Pgg_photo_tot = tensor_or_f64(Pgg_photo_tot)
 
     if errs:
         ret_Pge = Pge
@@ -147,12 +154,14 @@ def Nvv_core_integral(chi_star, Fstar, mu, kL, kSs, Cls, Pge, Pgg_tot,
     return Nvv
 
 
+@on_device_of_inputs
 def pge_err_core(pgv_int, kstar, chistar, volume_gpc3, kss, ks_bin_edges,
                  pggtot, Cls):
     """Bandpower errors on Pge, one per bin of ``ks_bin_edges``: the
     trapezoid segments of each bin, masked per (bin, segment)."""
     volume = volume_gpc3 * 1e9
     kss = _tensor(kss)
+    pggtot = tensor_or_f64(pggtot)
     cltot = get_interpolated_cls(Cls, chistar, kss)
     integrand = _sanitize(kss / (pggtot * cltot))
     edges = _tensor(ks_bin_edges, kss.device)

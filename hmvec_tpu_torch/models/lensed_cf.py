@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from ..ops import special as sp
-from ..utils.weights import leggauss_cached, pick_device
+from ..utils.weights import (call_device, leggauss_cached,
+                             on_device_of_inputs)
 
 __all__ = ["lens_cls_flat_sky_resummed", "displacement_correlations"]
 
@@ -83,13 +84,14 @@ def _groups(nchunk, ntheta):
     return [slice(i, min(i + g, nchunk)) for i in range(0, nchunk, g)]
 
 
-def displacement_correlations(clpp, thetas, device="cuda"):
+@on_device_of_inputs
+def displacement_correlations(clpp, thetas):
     """(sigma2(th), cgl2(th), R) from raw C_l^phiphi (index = l):
 
     sigma2(th) = sum_l (l^3 C^pp/2pi)(1 - J0(l th)),
     cgl2(th)   = sum_l (l^3 C^pp/2pi) J2(l th),
     R = sigma2(inf)/2 = sum_l l^3 C^pp/4pi."""
-    dev = pick_device(clpp, thetas, device=device)
+    dev = call_device()
     clpp = torch.as_tensor(clpp, dtype=_F64, device=dev)
     thetas = torch.as_tensor(thetas, dtype=_F64, device=dev)
     nl = clpp.shape[0]
@@ -160,15 +162,15 @@ def _back_transform(d_xis, thetas, wthetas, lmax_out):
     return out.unbind(-1)
 
 
+@on_device_of_inputs
 def lens_cls_flat_sky_resummed(cl_unlensed, clpp, lmax_out=None,
-                               n_theta: int = 8192, theta_max=np.pi,
-                               device="cuda"):
+                               n_theta: int = 8192, theta_max=np.pi):
     """Lensed (lmax_out+1, 4) [TT, EE, BB, TE] from unlensed scalar C_l,
     resummed in sigma^2 (first order in C_gl,2): cl_unlensed (lmax_in+1,
     4) raw C_l, clpp (lmax_pp+1,) raw C_phiphi.  The theta quadrature is
     Gauss-Legendre on [0, theta_max]; n_theta must resolve ~2 lmax_in
     theta_max / pi oscillation pairs (the default handles lmax ~ 3500)."""
-    dev = pick_device(cl_unlensed, clpp, device=device)
+    dev = call_device()
     cl_unlensed = torch.as_tensor(cl_unlensed, dtype=_F64, device=dev)
     clpp = torch.as_tensor(clpp, dtype=_F64, device=dev)
     lmax_in = cl_unlensed.shape[0] - 1

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.quadrature import linear_interp
-from ..utils.weights import pick_device
+from ..utils.weights import call_device, on_device_of_inputs
 
 _F64 = torch.float64
 # elements of one (nodes, l', phi) temporary: 2^24 float64 = 128 MiB
@@ -103,8 +103,9 @@ def _lens_corrections(l_nodes, cl_tt, cl_ee, cl_te, clpp, n_phi: int = 256):
     return torch.cat(out).unbind(-1)
 
 
+@on_device_of_inputs
 def lens_cls_flat_sky(cl_unlensed, clpp, lmax_out: int | None = None,
-                      n_phi: int = 256, device="cuda"):
+                      n_phi: int = 256):
     """Lensed (lmax_out+1, 4) [TT, EE, BB, TE] from unlensed scalar C_l.
 
     cl_unlensed: (lmax_in+1, 4) raw C_l (muK^2), BB column ignored; clpp:
@@ -112,7 +113,7 @@ def lens_cls_flat_sky(cl_unlensed, clpp, lmax_out: int | None = None,
     few hundred l of headroom for the convolution's support.  The nodes'
     convolution runs on the device; the spline onto every l on the host.
     Returns a float64 tensor on the device."""
-    dev = pick_device(cl_unlensed, clpp, device=device)
+    dev = call_device()
     cl_np = np.asarray(torch.as_tensor(cl_unlensed, dtype=_F64).cpu())
     clpp_np = np.asarray(torch.as_tensor(clpp, dtype=_F64).cpu())
     lmax_in = cl_np.shape[0] - 1

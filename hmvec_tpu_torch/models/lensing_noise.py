@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from ..ops.quadrature import linear_interp
-from ..utils.weights import leggauss_cached, pick_device
+from ..utils.weights import (call_device, leggauss_cached,
+                             on_device_of_inputs)
 
 __all__ = ["white_noise_nl", "total_cl_tt", "n0_flat_sky",
            "n0_pair_flat_sky", "n0_cross_flat_sky", "n0_mv_flat_sky",
@@ -57,11 +58,11 @@ def _f64(x, dev):
     return torch.as_tensor(x, dtype=_F64, device=dev)
 
 
-def white_noise_nl(ells, noise_uk_arcmin, beam_fwhm_arcmin=0.0,
-                   device="cuda"):
+@on_device_of_inputs
+def white_noise_nl(ells, noise_uk_arcmin, beam_fwhm_arcmin=0.0):
     """Beam-deconvolved white noise in muK^2 for a map depth DT in
     muK-arcmin (sqrt(2) x the temperature depth for Q/U)."""
-    dev = pick_device(ells, noise_uk_arcmin, beam_fwhm_arcmin, device=device)
+    dev = call_device()
     ells = _f64(ells, dev)
     dt = _f64(noise_uk_arcmin, dev) * _ARCMIN
     theta = _f64(beam_fwhm_arcmin, dev) * _ARCMIN
@@ -69,10 +70,11 @@ def white_noise_nl(ells, noise_uk_arcmin, beam_fwhm_arcmin=0.0,
     return dt**2 * bl2
 
 
-def total_cl_tt(cl_tt, noise_uk_arcmin, beam_fwhm_arcmin=0.0, device="cuda"):
+@on_device_of_inputs
+def total_cl_tt(cl_tt, noise_uk_arcmin, beam_fwhm_arcmin=0.0):
     """C_l + N_l on l = 0..lmax from a raw-C_l theory row (muK^2), with
     rows 0 and 1 zeroed: the kSZ layer's integer-l ``Cls``."""
-    dev = pick_device(cl_tt, noise_uk_arcmin, beam_fwhm_arcmin, device=device)
+    dev = call_device()
     cl_tt = _f64(cl_tt, dev)
     ells = torch.arange(cl_tt.shape[0], dtype=_F64, device=dev)
     tot = cl_tt + white_noise_nl(ells, noise_uk_arcmin, beam_fwhm_arcmin)
@@ -110,15 +112,16 @@ def _Ls(Ls, dev):
     return torch.atleast_1d(_f64(Ls, dev))[:, None, None]
 
 
+@on_device_of_inputs
 def n0_flat_sky(Ls, est, cl_grad, cl_total, cl_total2=None,
-                lmin=30, lmax=None, n_l=400, n_theta=256, device="cuda"):
+                lmin=30, lmax=None, n_l=400, n_theta=256):
     """Flat-sky quadratic-estimator N0^{phiphi}(L) for est 'TT', 'EE' or
     'EB': cl_grad the theory spectrum of the response (TT, or EE), cl_total
     the first leg's total, cl_total2 the second leg's where it differs
     (EB: the BB total), raw C_l on integer l from 0; lmin, lmax the modes
     used (lmax: len(cl_grad) - 1); n_l, n_theta the quadrature orders.
     Returns N0 at Ls, (nL,)."""
-    dev = pick_device(Ls, cl_grad, cl_total, cl_total2, device=device)
+    dev = call_device()
     cl_grad = _f64(cl_grad, dev)
     cl_total = _f64(cl_total, dev)
     cl_total2 = cl_total if cl_total2 is None else _f64(cl_total2, dev)
@@ -162,17 +165,19 @@ def n0_flat_sky(Ls, est, cl_grad, cl_total, cl_total2=None,
     return 1.0 / integral
 
 
-def n0_kappa_from_phi(Ls, n0_phi, device="cuda"):
+@on_device_of_inputs
+def n0_kappa_from_phi(Ls, n0_phi):
     """N0^{phiphi} in convergence units, kappa = L(L+1) phi / 2."""
-    dev = pick_device(Ls, n0_phi, device=device)
+    dev = call_device()
     Ls = _f64(Ls, dev)
     return (Ls * (Ls + 1.0) / 2.0) ** 2 * _f64(n0_phi, dev)
 
 
-def n0_minimum_variance(n0s, device="cuda"):
+@on_device_of_inputs
+def n0_minimum_variance(n0s):
     """Inverse-variance combination of independent estimators, N0_mv =
     (sum_a 1/N0_a)^{-1} (exact when their covariances vanish)."""
-    dev = pick_device(*n0s, device=device)
+    dev = call_device()
     n0s = [_f64(n, dev) for n in n0s]
     return 1.0 / sum(1.0 / n for n in n0s)
 
@@ -290,10 +295,8 @@ def _qe_family(L, ests, cls_grad, cls_total, l1, ct, st, lmin, lmax,
     return FF, tots, valid
 
 
-def _family_setup(Ls, cls_grad, cls_total, lmin, lmax, n_l, n_theta,
-                  device):
-    dev = pick_device(Ls, *cls_grad.values(), *cls_total.values(),
-                      device=device)
+def _family_setup(Ls, cls_grad, cls_total, lmin, lmax, n_l, n_theta):
+    dev = call_device()
     if lmax is None:
         lmax = min(len(c) for c in cls_grad.values()) - 1
     lmin, lmax = float(lmin), float(lmax)
@@ -307,29 +310,31 @@ def _integral(wgt, integrand):
     return 2.0 * torch.sum(wgt * integrand, dim=(-2, -1)) / (2.0 * np.pi) ** 2
 
 
+@on_device_of_inputs
 def n0_pair_flat_sky(Ls, est, cls_grad, cls_total, lmin=30, lmax=None,
-                     n_l=400, n_theta=256, mode="grad", device="cuda"):
+                     n_l=400, n_theta=256, mode="grad"):
     """N0^{phiphi}(L) of any Hu-Okamoto estimator ('TT', 'TE', 'EE', 'EB',
     'TB'), N0 = [int d^2 l1/(2pi)^2 f F]^{-1} with the optimal weights;
     cls_grad: the theory spectra of the response ('TT', 'EE', 'TE' as
     needed), cls_total: the totals of the legs (and 'TE' for the TE
     weight).  mode='curl': the field-rotation estimator's noise."""
     dev, lmin, lmax, (l1, ct, st, wgt), cls_grad, cls_total = _family_setup(
-        Ls, cls_grad, cls_total, lmin, lmax, n_l, n_theta, device)
+        Ls, cls_grad, cls_total, lmin, lmax, n_l, n_theta)
     FF, _, valid = _qe_family(_Ls(Ls, dev), (est,), cls_grad, cls_total,
                               l1, ct, st, lmin, lmax, mode=mode)
     f12, F12, _, _ = FF[est]
     return 1.0 / _integral(wgt, torch.where(valid, f12 * F12, 0.0))
 
 
+@on_device_of_inputs
 def n0_te_simple_flat_sky(Ls, cls_grad, cls_total, lmin=30, lmax=None,
-                          n_l=400, n_theta=256, device="cuda"):
+                          n_l=400, n_theta=256):
     """(response, n0) of the simple-weight TE estimator F_s(l1,l2) =
     f_TE(l1,l2) / (C^TT,tot_{l1} C^EE,tot_{l2}), normalized by its own
     response: n0 = resp^-2 int F_s [F_s C^TT C^EE + F_s(l2,l1) C^TE C^TE],
     at least the optimal TE N0."""
     dev, lmin, lmax, (l1, ct, st, wgt), cls_grad, cls_total = _family_setup(
-        Ls, cls_grad, cls_total, lmin, lmax, n_l, n_theta, device)
+        Ls, cls_grad, cls_total, lmin, lmax, n_l, n_theta)
     FF, tots, valid = _qe_family(_Ls(Ls, dev), ("TE",), cls_grad, cls_total,
                                  l1, ct, st, lmin, lmax)
     f12, _, _, f21 = FF["TE"]
@@ -344,9 +349,10 @@ def n0_te_simple_flat_sky(Ls, cls_grad, cls_total, lmin=30, lmax=None,
     return resp, var / resp**2
 
 
+@on_device_of_inputs
 def n0_cross_flat_sky(Ls, est1, est2, cls_grad, cls_total, n0_1=None,
                       n0_2=None, lmin=30, lmax=None, n_l=400, n_theta=256,
-                      mode="grad", device="cuda"):
+                      mode="grad"):
     """The cross-covariance N^{(ab)(cd)}(L) of two estimators (HO02 eq.
     17),
 
@@ -356,7 +362,7 @@ def n0_cross_flat_sky(Ls, est1, est2, cls_grad, cls_total, n0_1=None,
 
     all C totals; n0_1 / n0_2 reuse precomputed auto N0s."""
     dev, lmin, lmax, (l1, ct, st, wgt), cls_grad, cls_total = _family_setup(
-        Ls, cls_grad, cls_total, lmin, lmax, n_l, n_theta, device)
+        Ls, cls_grad, cls_total, lmin, lmax, n_l, n_theta)
     kw = dict(lmin=lmin, lmax=lmax, n_l=n_l, n_theta=n_theta, mode=mode)
     if n0_1 is None:
         n0_1 = n0_pair_flat_sky(Ls, est1, cls_grad, cls_total, **kw)
@@ -379,18 +385,18 @@ def n0_cross_flat_sky(Ls, est1, est2, cls_grad, cls_total, n0_1=None,
     return _f64(n0_1, dev) * _f64(n0_2, dev) * integ
 
 
+@on_device_of_inputs
 def n0_mv_flat_sky(Ls, cls_grad, cls_total,
                    ests=("TT", "TE", "EE", "EB", "TB"),
                    lmin=30, lmax=None, n_l=400, n_theta=256,
-                   return_matrix=False, mode="grad", device="cuda"):
+                   return_matrix=False, mode="grad"):
     """The exact minimum-variance combination N_mv(L) = [1^T N(L)^{-1}
     1]^{-1}, N(L) the full estimator covariance (auto N0s on the
     diagonal, cross N0s off it); with return_matrix=True also N, (nL,
     n_est, n_est)."""
     ests = tuple(ests)
     ne = len(ests)
-    dev = pick_device(Ls, *cls_grad.values(), *cls_total.values(),
-                      device=device)
+    dev = call_device()
     Ls = torch.atleast_1d(_f64(Ls, dev))
     kw = dict(lmin=lmin, lmax=lmax, n_l=n_l, n_theta=n_theta, mode=mode)
     autos = {e: n0_pair_flat_sky(Ls, e, cls_grad, cls_total, **kw)
@@ -416,12 +422,13 @@ def n0_mv_flat_sky(Ls, cls_grad, cls_total,
     return n_mv
 
 
-def lensed_bb_from_ee(cl_ee, clpp, lmax_out=None, n_phi=256, device="cuda"):
+@on_device_of_inputs
+def lensed_bb_from_ee(cl_ee, clpp, lmax_out=None, n_phi=256):
     """First-order lensing BB from EE and a (possibly residual) lensing
     potential: the T_sin2 convolution of ``lensed_cls`` with the TT/TE
     legs zeroed, exactly linear in clpp."""
     from .lensed_cls import lens_cls_flat_sky
-    dev = pick_device(cl_ee, clpp, device=device)
+    dev = call_device()
     cl_ee = _f64(cl_ee, dev)
     unl = torch.zeros((cl_ee.shape[0], 4), dtype=_F64, device=dev)
     unl[:, 1] = cl_ee
@@ -429,10 +436,11 @@ def lensed_bb_from_ee(cl_ee, clpp, lmax_out=None, n_phi=256, device="cuda"):
                              n_phi=n_phi)[:, 2]
 
 
+@on_device_of_inputs
 def n0_eb_iterative(Ls, cl_ee_grad, cl_ee_total, clpp, nl_bb,
                     lmin=30, lmax=None, n_iter=8, tol=1e-3,
                     n_l=400, n_theta=256, n_phi=256, nodes=None,
-                    return_info=False, device="cuda"):
+                    return_info=False):
     """The iteratively delensed EB reconstruction noise N0^{phiphi}(L)
     (Smith et al. 2012 fixed point):
 
@@ -445,8 +453,7 @@ def n0_eb_iterative(Ls, cl_ee_grad, cl_ee_total, clpp, nl_bb,
     whose quadratures run on the device.  Returns N0 at Ls; with
     return_info=True also {'n0_first', 'n0_nodes', 'nodes', 'rho2',
     'cl_bb_res', 'iters'} (host arrays)."""
-    dev = pick_device(Ls, cl_ee_grad, cl_ee_total, clpp, nl_bb,
-                      device=device)
+    dev = call_device()
     host = lambda v: np.asarray(_f64(v, "cpu"))
     cl_ee_grad, cl_ee_total, clpp, nl_bb = (
         host(v) for v in (cl_ee_grad, cl_ee_total, clpp, nl_bb))
@@ -495,7 +502,8 @@ def n0_eb_iterative(Ls, cl_ee_grad, cl_ee_total, clpp, nl_bb,
     return out
 
 
-def threej000_sq(l1, l2, l3, device="cuda"):
+@on_device_of_inputs
+def threej000_sq(l1, l2, l3):
     """(l1 l2 l3; 0 0 0)^2 as a float64 tensor, in closed form through
     log-gamma: zero when J = l1+l2+l3 is odd or the triangle fails, else
 
@@ -504,7 +512,7 @@ def threej000_sq(l1, l2, l3, device="cuda"):
 
     exp carries the log-gamma sum's absolute rounding (~1e-11 at l ~
     5,000) into relative error."""
-    dev = pick_device(l1, l2, l3, device=device)
+    dev = call_device()
     l1, l2, l3 = (_f64(v, dev) for v in (l1, l2, l3))
     J = l1 + l2 + l3
     g = J / 2.0
@@ -560,7 +568,8 @@ def _n0_tt_fullsky_one(L, cl_grad, cl_total, lmin, lmax, width):
     return 1.0 / (inv_a / (2.0 * L + 1.0))
 
 
-def n0_tt_fullsky(Ls, cl_grad, cl_total, lmin=30, lmax=None, device="cuda"):
+@on_device_of_inputs
+def n0_tt_fullsky(Ls, cl_grad, cl_total, lmin=30, lmax=None):
     """The exact full-sky TT quadratic-estimator N0^{phiphi}(L),
 
         N0(L) = A_L,   A_L^{-1} = (1/(2L+1)) sum_{l1 l2}
@@ -570,7 +579,7 @@ def n0_tt_fullsky(Ls, cl_grad, cl_total, lmin=30, lmax=None, device="cuda"):
               + C_{l2} (L(L+1)+l2(l2+1)-l1(l1+1)) ],
 
     as a masked (n_l1, width) array per L, in chunks of l1."""
-    dev = pick_device(Ls, cl_grad, cl_total, device=device)
+    dev = call_device()
     cl_grad = _f64(cl_grad, dev)
     cl_total = _f64(cl_total, dev)
     if lmax is None:
@@ -650,9 +659,9 @@ def _n1_tt_one(L, cl_grad, cl_total, clpp, lmin, lmax, n_l, n_theta,
     return 2.0 * torch.sum(w * integrand) / (2.0 * np.pi) ** 4
 
 
+@on_device_of_inputs
 def n1_tt_flat_sky(Ls, cl_grad, cl_total, clpp, lmin=30, lmax=None,
-                   n_l=96, n_theta=64, n_s=64, n_alpha=32, n0_phi=None,
-                   device="cuda"):
+                   n_l=96, n_theta=64, n_s=64, n_alpha=32, n0_phi=None):
     """The flat-sky N1 bias of the TT quadratic estimator,
 
         N1(L) = A_L^2 int int [d^2 l1 d^2 l3 / (2pi)^4] F(l1,l2)
@@ -664,7 +673,7 @@ def n1_tt_flat_sky(Ls, cl_grad, cl_total, clpp, lmin=30, lmax=None,
     integrand peaks at small s) and the second term folded into a factor
     2.  One (n_l, n_theta, n_s, n_alpha) integrand per L.  n0_phi: the
     per-L N0 (else ``n0_flat_sky`` TT at its default orders)."""
-    dev = pick_device(Ls, cl_grad, cl_total, clpp, n0_phi, device=device)
+    dev = call_device()
     cl_grad = _f64(cl_grad, dev)
     cl_total = _f64(cl_total, dev)
     clpp = _f64(clpp, dev)

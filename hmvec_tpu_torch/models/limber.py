@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.quadrature import lerp_index, trapz
+from ..utils.weights import on_device_of_inputs, tensor_or_f64
 from . import background as bgmod
 
 
@@ -67,9 +68,11 @@ def interp_pzk_at_curve(zs, ks, Pzks, zevals, kevals):
     return p0 + tk * (p1 - p0)
 
 
+@on_device_of_inputs
 def limber_integral(ells, zs, ks, Pzks, gzs, Wz1s, Wz2s, hzs, chis):
     """C(ell) = int dz (H/c) W1 W2 P(z, k = (ell + 0.5) / chi) / chi^2,
     for all ells at once.  Wz1s, Wz2s, hzs, chis broadcast to gzs."""
+    Pzks = tensor_or_f64(Pzks)
     dev = Pzks.device
     as_t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
     ells = as_t(ells)

@@ -16,13 +16,17 @@ from __future__ import annotations
 import torch
 
 from ..ops.rootfind import solve_bisection_root
+from ..utils.weights import on_device_of_inputs, tensor_or_f64
 from .profiles import fcon
 
 
+@on_device_of_inputs
 def mdelta_from_mdelta(M1, C1, delta_rhos1, delta_rhos2,
                        num_iter: int = 90, log_bracket: float = 10.0):
     """Convert masses M1 (nm,) at overdensity density delta_rhos1 (nz,) to
     M2 (nz, nm) at delta_rhos2 (nz,), given concentrations C1 (nz, nm)."""
+    M1, C1, delta_rhos1, delta_rhos2 = map(
+        tensor_or_f64, (M1, C1, delta_rhos1, delta_rhos2))
     M1g = M1[None, :] + 0.0 * C1
     logM1 = torch.log(M1g)
     dr1 = delta_rhos1[:, None]
@@ -38,6 +42,7 @@ def mdelta_from_mdelta(M1, C1, delta_rhos1, delta_rhos2,
     return torch.exp(logM2)
 
 
+@on_device_of_inputs
 def mdelta_from_mdelta_unvectorized(M1, C1, delta_rhos1, delta_rhos2,
                                     num_iter: int = 90,
                                     log_bracket: float = 10.0):

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.quadrature import gradient
-from ..utils.weights import trapz_weights
+from ..utils.weights import on_device_of_inputs, trapz_weights
 
 DELTAC = 1.686
 _F64 = torch.float64
@@ -186,6 +186,7 @@ def tinker2010_params(delta):
     return _tinker_spline("_T10_ROWS", "_T10_D2", delta)
 
 
+@on_device_of_inputs
 def bias_tinker(nu, delta=200.0):
     """Tinker et al. 2010 eq. 6 bias."""
     nu = _tensor(nu)
@@ -249,6 +250,7 @@ def fsigmaz_tinker(sigma2, zs, delta=200.0):
                                              _column(delta, sigma2.device))
 
 
+@on_device_of_inputs
 def f_nu(nu, zs, delta=200.0, norm_consistency=True):
     """Tinker 2010 f(nu) with the reference's free-function signature; the
     alpha(z) norm is computed from its integral, and ``zs`` may have any
@@ -290,11 +292,13 @@ def n_ln_m_sub(Msubs, Mhosts):
     return 0.3 * mrat**-0.7 * torch.exp(-9.9 * mrat**2.5)
 
 
+@on_device_of_inputs
 def simple_f_nu(nu, delta=200.0):
     """Reference-named alias of simple_f_nu_tinker2008 (z = 0)."""
     return simple_f_nu_tinker2008(nu, delta)
 
 
+@on_device_of_inputs
 def NlnMsub(Msubs, Mhosts):
     """Reference-named alias of n_ln_m_sub."""
     return n_ln_m_sub(Msubs, Mhosts)

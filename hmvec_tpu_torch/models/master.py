@@ -28,7 +28,8 @@ import math
 import numpy as np
 import torch
 
-from ..utils.weights import leggauss_cached, pick_device
+from ..utils.weights import (call_device, leggauss_cached,
+                             on_device_of_inputs, tensor_or_f64)
 from .shear import wigner_d_rows
 
 _F64 = torch.float64
@@ -43,9 +44,10 @@ def _gl_nodes(lmax, lmax_mask, device):
             torch.tensor(ws, dtype=_F64, device=device))
 
 
-def mask_correlation(mask_cl, xs, device="cuda"):
+@on_device_of_inputs
+def mask_correlation(mask_cl, xs):
     """xi_W(x) = sum_l3 (2l3+1)/(4pi) W_l3 P_l3(x) at the nodes xs."""
-    dev = pick_device(mask_cl, xs, device=device)
+    dev = call_device()
     mask_cl = torch.as_tensor(mask_cl, dtype=_F64, device=dev)
     lmax_mask = mask_cl.shape[0] - 1
     P = wigner_d_rows(lmax_mask, torch.as_tensor(xs, dtype=_F64, device=dev),
@@ -54,21 +56,22 @@ def mask_correlation(mask_cl, xs, device="cuda"):
     return ((2.0 * l3 + 1.0) / (4.0 * math.pi) * mask_cl) @ P
 
 
-def _coupling_parts(lmax, mask_cl, device):
+def _coupling_parts(lmax, mask_cl):
     """(nodes, weights x xi_W) of the coupling quadrature."""
-    dev = pick_device(mask_cl, device=device)
+    dev = call_device()
     mask_cl = torch.as_tensor(mask_cl, dtype=_F64, device=dev)
     xs, ws = _gl_nodes(lmax, mask_cl.shape[0] - 1, dev)
     return xs, ws * mask_correlation(mask_cl, xs)
 
 
-def coupling_matrix(lmax, mask_cl, spins=(0, 0), device="cuda"):
+@on_device_of_inputs
+def coupling_matrix(lmax, mask_cl, spins=(0, 0)):
     """Mode-coupling matrix (or matrices) on l = 0..lmax for one spin
     pairing: (0, 0) M^{00}; (0, 2) M^{02}; (2, 2) {'++': M_EExEE (=
     BBxBB), '--': M_EExBB}.  <C~_l1> = sum_l2 M_{l1 l2} C_l2 with the
     (2l2+1) convention of Hivon et al. 2002, so the full-sky mask W_l =
     4 pi delta_{l0} gives the identity."""
-    xs, wxi = _coupling_parts(lmax, mask_cl, device)
+    xs, wxi = _coupling_parts(lmax, mask_cl)
     twol2p1 = 2.0 * torch.arange(lmax + 1, dtype=_F64, device=xs.device) + 1.0
 
     def quad(mn):
@@ -93,9 +96,18 @@ def _as(M, x):
     return torch.as_tensor(x, dtype=_F64, device=M.device)
 
 
+def _matrices(M):
+    """A coupling matrix, or the spin-2 dict of them, as tensors."""
+    if isinstance(M, dict):
+        return {key: tensor_or_f64(m) for key, m in M.items()}
+    return tensor_or_f64(M)
+
+
+@on_device_of_inputs
 def couple_cls(M, cls):
     """The pseudo-spectrum C~ = M @ C, or the (EE, BB) pair mixing for
     M = {'++', '--'} with cls = (cl_ee, cl_bb)."""
+    M = _matrices(M)
     if isinstance(M, dict):
         cl_ee, cl_bb = (_as(M["++"], c) for c in cls)
         return (M["++"] @ cl_ee + M["--"] @ cl_bb,
@@ -103,12 +115,13 @@ def couple_cls(M, cls):
     return M @ _as(M, cls)
 
 
-def bin_operator(lmax, edges, weights=None, device="cuda"):
+@on_device_of_inputs
+def bin_operator(lmax, edges, weights=None):
     """(B, P): bandpower binning (nb, lmax+1), averaging C_l over the bands
     [edges[i], edges[i+1]) with flat weights or w_l within each band, and
     the piecewise-constant spread back (lmax+1, nb); B @ P = I.  Built on
-    the host, returned on ``device`` (a tensor ``weights``: its own)."""
-    dev = pick_device(weights, device=device)
+    the host, returned on the call's device."""
+    dev = call_device()
     edges = np.asarray(edges, dtype=np.int64)
     ls = np.arange(lmax + 1)
     w = (np.ones(lmax + 1) if weights is None
@@ -125,10 +138,12 @@ def bin_operator(lmax, edges, weights=None, device="cuda"):
             torch.as_tensor(P, dtype=_F64, device=dev))
 
 
+@on_device_of_inputs
 def decouple_bandpowers(M, pseudo_cl, lmax, edges, weights=None):
     """MASTER-decoupled bandpowers, the solution of (B M P) c_b = B C~;
     for the spin-2 dict, pseudo_cl = (EE~, BB~) and the coupled 2-block
     system is solved."""
+    M = _matrices(M)
     M0 = M["++"] if isinstance(M, dict) else M
     B, P = bin_operator(lmax, edges, weights, device=M0.device)
     if isinstance(M, dict):
@@ -143,17 +158,18 @@ def decouple_bandpowers(M, pseudo_cl, lmax, edges, weights=None):
     return torch.linalg.solve(B @ M @ P, B @ _as(M, pseudo_cl))
 
 
-def coupling_kernel_xi(lmax, mask_cl, device="cuda"):
+@on_device_of_inputs
+def coupling_kernel_xi(lmax, mask_cl):
     """Xi_{l1 l2} = sum_l3 (2l3+1)/(4pi) W_l3 (l1 l2 l3; 0 0 0)^2: the
     coupling matrix without the (2l2+1) factor (symmetric), the per-mode
     kernel of the NKA Gaussian covariance."""
-    xs, wxi = _coupling_parts(lmax, mask_cl, device)
+    xs, wxi = _coupling_parts(lmax, mask_cl)
     D = wigner_d_rows(lmax, xs, (0, 0))
     return 0.5 * (D * wxi[None, :]) @ D.T
 
 
-def gaussian_covariance_nka(lmax, mask_sq_cl, cl13, cl24, cl14, cl23,
-                            device="cuda"):
+@on_device_of_inputs
+def gaussian_covariance_nka(lmax, mask_sq_cl, cl13, cl24, cl14, cl23):
     """Mode-coupled Gaussian covariance of two masked pseudo-spectra in
     the narrow-kernel approximation (Efstathiou 2004),
 
@@ -163,7 +179,7 @@ def gaussian_covariance_nka(lmax, mask_sq_cl, cl13, cl24, cl14, cl23,
 
     for four fields sharing one mask w (``mask_sq_cl``: the power
     spectrum of w^2; spectra with noise)."""
-    dev = pick_device(mask_sq_cl, cl13, cl24, cl14, cl23, device=device)
+    dev = call_device()
     Xi = coupling_kernel_xi(lmax, torch.as_tensor(mask_sq_cl, dtype=_F64,
                                                   device=dev))
     cl13, cl24, cl14, cl23 = (_as(Xi, c) for c in (cl13, cl24, cl14, cl23))
@@ -173,15 +189,18 @@ def gaussian_covariance_nka(lmax, mask_sq_cl, cl13, cl24, cl14, cl23,
     return Xi * sym
 
 
+@on_device_of_inputs
 def decoupled_covariance(M, cov, lmax, edges, weights=None):
     """A pseudo-C_l covariance through the binned MASTER decoupling:
     K = (B M P)^{-1} B, returns K cov K^T (nb, nb)."""
+    M = tensor_or_f64(M)
     B, P = bin_operator(lmax, edges, weights, device=M.device)
     K = torch.linalg.solve(B @ M @ P, B)
     return K @ _as(M, cov) @ K.T
 
 
-def cap_mask_cl(lmax, theta_cap_rad, device="cuda"):
+@on_device_of_inputs
+def cap_mask_cl(lmax, theta_cap_rad):
     """The mask power spectrum W_l of an azimuthal polar cap (1 for theta <
     theta_cap), in closed form on the host:
 
@@ -200,4 +219,4 @@ def cap_mask_cl(lmax, theta_cap_rad, device="cuda"):
     I[0] = 1.0 - c
     I[1:] = (P[:lmax] - P[2:lmax + 2]) / (2.0 * ls[1:] + 1.0)
     return torch.as_tensor(np.pi * I**2, dtype=_F64,
-                           device=pick_device(theta_cap_rad, device=device))
+                           device=call_device())

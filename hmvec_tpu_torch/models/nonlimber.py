@@ -28,7 +28,7 @@ import torch
 
 from ..ops.fftlog import fftlog_lnkr, fftlog_sphbessel_multi
 from ..ops.quadrature import linear_interp, trapz_traced
-from ..utils.weights import f64, on_device
+from ..utils.weights import f64, on_device, on_device_of_inputs, tensor_or_f64
 from . import background as bgmod
 
 __all__ = [
@@ -63,10 +63,12 @@ def _edge_taper(n: int, frac: float) -> np.ndarray:
     return t
 
 
+@on_device_of_inputs
 def bessel_deltas(phi, chis, ells, taper_frac: float = 0.03):
     """Delta_l(k) = int dchi phi(chi) j_l(k chi) for every l of ``ells``:
     phi (..., n) on the log-uniform numpy grid chis (n,).  Returns
     (ks (n,), Delta (..., nl, n)) on the reciprocal FFTLog grid."""
+    phi = tensor_or_f64(phi)
     chis = np.asarray(chis, dtype=np.float64)
     (taper,) = on_device(
         f"nonlimber_taper:{chis.size}:{chis[0]!r}:{chis[-1]!r}:{taper_frac!r}",
@@ -93,6 +95,7 @@ def _union_deltas(phi, chis, ells, taper_frac):
     return ks, F, {l: i for i, l in enumerate(union)}
 
 
+@on_device_of_inputs
 def bessel_deltas_j2pp(phi, chis, ells, taper_frac: float = 0.03):
     """Delta_l^{(2)}(k) = -int dchi phi(chi) j_l''(k chi), the RSD row,
     by the j_l'' recurrence over the {l-2, l, l+2} transforms (for l in
@@ -108,6 +111,7 @@ def bessel_deltas_j2pp(phi, chis, ells, taper_frac: float = 0.03):
     return ks, torch.stack(rows, dim=-2)
 
 
+@on_device_of_inputs
 def bessel_deltas_over_x2(phi_t, chis, ells, taper_frac: float = 0.03):
     """int dchi phi_t(chi) j_l(k chi) / (k chi)^2, the lensing row, by
 

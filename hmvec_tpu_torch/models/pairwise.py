@@ -31,7 +31,8 @@ import torch
 from ..ops.fftlog import correlation_function
 from ..ops.quadrature import linear_interp
 from ..params import default_params
-from ..utils.weights import leggauss_cached, on_device
+from ..utils.weights import (leggauss_cached, on_device, on_device_of_inputs,
+                             tensor_or_f64)
 from . import profiles as prof
 
 _F64 = torch.float64
@@ -64,6 +65,7 @@ def _nodes(n_x, dev):
     return on_device(f"pairwise_leggauss:{n_x}", dev, make)
 
 
+@on_device_of_inputs
 def tau_aperture_battaglia(zs, m200, r200, cmax, rhocritz, omb, omm,
                            R_ap, gamma, fit_params, n_x=256):
     """Mean aperture optical depth tau_bar(z, m) of the Battaglia 2016 gas
@@ -78,6 +80,8 @@ def tau_aperture_battaglia(zs, m200, r200, cmax, rhocritz, omb, omm,
     Gauss-Legendre in x per (z, m), in two panels split at the aperture
     edge (w(r) has a kink there); the outer panel under u^2 = x - x_edge,
     where w ~ u.  Returns (nz, nm)."""
+    m200, r200, cmax, rhocritz = map(tensor_or_f64,
+                                     (m200, r200, cmax, rhocritz))
     dev = m200.device
     zs = torch.as_tensor(zs, dtype=_F64, device=dev)
     R_ap = torch.as_tensor(R_ap, dtype=_F64, device=dev)
@@ -151,6 +155,7 @@ def compton_y_k0_battaglia(zs, m200, r200, cmax, rhocritz, omb, omm,
     return unit * I
 
 
+@on_device_of_inputs
 def pairwise_ksz_signal(ks, pk, f, aH, bg, tau_bar, T_CMB_uK=None):
     """The mean pairwise kSZ temperature on the FFTLog r grid,
     T(r) = - T_CMB tau_bar v12(r) / c [muK], for the linear matter power pk
@@ -163,6 +168,7 @@ def pairwise_ksz_signal(ks, pk, f, aH, bg, tau_bar, T_CMB_uK=None):
     return rs, -T_CMB_uK * tau_bar * v12 / _C_KM_S
 
 
+@on_device_of_inputs
 def pairwise_ksz_errors(r_edges, rs, xi, T_r, ngal_mpc3, volume_gpc3,
                         sigma_meas_uK, bg=1.0):
     """Pair-count errors of the binned signal: in [r_i, r_i+1],
@@ -170,6 +176,7 @@ def pairwise_ksz_errors(r_edges, rs, xi, T_r, ngal_mpc3, volume_gpc3,
     sqrt(2 / N_pair) sigma_meas.  r_edges (nb+1,) comoving Mpc; rs, xi,
     T_r on the signal's grid, lerped to the bin centers.  Returns
     (r_centers, T_bins, sigma_bins, snr)."""
+    rs, xi, T_r = map(tensor_or_f64, (rs, xi, T_r))
     dev = T_r.device
     r_edges = torch.as_tensor(r_edges, dtype=_F64, device=dev)
     rc = 0.5 * (r_edges[1:] + r_edges[:-1])

@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils.weights import mass_weights
+from ..utils.weights import mass_weights, on_device_of_inputs, tensor_or_f64
 
 
 class MatterTracer(NamedTuple):
@@ -238,6 +238,7 @@ def power_total(tracer1, tracer2, nzm, bh, ms, ks, pzk_lin, rho_matter0,
                           rho_matter0))
 
 
+@on_device_of_inputs
 def exclusion_correction(ks, p2h_zk, r_excl_z):
     """Baldauf et al 2013 sharp halo exclusion: Delta P (nz, nk) to add to
     the 2-halo term,
@@ -259,6 +260,7 @@ def exclusion_correction(ks, p2h_zk, r_excl_z):
         raise ValueError(
             "exclusion_correction needs a log-uniform k grid (the xi "
             "table comes from FFTLog); got non-uniform dlnk")
+    p2h_zk = tensor_or_f64(p2h_zk)
     dev = p2h_zk.device
     kt = torch.as_tensor(ks_np, device=dev)
     rz = torch.atleast_1d(torch.as_tensor(r_excl_z, dtype=torch.float64,

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.special import sici_with_trig
+from ..utils.weights import on_device_of_inputs, tensor_or_f64
 from .mass_function import R_from_M, deltav_bryan_norman
 
 
@@ -41,14 +42,17 @@ _BHATTACHARYA_COEFFS = {
 }
 
 
+@on_device_of_inputs
 def concentration_bhattacharya(sigma2, d_z0norm, mdef, deltac=1.686):
     """Bhattacharya+13 c(z, m) from sigma^2 (nz, nm) and D(z)/D(0) (nz,)."""
     A, B, C = _BHATTACHARYA_COEFFS[mdef]
+    sigma2 = tensor_or_f64(sigma2)
     nu = deltac / torch.sqrt(sigma2)
     d = torch.as_tensor(d_z0norm, dtype=torch.float64, device=sigma2.device)
     return A * d[:, None] ** B * nu**C
 
 
+@on_device_of_inputs
 def fcon(c):
     """F(c) = ln(1+c) - c/(1+c)."""
     if not isinstance(c, torch.Tensor):
@@ -60,18 +64,22 @@ def rho_nfw_x(x, rhoscale=1.0):
     return rhoscale / x / (1.0 + x) ** 2
 
 
+@on_device_of_inputs
 def rho_einasto_x(x, alpha=0.18, rhoscale=1.0):
     """Einasto rho(x) / rho_s = exp(-(2/alpha)(x^alpha - 1)), x = r / r_s."""
     x = torch.as_tensor(x, dtype=torch.float64)
     return rhoscale * torch.exp(-(2.0 / alpha) * (x**alpha - 1.0))
 
 
+@on_device_of_inputs
 def rho_nfw(r, rhoscale, rs):
     """NFW density at radius r."""
     return rho_nfw_x(torch.as_tensor(r, dtype=torch.float64) / rs, rhoscale)
 
 
+@on_device_of_inputs
 def rhoscale_nfw(mdelta, rdelta, cdelta):
+    mdelta, rdelta, cdelta = map(tensor_or_f64, (mdelta, rdelta, cdelta))
     rs = rdelta / cdelta
     return mdelta / (4.0 * math.pi * rs**3) / fcon(cdelta)
 
@@ -205,13 +213,17 @@ def _gas_fit_params(family, over):
     return fp
 
 
+@on_device_of_inputs
 def rho_gas_generic_x(x, m200critz, z, omb, omm, rhocritz, gamma=-0.2,
                       family="AGN", **fit_kwargs):
     """Battaglia-16 gas density at x = 2r / R200c."""
+    x, m200critz, z, rhocritz = map(tensor_or_f64, (x, m200critz, z,
+                                                    rhocritz))
     return rho_gas_x(x, m200critz, z, omb, omm, rhocritz, gamma,
                      _gas_fit_params(family, fit_kwargs))
 
 
+@on_device_of_inputs
 def rho_gas_generic(r, m200critz, z, omb, omm, rhocritz, gamma=-0.2,
                     family="AGN", **fit_kwargs):
     """Battaglia-16 gas density at physical r."""
@@ -220,6 +232,7 @@ def rho_gas_generic(r, m200critz, z, omb, omm, rhocritz, gamma=-0.2,
                              rhocritz, gamma, family, **fit_kwargs)
 
 
+@on_device_of_inputs
 def rho_gas(r, m200critz, z, omb, omm, rhocritz, gamma=-0.2,
             profile="AGN"):
     """AGN / SH Battaglia-16 gas density rho(r)."""
@@ -227,13 +240,17 @@ def rho_gas(r, m200critz, z, omb, omm, rhocritz, gamma=-0.2,
                            family=profile)
 
 
+@on_device_of_inputs
 def P_e_generic_x(x, m200critz, R200critz, z, omb, omm, rhocritz,
                   alpha=1.0, gamma=-0.3, family="pres", **fit_kwargs):
     """Battaglia-16 electron pressure at x = r / R200c."""
+    x, m200critz, R200critz, z, rhocritz = map(
+        tensor_or_f64, (x, m200critz, R200critz, z, rhocritz))
     return pressure_x(x, m200critz, R200critz, z, omb, omm, rhocritz,
                       alpha, gamma, _gas_fit_params(family, fit_kwargs))
 
 
+@on_device_of_inputs
 def P_e_generic(r, m200critz, z, omb, omm, rhocritz, alpha=1.0,
                 gamma=-0.3, family="pres", **fit_kwargs):
     """Battaglia-16 electron pressure at physical r."""
@@ -242,6 +259,7 @@ def P_e_generic(r, m200critz, z, omb, omm, rhocritz, alpha=1.0,
                          alpha, gamma, family, **fit_kwargs)
 
 
+@on_device_of_inputs
 def P_e(r, m200critz, z, omb, omm, rhocritz, alpha=1.0, gamma=-0.3,
         profile="pres"):
     """Battaglia-16 electron pressure P_e(r)."""

@@ -18,7 +18,8 @@ import torch
 
 from ..ops.fftlog import correlation_function, fftlog_lnkr, fftlog_sphbessel_jl
 from ..ops.quadrature import trapz_traced
-from ..utils.weights import f64, leggauss_cached, on_device
+from ..utils.weights import (f64, leggauss_cached, on_device,
+                             on_device_of_inputs)
 
 _F64 = torch.float64
 
@@ -38,6 +39,7 @@ def _fog(kmu, sigma_v, fog):
     raise ValueError(fog)
 
 
+@on_device_of_inputs
 def kaiser_pk_mu(ks, mus, pk, b, f, sigma_v=0.0, fog="gaussian"):
     """P_s(k, mu) = (b + f mu^2)^2 P(k) D_FoG(k mu sigma_v), with D_FoG
     'gaussian' exp(-x^2) or 'lorentzian' 1/(1 + x^2/2).
@@ -82,6 +84,7 @@ def _project(ps, mus, w, ells):
     return out
 
 
+@on_device_of_inputs
 def rsd_multipoles(ks, pk, b, f, sigma_v=0.0, ells=(0, 2, 4),
                    fog="gaussian", n_mu=32):
     """Legendre multipoles P_ell(k) = (2ell+1)/2 int_-1^1 P_s L_ell dmu of
@@ -101,6 +104,7 @@ def kaiser_multipole_factors(b, f):
             4: 8.0 * f**2 / 35.0}
 
 
+@on_device_of_inputs
 def correlation_multipoles(ks, pk_ells):
     """xi_ell(s) = (i^ell / 2 pi^2) int dk k^2 P_ell(k) j_ell(ks) by
     FFTLog, for even ells, from {ell: (..., nk)} on the log-uniform numpy
@@ -118,6 +122,7 @@ def correlation_multipoles(ks, pk_ells):
     return ss, out
 
 
+@on_device_of_inputs
 def sigma_v_lin(ks_tab, pk_tab):
     """Linear 1-D velocity dispersion in displacement units [Mpc],
     sigma_v^2 = (1/6 pi^2) int dq P_lin(q), by the trapezoid on the
@@ -127,6 +132,7 @@ def sigma_v_lin(ks_tab, pk_tab):
     return torch.sqrt(trapz_traced(pk_tab, ks_tab) / (6.0 * math.pi**2))
 
 
+@on_device_of_inputs
 def scoccimarro_pk_mu(ks, mus, p_dd, p_dt, p_tt, b, f, sigma_v=0.0,
                       fog="gaussian"):
     """P_s(k, mu) = D_FoG(k mu sigma_v)
@@ -149,6 +155,7 @@ def scoccimarro_pk_mu(ks, mus, p_dd, p_dt, p_tt, b, f, sigma_v=0.0,
     return _fog(kmu, sigma_v, fog) * core
 
 
+@on_device_of_inputs
 def scoccimarro_multipoles(ks, p_dd, p_dt, p_tt, b, f, sigma_v=0.0,
                            ells=(0, 2, 4), fog="gaussian", n_mu=32):
     """Legendre multipoles of ``scoccimarro_pk_mu`` (Gauss-Legendre over
@@ -159,6 +166,7 @@ def scoccimarro_multipoles(ks, p_dd, p_dt, p_tt, b, f, sigma_v=0.0,
     return _project(ps, mus, w, ells)
 
 
+@on_device_of_inputs
 def mean_pairwise_velocity(ks, pk, f, aH, b=1.0):
     """Mean pairwise (infall) velocity of tracers of linear bias b,
 

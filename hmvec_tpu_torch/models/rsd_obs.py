@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from ..ops.quadrature import linear_interp
-from ..utils.weights import device_of, f64, leggauss_cached, on_device
+from ..utils.weights import (call_device, device_of, f64, leggauss_cached,
+                             on_device, on_device_of_inputs)
 from .rsd import _fog, _legendre, _mu_nodes
 
 _F64 = torch.float64
@@ -39,6 +40,7 @@ def _interp_rows(ks, table, kpts):
                          f64(table, dev))
 
 
+@on_device_of_inputs
 def tns_pk_mu_points(kpts, mupts, ks, p_dd, p_dt, p_tt, b, f, ab,
                      sigma_v=0.0, fog="gaussian"):
     """TNS P_s at pointwise (k, mu) pairs of a common shape, the
@@ -63,6 +65,7 @@ def tns_pk_mu_points(kpts, mupts, ks, p_dd, p_dt, p_tt, b, f, ab,
     return _fog(kpts * mu, sigma_v, fog) * core
 
 
+@on_device_of_inputs
 def ap_shift(ks_obs, mus_obs, alpha_par, alpha_perp):
     """Observed -> true (k, mu) on the (nmu, nk) outer grid."""
     dev = device_of(ks_obs, mus_obs, alpha_par, alpha_perp)
@@ -72,6 +75,7 @@ def ap_shift(ks_obs, mus_obs, alpha_par, alpha_perp):
     return k * fac, (mu / alpha_par) / fac
 
 
+@on_device_of_inputs
 def ap_multipoles(ks_obs, pk_mu_points_fn, alpha_par=1.0,
                   alpha_perp=1.0, ells=(0, 2, 4), n_mu=32):
     """Observed multipoles under AP distortion,
@@ -81,8 +85,9 @@ def ap_multipoles(ks_obs, pk_mu_points_fn, alpha_par=1.0,
 
     with pk_mu_points_fn(kpts, mupts) the true-coordinate model at points
     (e.g. a closure over ``tns_pk_mu_points``).  The work runs on the
-    device of ks_obs or of a tensor alpha (the CPU for host data)."""
-    device = device_of(ks_obs, alpha_par, alpha_perp) or torch.device("cpu")
+    device of ks_obs or of a tensor alpha, else on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    device = call_device()
     mus, w = _mu_nodes(n_mu, device)
     kt, mut = ap_shift(f64(ks_obs, device), mus, alpha_par, alpha_perp)
     ps = pk_mu_points_fn(kt, mut) / (alpha_par * alpha_perp**2)
@@ -93,14 +98,15 @@ def ap_multipoles(ks_obs, pk_mu_points_fn, alpha_par=1.0,
     return out
 
 
+@on_device_of_inputs
 def multipole_covariance(ks, pk_mu_points_fn, nbar, volume, dk=None,
                          ells=(0, 2, 4), n_mu=64):
     """Gaussian covariance of the multipoles in thin k-shells,
-    (nl, nl, nk) in the order of ``ells``: ks the shell centers (their
-    device decides where the work runs), dk their widths (default: from
-    the ks' log midpoints), nbar the tracer density [1/Mpc^3], volume
-    [Mpc^3]."""
-    ks = f64(ks)
+    (nl, nl, nk) in the order of ``ells``: ks the shell centers, dk their
+    widths (default: from the ks' log midpoints), nbar the tracer density
+    [1/Mpc^3], volume [Mpc^3].  The work runs on the device of ks or dk,
+    else on ``device`` (the card unless the caller asks for the CPU)."""
+    ks = f64(ks, call_device())
     device = ks.device
     if dk is None:
         lnk = torch.log(ks)
@@ -153,6 +159,7 @@ def window_coupling(ells_out=(0, 2, 4), ells_in=(0, 2, 4),
     return C
 
 
+@on_device_of_inputs
 def window_convolve_multipoles(ks, pk_ells, ss_win, q_ells,
                                ells_out=(0, 2, 4), ks_out=None):
     """Survey-window convolution of power-spectrum multipoles with a
@@ -196,6 +203,7 @@ def window_convolve_multipoles(ks, pk_ells, ss_win, q_ells,
     return out
 
 
+@on_device_of_inputs
 def multipole_snr(mp, cov, ells=(0, 2, 4)):
     """Total detection SNR of the multipoles against a covariance
     block-diagonal in k: sqrt(sum_k P_l(k) C^-1_{ll'}(k) P_l'(k))."""

@@ -25,7 +25,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils.weights import pick_device
+from ..utils.weights import call_device, on_device_of_inputs
 
 _F64 = torch.float64
 
@@ -89,7 +89,8 @@ def _dense_weights(ells, wls, lmin):
     return w
 
 
-def wigner_d_sum(ells, cls, thetas_rad, mn=(0, 0), device="cuda"):
+@on_device_of_inputs
+def wigner_d_sum(ells, cls, thetas_rad, mn=(0, 0)):
     """sum_l (2l+1)/(4pi) C_l d^l_{mn}(theta) by upward recurrence.
 
     ells: (nl,) consecutive integers from any l0 >= 0 (rows below
@@ -98,7 +99,7 @@ def wigner_d_sum(ells, cls, thetas_rad, mn=(0, 0), device="cuda"):
     m, n = _spins(mn)
     lmin = max(abs(m), abs(n))
     ells = _consecutive(ells)
-    dev = pick_device(cls, thetas_rad, device=device)
+    dev = call_device()
     cls = torch.as_tensor(cls, dtype=_F64, device=dev)
     x = torch.cos(torch.as_tensor(thetas_rad, dtype=_F64, device=dev))
     wcls = cls * ((2.0 * torch.as_tensor(ells, dtype=_F64, device=dev) + 1.0)
@@ -116,7 +117,8 @@ def wigner_d_sum(ells, cls, thetas_rad, mn=(0, 0), device="cuda"):
     return acc
 
 
-def wigner_d_rows(lmax, xs, mn=(0, 0), device="cuda"):
+@on_device_of_inputs
+def wigner_d_rows(lmax, xs, mn=(0, 0)):
     """The table d^l_{mn}(x), shape (lmax+1, nx), l = 0..lmax, written row
     by row into one preallocated tensor; rows with l < max(|m|, |n|) are
     zero.  The building block of the MASTER coupling matrices
@@ -124,7 +126,7 @@ def wigner_d_rows(lmax, xs, mn=(0, 0), device="cuda"):
     m, n = _spins(mn)
     lmin = max(abs(m), abs(n))
     lmax = int(lmax)
-    x = torch.as_tensor(xs, dtype=_F64, device=pick_device(xs, device=device))
+    x = torch.as_tensor(xs, dtype=_F64, device=call_device())
     out = torch.zeros((lmax + 1, x.shape[0]), dtype=_F64, device=x.device)
     if lmax < lmin:
         return out
@@ -137,8 +139,9 @@ def wigner_d_rows(lmax, xs, mn=(0, 0), device="cuda"):
     return out
 
 
+@on_device_of_inputs
 def wigner_d_outer_sum(ells, wls, thetas_rad, mn1=(0, 0), mn2=None,
-                       thetas2_rad=None, device="cuda"):
+                       thetas2_rad=None):
     """sum_l w_l d^l_{mn1}(theta_i) d^l_{mn2}(theta'_j) -> (..., nt1, nt2):
     the real-space Gaussian-covariance kernel.  Both spin recurrences run
     side by side and the outer product is accumulated per l (the (l,
@@ -150,7 +153,7 @@ def wigner_d_outer_sum(ells, wls, thetas_rad, mn1=(0, 0), mn2=None,
     m2, n2 = _spins(mn2)
     ells = _consecutive(ells)
     lmin = max(abs(m1), abs(n1), abs(m2), abs(n2))
-    dev = pick_device(wls, thetas_rad, thetas2_rad, device=device)
+    dev = call_device()
     x1 = torch.cos(torch.as_tensor(thetas_rad, dtype=_F64, device=dev))
     x2 = x1 if thetas2_rad is None else torch.cos(
         torch.as_tensor(thetas2_rad, dtype=_F64, device=dev))
@@ -180,9 +183,9 @@ def wigner_d_outer_sum(ells, wls, thetas_rad, mn1=(0, 0), mn2=None,
     return acc
 
 
+@on_device_of_inputs
 def xi_gaussian_cov(ells, cl_tot_1, cl_tot_2, cl_cross_a, cl_cross_b,
-                    thetas_rad, kind1="plus", kind2="plus", fsky=1.0,
-                    device="cuda"):
+                    thetas_rad, kind1="plus", kind2="plus", fsky=1.0):
     """Gaussian covariance of two real-space two-point functions,
 
         Cov(xi_a(th_i), xi_b(th_j)) = sum_l (2l+1)/(16 pi^2 fsky)
@@ -191,8 +194,7 @@ def xi_gaussian_cov(ells, cl_tot_1, cl_tot_2, cl_cross_a, cl_cross_b,
 
     kinds 'plus', 'minus', 'gammat', 'w'; noise already in the totals."""
     k1, k2 = _XI_MN[kind1], _XI_MN[kind2]
-    dev = pick_device(cl_tot_1, cl_tot_2, cl_cross_a, cl_cross_b, thetas_rad,
-                      device=device)
+    dev = call_device()
     as_t = lambda v: torch.as_tensor(v, dtype=_F64, device=dev)
     ls = as_t(np.asarray(ells, dtype=np.float64))
     clsum = as_t(cl_tot_1) * as_t(cl_tot_2) + as_t(cl_cross_a) * as_t(cl_cross_b)
@@ -200,11 +202,11 @@ def xi_gaussian_cov(ells, cl_tot_1, cl_tot_2, cl_cross_a, cl_cross_b,
     return wigner_d_outer_sum(ells, wls, thetas_rad, mn1=k1, mn2=k2)
 
 
-def kappa_to_shear_cl_factor(ells, device="cuda"):
+@on_device_of_inputs
+def kappa_to_shear_cl_factor(ells):
     """C^{gamma gamma}_l / C^{kappa kappa}_l = (l+2)(l-1)/(l(l+1)), 0 at
     l = 0, 1 (those multipoles carry no shear)."""
-    l = torch.as_tensor(ells, dtype=_F64, device=pick_device(ells,
-                                                             device=device))
+    l = torch.as_tensor(ells, dtype=_F64, device=call_device())
     den = l * (l + 1.0)
     return torch.where(l >= 2, (l + 2.0) * (l - 1.0)
                        / torch.where(den > 0, den, 1.0), 0.0)
@@ -219,34 +221,34 @@ def _to_shear_cl(ells, cl, input_kind, dev):
     raise ValueError(f"unknown input_kind {input_kind!r}")
 
 
-def xi_plus(ells, cl_e, thetas_rad, cl_b=None, input_kind="shear",
-            device="cuda"):
+@on_device_of_inputs
+def xi_plus(ells, cl_e, thetas_rad, cl_b=None, input_kind="shear"):
     """xi_+(theta) from an E-mode (and optional B-mode) spectrum;
     input_kind='convergence' converts C^{kappa kappa} by the full-sky
     (l+2)(l-1)/(l(l+1))."""
-    dev = pick_device(cl_e, cl_b, thetas_rad, device=device)
+    dev = call_device()
     cl = _to_shear_cl(ells, cl_e, input_kind, dev)
     if cl_b is not None:
         cl = cl + _to_shear_cl(ells, cl_b, input_kind, dev)
     return wigner_d_sum(ells, cl, thetas_rad, mn=(2, 2))
 
 
-def xi_minus(ells, cl_e, thetas_rad, cl_b=None, input_kind="shear",
-             device="cuda"):
+@on_device_of_inputs
+def xi_minus(ells, cl_e, thetas_rad, cl_b=None, input_kind="shear"):
     """xi_-(theta); see :func:`xi_plus`."""
-    dev = pick_device(cl_e, cl_b, thetas_rad, device=device)
+    dev = call_device()
     cl = _to_shear_cl(ells, cl_e, input_kind, dev)
     if cl_b is not None:
         cl = cl - _to_shear_cl(ells, cl_b, input_kind, dev)
     return wigner_d_sum(ells, cl, thetas_rad, mn=(2, -2))
 
 
-def gamma_t(ells, cl_cross, thetas_rad, input_kind="convergence",
-            device="cuda"):
+@on_device_of_inputs
+def gamma_t(ells, cl_cross, thetas_rad, input_kind="convergence"):
     """Mean tangential shear around the density tracer from C^{g kappa}
     (input_kind='convergence', converted by sqrt((l+2)(l-1)/(l(l+1))))
     or C^{g E} ('shear')."""
-    dev = pick_device(cl_cross, thetas_rad, device=device)
+    dev = call_device()
     cl = torch.as_tensor(cl_cross, dtype=_F64, device=dev)
     if input_kind == "convergence":
         cl = cl * torch.sqrt(kappa_to_shear_cl_factor(ells, device=dev))

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from ..ops.quadrature import linear_interp
-from ..utils.weights import f64, host, leggauss_cached, on_device
+from ..utils.weights import (f64, host, leggauss_cached, on_device,
+                             on_device_of_inputs)
 
 _F64 = torch.float64
 
@@ -160,17 +161,20 @@ def _p13_core(ks, ks_tab, pk_tab, kern_fn, denom, n_q, qmin, qmax):
     return ks**3 / (denom * 4.0 * math.pi**2) * Pk * integ
 
 
+@on_device_of_inputs
 def p13(ks, ks_tab, pk_tab, n_q=1024, qmin=None, qmax=None):
     """P13(k) on the q support [qmin, qmax] (default: the table's range),
     Gauss-Legendre in ln q."""
     return _p13_core(ks, ks_tab, pk_tab, f13, 252.0, n_q, qmin, qmax)
 
 
+@on_device_of_inputs
 def p13_dt(ks, ks_tab, pk_tab, n_q=1024, qmin=None, qmax=None):
     """Density-velocity P13 (theta = -div v / (a H f))."""
     return _p13_core(ks, ks_tab, pk_tab, f13_dt, 252.0, n_q, qmin, qmax)
 
 
+@on_device_of_inputs
 def p13_tt(ks, ks_tab, pk_tab, n_q=1024, qmin=None, qmax=None):
     """Velocity-velocity P13 (normalization 1/84)."""
     return _p13_core(ks, ks_tab, pk_tab, f13_tt, 84.0, n_q, qmin, qmax)
@@ -245,6 +249,7 @@ def _p22_panel(ks, lnk_tab, lnp_tab, lnlo, lnhi, tq, wq0, tx, wx, yfl):
     return torch.sum(wq * Pq * r[..., 0] ** 3 * inner, dim=-1)
 
 
+@on_device_of_inputs
 def p22(ks, ks_tab, pk_tab, n_q=512, n_x=256, qmin=None, qmax=None):
     """P22(k): a dense (nk, n_q/2, n_x) Gauss-Legendre contraction per
     outer panel, the ln-q integral split at q = k."""
@@ -279,6 +284,7 @@ def _velocity_kernels_panel(ks, lnk_tab, lnp_tab, lnlo, lnhi, tq, wq0,
     return torch.sum((wq * Pq * r[..., 0] ** 3)[None] * inner, dim=-1)
 
 
+@on_device_of_inputs
 def p22_velocity(ks, ks_tab, pk_tab, n_q=512, n_x=256, qmin=None,
                  qmax=None):
     """The three P22 mode-coupling spectra {dd, dt, tt}, (nk,) each, from
@@ -299,6 +305,7 @@ def p22_velocity(ks, ks_tab, pk_tab, n_q=512, n_x=256, qmin=None,
     return {"dd": outer[0], "dt": outer[1], "tt": outer[2]}
 
 
+@on_device_of_inputs
 def pk_velocity_1loop(ks, ks_tab, pk_tab, n_q=512, n_x=256, n_q13=1024,
                       qmin=None, qmax=None):
     """One-loop density / velocity-divergence spectra
@@ -335,6 +342,7 @@ def _bias_kernels_panel(ks, lnk_tab, lnp_tab, lnlo, lnhi, tq, wq0, tx,
     return torch.sum((wq * Pq * r[..., 0] ** 3)[None] * inner, dim=-1)
 
 
+@on_device_of_inputs
 def pt_bias_integrals(ks, ks_tab, pk_tab, n_q=512, n_x=256,
                       qmin=None, qmax=None):
     """The five quadratic-bias one-loop integrals (McDonald-Roy basis,
@@ -372,6 +380,7 @@ def pt_bias_integrals(ks, ks_tab, pk_tab, n_q=512, n_x=256,
     }
 
 
+@on_device_of_inputs
 def pgg_1loop(ks, ks_tab, pk_tab, b1, b2, bs2=None, shot=0.0,
               n_q=512, n_x=256, n_q13=1024, qmin=None, qmax=None):
     """One-loop galaxy auto power in the (b1, b2, bs2) Eulerian bias basis
@@ -388,6 +397,7 @@ def pgg_1loop(ks, ks_tab, pk_tab, b1, b2, bs2=None, shot=0.0,
             + shot)
 
 
+@on_device_of_inputs
 def pgm_1loop(ks, ks_tab, pk_tab, b1, b2, bs2=None,
               n_q=512, n_x=256, n_q13=1024, qmin=None, qmax=None):
     """One-loop galaxy-matter cross power (Beutler et al 2014 eq 41):
@@ -447,6 +457,7 @@ def bao_damping_sigma2(ks_tab, pk_nw, ell_bao, ks_sep=0.2, n_q=512):
     return torch.sum(wq * q * Pq * kern) / (6.0 * math.pi**2)
 
 
+@on_device_of_inputs
 def p1loop_ir(ks, ks_tab, pk_tab, pk_nw_template, ell_bao,
               ks_sep=0.2, sigma_lnk=0.25, n_q=512, n_x=256, n_q13=1024,
               qmin=None, qmax=None, return_parts=False):
@@ -480,6 +491,7 @@ def p1loop_ir(ks, ks_tab, pk_tab, pk_nw_template, ell_bao,
     return P_ir
 
 
+@on_device_of_inputs
 def p1loop(ks, ks_tab, pk_tab, n_q=512, n_x=256, n_q13=1024,
            qmin=None, qmax=None, return_parts=False):
     """One-loop SPT matter power P_lin + P22 + P13 at the table's redshift

@@ -24,7 +24,7 @@ import torch
 
 from ._tns_kernels import a_kernels, b_kernels
 from .rsd import _fog, _legendre, _mu_nodes
-from ..utils.weights import f64
+from ..utils.weights import f64, on_device_of_inputs, tensor_or_f64
 from .spt import _chunked, _pk_eval, _split, _tables
 
 _F64 = torch.float64
@@ -79,6 +79,7 @@ def _ab_panel(ks, lnk_tab, lnp_tab, lnpdt_tab, lnptt_tab, lnlo, lnhi,
     return contract(ka, a_base), contract(kb, b_base)
 
 
+@on_device_of_inputs
 def tns_ab_integrals(ks, ks_tab, pk_tab, pdt_tab=None, ptt_tab=None,
                      n_q=256, n_x=128, qmin=None, qmax=None,
                      r_max=1000.0):
@@ -116,9 +117,11 @@ def tns_ab_integrals(ks, ks_tab, pk_tab, pdt_tab=None, ptt_tab=None,
     return {"A": A, "B": B}
 
 
+@on_device_of_inputs
 def tns_a_term(ks, mu, f, ab, b=1.0):
     """b^3 A(k, mu; beta = f/b) from the ``tns_ab_integrals`` output; mu a
     scalar or (nmu,).  Returns (..., nk)."""
+    ab = {"A": {mn: tensor_or_f64(I) for mn, I in ab["A"].items()}}
     dev = next(iter(ab["A"].values())).device
     mu = f64(mu, dev)[..., None]
     beta = f / b
@@ -128,8 +131,10 @@ def tns_a_term(ks, mu, f, ab, b=1.0):
     return b**3 * (mu * beta) * out
 
 
+@on_device_of_inputs
 def tns_b_term(ks, mu, f, ab, b=1.0):
     """b^4 B(k, mu; beta = f/b) from the ``tns_ab_integrals`` output."""
+    ab = {"B": {mn: tensor_or_f64(I) for mn, I in ab["B"].items()}}
     dev = next(iter(ab["B"].values())).device
     mu = f64(mu, dev)[..., None]
     beta = f / b
@@ -139,6 +144,7 @@ def tns_b_term(ks, mu, f, ab, b=1.0):
     return b**4 * (mu * beta) ** 2 * out
 
 
+@on_device_of_inputs
 def tns_pk_mu(ks, mus, p_dd, p_dt, p_tt, b, f, ab, sigma_v=0.0,
               fog="gaussian"):
     """The TNS P_s(k, mu): the nonlinear Kaiser bracket on the one-loop
@@ -156,6 +162,7 @@ def tns_pk_mu(ks, mus, p_dd, p_dt, p_tt, b, f, ab, sigma_v=0.0,
     return _fog(ks[None, :] * mu, sigma_v, fog) * core
 
 
+@on_device_of_inputs
 def tns_multipoles(ks, p_dd, p_dt, p_tt, b, f, ab, sigma_v=0.0,
                    ells=(0, 2, 4), fog="gaussian", n_mu=32):
     """Legendre multipoles of ``tns_pk_mu`` (Gauss-Legendre in mu).
@@ -170,6 +177,7 @@ def tns_multipoles(ks, p_dd, p_dt, p_tt, b, f, ab, sigma_v=0.0,
     return out
 
 
+@on_device_of_inputs
 def tns_power(ks, ks_tab, pk_tab, b=1.0, f=0.5, sigma_v=None,
               fog="gaussian", one_loop=True, n_q=256, n_x=128,
               qmin=None, qmax=None, ells=(0, 2, 4), n_mu=32):

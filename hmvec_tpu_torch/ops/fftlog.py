@@ -21,7 +21,8 @@ import torch
 from scipy.special import loggamma
 
 from ..ops.quadrature import linear_interp
-from ..utils.weights import leggauss_cached, on_device
+from ..utils.weights import (call_device, f64, leggauss_cached, on_device,
+                             on_device_of_inputs)
 
 
 @functools.lru_cache(maxsize=16)
@@ -83,13 +84,15 @@ def fftlog_lnkr(xs, mu: float = 0.5):
     return lnkr
 
 
+@on_device_of_inputs
 def correlation_function(ks, pk):
     """xi(r) = (1/2 pi^2) int_0^inf dk k^2 P(k) j0(kr) by FFTLog, for pk
-    (..., n) on the log-uniform ks (n,).  Returns (rs, xi): rs (n,) the
-    reciprocal log grid [Mpc], xi (..., n)."""
+    (..., n) on the log-uniform ks (n,), on pk's device (or ks's), else on
+    ``device`` (the card unless the caller asks for the CPU).  Returns (rs,
+    xi): rs (n,) the reciprocal log grid [Mpc], xi (..., n)."""
     ks_np = (ks.detach().cpu().numpy() if isinstance(ks, torch.Tensor)
              else np.asarray(ks))
-    rs, F = fftlog_sine_j0(torch.as_tensor(pk, dtype=torch.float64), ks_np)
+    rs, F = fftlog_sine_j0(f64(pk, call_device()), ks_np)
     return rs, F / (2.0 * math.pi**2)
 
 
@@ -132,6 +135,7 @@ def fftlog_sphbessel_multi(fx, xs, ells, lnkr=None):
     return ks_t, F.to(fx.dtype)
 
 
+@on_device_of_inputs
 def fftlog_profile_transform(rhofunc_x, cmaxs, rss, zs, ks_out,
                              xmin: float = 1e-5, xmax: float = 1e3,
                              n: int = 1024, do_mass_norm: bool = True):
@@ -144,10 +148,10 @@ def fftlog_profile_transform(rhofunc_x, cmaxs, rss, zs, ks_out,
     grid, zero above it).
 
     rhofunc_x maps x (n,) to (n,) or (nz, nm, n); cmaxs, rss (nz, nm) and
-    zs (nz,) are tensors or arrays on the instance's device.  Returns
-    (ks_out, u (nz, nm, nk))."""
-    dev = next((v.device for v in (cmaxs, rss, zs, ks_out)
-                if isinstance(v, torch.Tensor)), torch.device("cpu"))
+    zs (nz,) are tensors or arrays: the work runs on the first tensor's
+    device, else on ``device`` (the card unless the caller asks for the
+    CPU).  Returns (ks_out, u (nz, nm, nk))."""
+    dev = call_device()
     as_t = lambda v: torch.as_tensor(v, dtype=torch.float64, device=dev)
     cmaxs, rss, zs, ks_out = as_t(cmaxs), as_t(rss), as_t(zs), as_t(ks_out)
     xs_np = np.geomspace(xmin, xmax, n)
@@ -197,11 +201,13 @@ def fftlog_profile_transform(rhofunc_x, cmaxs, rss, zs, ks_out,
     return ks_out, val
 
 
+@on_device_of_inputs
 def projected_correlation(ks, pk, n_t: int = 192, t_max: float = 9.0):
     """w_p(R) = 2 R int_0^inf dt cosh(t) xi(R cosh t) on the FFTLog xi(r)
     of pk (..., n) on the log-uniform ks (n,), with n_t Gauss-Legendre
-    nodes on [0, t_max] and xi taken as 0 beyond its grid.  Returns
-    (Rs, wp) on the reciprocal log grid [Mpc]."""
+    nodes on [0, t_max] and xi taken as 0 beyond its grid, on the device
+    that ``correlation_function`` picks.  Returns (Rs, wp) on the
+    reciprocal log grid [Mpc]."""
     rs_t, xi = correlation_function(ks, pk)
     rs = rs_t.cpu().numpy()
     t_np, w_np = leggauss_cached(n_t)

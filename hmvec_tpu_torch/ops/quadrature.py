@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.weights import simpson_weights, trapz_weights
+from ..utils.weights import on_device_of_inputs, simpson_weights, trapz_weights
 
 
 def _weighted(y, weights, dim):
@@ -87,6 +87,7 @@ def lerp_index(xp, x):
     return i, t
 
 
+@on_device_of_inputs
 def interp(x, y, bounds_error=False, fill_value=0.0):
     """Reference-signature 1-d linear interpolator factory: a callable
     that evaluates ``linear_interp`` on the fixed table (x, y), a pair of

@@ -27,6 +27,7 @@ as the JAX package's ``_pair_lerp_tpu_jvp`` falls back to gathers).
 
 from __future__ import annotations
 
+import ctypes
 import numbers
 
 import torch
@@ -34,9 +35,52 @@ import torch
 from .nfw_kernels import _raise_on_error, _stream
 
 _F64 = torch.float64
-_MAX_GRID_X = 2**31 - 1
-_MAX_GRID_Y = 65535
-_THREADS = 256  # targets per block, csrc/resample_kernels.cu kThreads
+_MAX_ROWS = 2**31 - 1
+_THREADS = 256  # threads per block, csrc/resample_kernels.cu kThreads
+PAIRS = 2  # 16-byte pairs of targets a thread of the flat kernel
+
+
+def pair_lerp_geometry(rows: int, nk: int, n_sm: int,
+                       blocks_per_sm: dict) -> tuple[int, int]:
+    """(blocks, rows per block) of one launch for rows x nk float64
+    targets on a card of n_sm SMs, where ``blocks_per_sm["rows"]`` blocks
+    of the kernel of whole rows and ``blocks_per_sm["flat"]`` of the flat
+    kernel fit on one SM.
+
+    A call whose one-target threads fit in one wave is the latency of one
+    chain of loads: where nk <= 256 and they do, whole rows a block (rows
+    per block > 0), each row nk threads rounded up to whole warps, as many
+    rows as 256 threads hold.  Else the flat kernel, two pairs of targets
+    a thread, whose loads it issues together (rows per block 0), on the
+    blocks the targets need, at most one wave: the blocks stride over the
+    rest.  A pure function of its arguments, so the CPU tests cover it."""
+    if nk <= _THREADS:
+        per_block = _THREADS // (-(-nk // 32) * 32)
+        blocks = -(-rows // per_block)
+        if blocks <= n_sm * blocks_per_sm["rows"]:
+            return blocks, per_block
+    needed = -(-rows * nk // (_THREADS * 2 * PAIRS))
+    return max(1, min(needed, n_sm * blocks_per_sm["flat"])), 0
+
+
+def _blocks_per_sm(lib, f32: bool, device) -> dict:
+    """{"rows", "flat": resident blocks per SM} of the two kernels on
+    ``device``, asked of the occupancy API once per (device, storage
+    type)."""
+    key = (device.index, f32)
+    if key not in _OCCUPANCY:
+        occ = {}
+        for kernel in ("rows", "flat"):
+            n = ctypes.c_int(0)
+            _raise_on_error(lib.hmvec_pair_lerp_blocks_per_sm(
+                int(f32), int(kernel == "rows"), device.index,
+                ctypes.byref(n)), "pair_lerp occupancy")
+            occ[kernel] = n.value
+        _OCCUPANCY[key] = occ
+    return _OCCUPANCY[key]
+
+
+_OCCUPANCY: dict = {}
 
 
 def _positions(u, scales, ks, dkt):
@@ -118,6 +162,16 @@ def _check(u, scales, ks, dkt, dtype):
         raise ValueError(f"unsupported device {u.device}")
 
 
+def _sm_count(device) -> int:
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
+
+
+_SMS: dict = {}
+
+
 def _launch(u, scales, ks, dkt):
     from ..kernels._build import load_library
 
@@ -129,15 +183,17 @@ def _launch(u, scales, ks, dkt):
     out = torch.empty((*u.shape[:-1], nk), dtype=_F64, device=u.device)
     if rows == 0 or nk == 0:
         return out
-    if rows > _MAX_GRID_X or -(-nk // _THREADS) > _MAX_GRID_Y:
-        raise ValueError(f"pair_lerp takes at most {_MAX_GRID_X} rows and "
-                         f"{_THREADS * _MAX_GRID_Y} targets, got {rows} and "
-                         f"{nk}")
+    if rows > _MAX_ROWS or nk > _MAX_ROWS:
+        raise ValueError(f"pair_lerp takes at most {_MAX_ROWS} rows and "
+                         f"targets, got {rows} and {nk}")
     lib = load_library()
     f64 = u.dtype == _F64
+    geometry = pair_lerp_geometry(
+        rows, nk, _sm_count(u.device), _blocks_per_sm(lib, not f64, u.device))
     fn = lib.hmvec_pair_lerp_f64 if f64 else lib.hmvec_pair_lerp_f32
     err = fn(u.data_ptr(), scales.data_ptr(), ks.data_ptr(), float(dkt),
-             out.data_ptr(), rows, nkt, nk, u.device.index, _stream(u))
+             out.data_ptr(), rows, nkt, nk, *geometry, u.device.index,
+             _stream(u))
     _raise_on_error(err, f"pair_lerp({u.dtype})")
     (pair_lerp_f64 if f64 else pair_lerp_f32).launches += 1
     return out

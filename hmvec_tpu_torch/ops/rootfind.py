@@ -11,6 +11,7 @@ computed from the objective's value), as in the JAX package.
 from __future__ import annotations
 
 import torch
+from ..utils.weights import on_device_of_inputs
 
 
 def _bisect(lo, hi, go_right, num_iter):
@@ -21,6 +22,7 @@ def _bisect(lo, hi, go_right, num_iter):
     return (lo + hi) / 2.0
 
 
+@on_device_of_inputs
 def invert_monotone(func, targets, lo, hi, num_iter: int = 90,
                     increasing: bool = True):
     """Solve func(y) = targets for y in [lo, hi], func monotone elementwise.
@@ -37,6 +39,7 @@ def invert_monotone(func, targets, lo, hi, num_iter: int = 90,
     return _bisect(lo, hi, lambda y: func(y) > targets, num_iter)
 
 
+@on_device_of_inputs
 def vectorized_bisection_search(x, inv_func, ybounds,
                                 monotonicity="increasing", rtol=1e-4,
                                 verbose=False, hang_check_num_iter=20):

@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from ..utils.weights import on_device_of_inputs, tensor_or_f64
 
 from .resample_kernels import pair_lerp, pair_lerp_plain
 
@@ -65,11 +66,13 @@ def sine_dft(y, step, method: str = "auto"):
     raise ValueError(f"unknown sine_dft method {method!r}")
 
 
+@on_device_of_inputs
 def fft_integral(x, y):
     """int_0^inf dx x sin(kx) y(x) -> (ks, uk) for x, y (N,) on a uniform
     grid, with the reference's rfft conventions, including its
     step = extent / N.  A validator: compare with ``analytic_fft_integral``
     for y = exp(-x^2/2)."""
+    x, y = tensor_or_f64(x), tensor_or_f64(y)
     n = x.shape[-1]
     step = (x[-1] - x[0]) / n
     uk = sine_dft(x * y, step)
@@ -78,12 +81,15 @@ def fft_integral(x, y):
     return ks, uk
 
 
+@on_device_of_inputs
 def analytic_fft_integral(ks):
     """Closed form of ``fft_integral`` for y = exp(-x^2/2):
     sqrt(pi/2) k exp(-k^2/2)."""
+    ks = tensor_or_f64(ks)
     return math.sqrt(math.pi / 2.0) * torch.exp(-(ks**2) / 2.0) * ks
 
 
+@on_device_of_inputs
 def uk_fft(rhofunc, rvir, dr: float = 0.001, rmax: float = 100):
     """A validator: u(k) of a radial profile by the sine transform, with
     the reference's conventions (radii arange(dr, rmax, dr), truncation at
@@ -108,6 +114,7 @@ def uk_fft(rhofunc, rvir, dr: float = 0.001, rmax: float = 100):
     return kts, uk
 
 
+@on_device_of_inputs
 def uk_brute_force(r, rho, rvir, ks):
     """A validator: the profile transform by direct trapezoid quadrature,
     with the reference's conventions (truncation r < rvir, trapezoid mass
@@ -215,6 +222,7 @@ def profile_table(rhofunc_x, cmaxs, rss, zs, xmax, nxs,
     return uk, scales, grid.dkt, None
 
 
+@on_device_of_inputs
 def generic_profile_fft(rhofunc_x, cmaxs, rss, zs, ks, xmax, nxs,
                         do_mass_norm: bool = True, method: str = "auto",
                         sample_dtype=None):
@@ -239,6 +247,7 @@ def generic_profile_fft(rhofunc_x, cmaxs, rss, zs, ks, xmax, nxs,
     from the float64 grid whatever the sample dtype, and the mass norm
     accumulated in float64.
     """
+    cmaxs, rss, zs, ks = map(tensor_or_f64, (cmaxs, rss, zs, ks))
     u, scales, dkt, norm = profile_table(rhofunc_x, cmaxs, rss, zs, xmax,
                                          nxs, do_mass_norm, method,
                                          sample_dtype)

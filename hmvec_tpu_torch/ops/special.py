@@ -25,6 +25,7 @@ import math
 
 import numpy as np
 import torch
+from ..utils.weights import on_device_of_inputs, tensor_or_f64
 
 from . import _hyp_coeffs as _hc
 from . import _sici_coeffs as _sc
@@ -263,9 +264,10 @@ def Wkr_taylor(kR):
     return 1.0 - 0.1 * xx + 0.00357142857143 * xx * xx
 
 
+@on_device_of_inputs
 def Wkr(k, R, taylor_switch=0.01):
     """Fourier top-hat window W(kR) with small-argument Taylor switch."""
-    kR = k * R
+    kR = tensor_or_f64(k) * tensor_or_f64(R)
     small = kR < taylor_switch
     kRs = torch.where(small, torch.ones_like(kR), kR)  # no 0/0 in dead branch
     full = 3.0 * (torch.sin(kRs) - kRs * torch.cos(kRs)) / kRs**3

@@ -9,6 +9,11 @@ weighted sums.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
+import inspect
+
 import numpy as np
 import torch
 
@@ -22,15 +27,73 @@ def f64(x, device=None):
 
 
 def device_of(*xs):
-    """The device of the first tensor among xs, None if none is one."""
-    return next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    """The device of the first tensor among xs, looked for through lists,
+    tuples and dict values; None if there is none."""
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+        if isinstance(x, dict):
+            x = list(x.values())
+        if isinstance(x, (list, tuple)):
+            dev = device_of(*x)
+            if dev is not None:
+                return dev
+    return None
 
 
-def pick_device(*xs, device="cuda") -> torch.device:
-    """Where a free function runs: the device of the first tensor among
-    xs, else ``device`` (the card unless the caller asks for the CPU)."""
-    dev = device_of(*xs)
-    return dev if dev is not None else torch.device(device)
+def tensor_or_f64(x):
+    """x itself if it is a tensor (dtype and device kept), else x as a
+    float64 tensor on the default device (``on_device_of_inputs`` sets
+    it)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x, dtype=torch.float64)
+
+
+def on_device_of_inputs(fn):
+    """fn with a keyword ``device`` (the card by default): the one rule by
+    which a free function of the package chooses its device.  A call with
+    a tensor among its arguments (at any depth of their lists, tuples and
+    dicts) runs on the first such tensor's device, as written; a call with
+    host data only (numpy arrays, numbers) runs on ``device``, as the
+    default device of every tensor it makes.  A call made inside another
+    such call, with host data and no ``device``, takes the outer call's
+    device (a function of tensors that hands a number to another keeps
+    its work on one device).  ``call_device()`` reads the device chosen."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        device = kwargs.pop("device", None)
+        dev = device_of(args, kwargs)
+        host_only = dev is None
+        if host_only:
+            dev = torch.device(device if device is not None
+                               else _CALL_DEVICE.get() or "cuda")
+        token = _CALL_DEVICE.set(dev)
+        try:
+            with dev if host_only else contextlib.nullcontext():
+                return fn(*args, **kwargs)
+        finally:
+            _CALL_DEVICE.reset(token)
+
+    sig = inspect.signature(fn)
+    params = list(sig.parameters.values())
+    at = next((i for i, q in enumerate(params)
+               if q.kind is inspect.Parameter.VAR_KEYWORD), len(params))
+    params.insert(at, inspect.Parameter(
+        "device", inspect.Parameter.KEYWORD_ONLY, default="cuda"))
+    wrapper.__signature__ = sig.replace(parameters=params)
+    return wrapper
+
+
+# the device of the innermost on_device_of_inputs call under way
+_CALL_DEVICE = contextvars.ContextVar("hmvec_call_device", default=None)
+
+
+def call_device() -> torch.device:
+    """The device that the innermost ``on_device_of_inputs`` call under
+    way chose (the default device outside any)."""
+    return _CALL_DEVICE.get() or torch.get_default_device()
 
 
 def host(x) -> np.ndarray:

@@ -73,7 +73,8 @@ def _two_threads():
 
 
 def _np(x):
-    return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x))
 
 
 def _rel(got, want):
@@ -190,7 +191,7 @@ def test_linear_interp_is_jnp_interp():
         got = _np(tquad.linear_interp(T(x), T(xp), T(fp), left=lo, right=hi))
         np.testing.assert_allclose(got, np.asarray(w), rtol=0, atol=1e-15)
         np.testing.assert_array_equal(got[outside], np.asarray(w)[outside])
-    f = tquad.interp(xp, fp, fill_value=-1.0)
+    f = tquad.interp(xp, fp, fill_value=-1.0, device="cpu")
     np.testing.assert_allclose(_np(f(x)), np.asarray(want[-1]), rtol=0,
                                atol=1e-15)
     with pytest.raises(NotImplementedError):
@@ -414,8 +415,431 @@ def test_tabulated_engine_matches_jax():
 
 def test_free_class_helpers_match_jax():
     a = RNG.uniform(0.2, 1.0, 5)
-    assert _rel(tcos.a2z(a), jcos.a2z(a)) <= 1e-15
+    assert _rel(tcos.a2z(a, device="cpu"), jcos.a2z(a)) <= 1e-15
     assert tcos.get_eds_model(0.16, 70.0) == jcos.get_eds_model(0.16, 70.0)
     assert tksz.get_survey_volume(0.3, 0.9, 0.4, PARAMS, device="cpu") \
         == pytest.approx(jksz.get_survey_volume(0.3, 0.9, 0.4, PARAMS),
                          rel=1e-12)
+
+
+# ---- the free functions on host data ---------------------------------------
+
+def _host_inputs():
+    """{name: args} of every free function of the package root that makes
+    tensors of what it is given, on small numpy inputs that both packages
+    take (the integral grids of spt/tns cut to a few dozen nodes)."""
+    from hmvec_tpu_torch.params import battaglia_defaults, default_params
+
+    rng = np.random.default_rng(31)
+    ks = np.geomspace(1e-3, 10.0, 64)
+    pk = 1e4 * ks / (1.0 + (ks / 0.02) ** 2.5)
+    zs = np.array([0.2, 0.5, 1.0])
+    ms = np.geomspace(1e12, 1e15, 8)
+    ells = np.arange(2.0, 40.0)
+    cls = 1e-9 / (ells + 10.0) ** 1.5
+    x = np.geomspace(0.01, 5.0, 20)
+    chis = np.array([800.0, 1500.0, 2500.0])
+    nzm = rng.uniform(0.5, 1.5, (3, 8)) * 1e-15
+    uk = rng.uniform(0.2, 1.0, (3, 8, 64))
+    nu = np.linspace(0.5, 3.0, 5)
+    gas = (np.array([1e14, 3e14]), 0.3, 0.049, 0.31, 1.3e11)
+    q = {"n_q": 48, "n_x": 24}
+    loop = {**q, "n_q13": 48}
+    ab = {"A": {(1, 1): pk, (2, 1): pk * 0.5}, "B": {(2, 1): pk * 0.2}}
+    mus = np.linspace(-1.0, 1.0, 5)
+    lms = np.linspace(12.0, 14.0, 4)
+    hp = dict(default_params)
+    model = lambda k, mu: 1e4 * k / (1.0 + (k / 0.02) ** 2.5) * (1 + mu**2)
+    bessel = (rng.uniform(0.5, 1.5, 32), np.geomspace(100.0, 3000.0, 32),
+              np.array([10, 20]))
+    return {
+        "Fcon": (np.array([5.0, 7.0]),),
+        "rho_einasto_x": (x,), "rho_nfw": (x, 1.0, 0.3),
+        "rhoscale_nfw": (ms, np.ones(8), 5.0 * np.ones(8)),
+        "P_e": (x[:, None], *gas), "P_e_generic": (x[:, None], *gas),
+        "P_e_generic_x": (x[:, None], gas[0], np.array([1.0, 1.2]),
+                          *gas[1:]),
+        "rho_gas": (x[:, None], *gas), "rho_gas_generic": (x[:, None], *gas),
+        "rho_gas_generic_x": (x[:, None], *gas),
+        "concentration_bhattacharya": (rng.uniform(0.5, 4.0, (3, 8)),
+                                       np.array([1.0, 0.8, 0.6]), "vir"),
+        "Mhalo_stellar": (zs, np.linspace(10.0, 11.0, 4)[None, :]),
+        "Mstellar_halo": (zs, lms),
+        "Mhalo_stellar_core": (np.linspace(10.0, 11.0, 4), 0.5,
+                               10.72, 0.55, 12.35, 0.28, 0.44, 0.18, 1.56,
+                               2.51, 0.57, 0.17),
+        "avg_Ns": (lms[None, :], zs[:, None], np.full((3, 1), 10.5), None,
+                   0.2, 1.0, 1.0, 1.0, 1.0, 1.0),
+        "avg_NsNsm1": (np.array([0.0, 0.5, 1.0]), np.array([0.1, 0.2, 2.0])),
+        "avg_nc_zheng05": (lms, 12.5, 0.2),
+        "avg_ns_zheng05": (ms, np.full(8, 0.9), 1e12, 1e13, 1.0),
+        "build_hod_zheng05": (zs, ms, nzm, np.ones((3, 8)), hp),
+        "ngal_from_mthresh": (np.full(3, 10.5), zs, nzm, ms, hp),
+        "NlnMsub": (np.geomspace(1e10, 1e13, 5), ms),
+        "bias": (nu,), "bias_tinker": (nu,), "simple_f_nu": (nu,),
+        "f_nu": (nu, zs[:1]),
+        "mdelta_from_mdelta": (ms, rng.uniform(4.0, 8.0, (3, 8)),
+                               np.array([200.0, 210.0, 220.0]),
+                               np.array([500.0, 510.0, 520.0])),
+        "mdelta_from_mdelta_unvectorized": (ms, 5.0 * np.ones(8), 200.0,
+                                            500.0),
+        "a2z": (np.array([0.5, 0.8]),),
+        "Wkr": (ks, 8.0), "interp": (ks, pk),
+        "analytic_fft_integral": (ks,),
+        "fft_integral": (x, np.exp(-x**2 / 2)),
+        "uk_brute_force": (x, 1.0 / x, 3.0, ks[:5]),
+        "uk_fft": (lambda r: 1.0 / r, np.array([1.0, 2.0]), 0.01, 5.0),
+        "generic_profile_fft": (lambda x: 1.0 / (x * (1.0 + x) ** 2),
+                                rng.uniform(3.0, 6.0, (3, 8)),
+                                rng.uniform(0.05, 0.3, (3, 8)), zs, ks,
+                                20.0, 256),
+        "invert_monotone": (lambda y: y**2, np.array([1.0, 4.0]), 0.0, 10.0),
+        "vectorized_bisection_search": (np.array([1.0, 4.0]),
+                                        lambda y: y**2, (0.0, 10.0)),
+        "ksz_radial_function": (0.5, 0.022, 0.24),
+        "get_interpolated_cls": (np.full(2000, 1e-5), 100.0, ks),
+        "Nvv_core_integral": (3000.0, 1.0, np.linspace(0.1, 1.0, 5),
+                              np.geomspace(1e-3, 0.1, 4), ks[:40],
+                              np.full(2000, 1e-5), pk[:40], 2 * pk[:40]),
+        "pge_err_core": (2.0, 0.1, 300.0, 1.0, ks[:40],
+                         np.geomspace(1e-3, 0.5, 5), 2 * pk[:40],
+                         np.full(2000, 1e-5)),
+        "sed_graybody": (545.0, zs, dict(hmvec_tpu_torch.default_cib_params)),
+        "cib_luminosity": (ms, zs, 545.0,
+                           dict(hmvec_tpu_torch.default_cib_params)),
+        "bin_annuli": (ells, cls, np.array([2.0, 10.0, 30.0])),
+        "knox_cov": (cls, cls, cls, cls, ells, np.ones_like(ells), 0.5),
+        "pk_cov_gaussian": (ks, pk, 1e9), "pk_cov_ssc": (pk[:6], 1e-5),
+        "pk_response_ssc": (ks, pk),
+        "sigma_b2_tophat": (1e9, ks, pk),
+        "sigma_b2_disk": (0.1, chis[:2], ks, np.stack([pk, pk])),
+        "trispectrum_1h": (nzm, ms, 1e11, uk),
+        "trispectrum_1h_terms": (nzm, ms, uk, uk),
+        "cl_cov_t1h": (ells[:5], zs, ks, rng.uniform(0.5, 1.5, (3, 64, 64)),
+                       np.ones(3), np.ones(3), np.ones(3), chis),
+        "limber_integral": (ells, zs, ks, np.stack([pk] * 3), zs,
+                            np.ones(3), np.ones(3), np.ones(3), chis),
+        "projected_bispectrum": (ells[:4], ells[:4], ells[:4], zs, np.ones(3),
+                                 chis, np.ones(3), np.ones(3), np.ones(3),
+                                 lambda a, b, c: a * b * c),
+        "bessel_deltas": bessel, "bessel_deltas_j2pp": bessel,
+        "bessel_deltas_over_x2": bessel,
+        "exclusion_correction": (ks, np.stack([pk] * 3),
+                                 np.array([1.0, 1.5, 2.0])),
+        "correlation_function": (ks, pk), "projected_correlation": (ks, pk),
+        "correlation_multipoles": (ks, {0: pk, 2: pk * 0.5}),
+        "mean_pairwise_velocity": (ks, pk, 0.6, 70.0),
+        "pairwise_ksz_signal": (ks, pk, 0.6, 70.0, 1.5, 1e-4),
+        "pairwise_ksz_errors": (np.linspace(10.0, 100.0, 5),
+                                np.linspace(1.0, 200.0, 50),
+                                np.full(50, 0.1), np.ones(50), 1e-4, 1.0,
+                                1.0),
+        "tau_aperture_battaglia": (zs, np.full((3, 8), 1e14),
+                                   np.ones((3, 8)), np.full((3, 8), 3.0),
+                                   np.full(3, 1e11), 0.049, 0.31, 1.0, -0.2,
+                                   dict(battaglia_defaults["AGN"]), 32),
+        "kaiser_pk_mu": (ks, mus, pk, 1.5, 0.6),
+        "rsd_multipoles": (ks, pk, 1.5, 0.6),
+        "scoccimarro_pk_mu": (ks, mus, pk, pk * 0.9, pk * 0.8, 1.5, 0.6),
+        "scoccimarro_multipoles": (ks, pk, pk * 0.9, pk * 0.8, 1.5, 0.6),
+        "sigma_v_lin": (ks, pk),
+        # above k = 1/Mpc, where the A/B kernels do not cancel
+        "tns_ab_integrals": ((ks[-12:-8], ks, pk), q),
+        "tns_power": ((ks[-12:-8], ks, pk), q),
+        "tns_a_term": (ks, mus[:3], 0.6, ab),
+        "tns_b_term": (ks, mus[:3], 0.6, ab),
+        "tns_multipoles": (ks, pk, pk, pk, 1.5, 0.6, ab),
+        "tns_pk_mu": (ks, mus[:3], pk, pk, pk, 1.5, 0.6, ab),
+        "tns_pk_mu_points": (ks[:4], mus[:4], ks, pk, pk, pk, 1.5, 0.6, ab),
+        "p13": ((ks[10:14], ks, pk), {"n_q": 48}),
+        "p13_dt": ((ks[10:14], ks, pk), {"n_q": 48}),
+        "p13_tt": ((ks[10:14], ks, pk), {"n_q": 48}),
+        "p22": ((ks[10:14], ks, pk), q),
+        "p22_velocity": ((ks[10:14], ks, pk), q),
+        "p1loop": ((ks[10:14], ks, pk), loop),
+        "pk_velocity_1loop": ((ks[10:14], ks, pk), loop),
+        "pt_bias_integrals": ((ks[10:14], ks, pk), q),
+        "pgg_1loop": ((ks[10:14], ks, pk, 1.5, 0.1), loop),
+        "pgm_1loop": ((ks[10:14], ks, pk, 1.5, 0.1), loop),
+        "p1loop_ir": ((ks[10:14], ks, pk, pk, 100.0), loop),
+        "ap_shift": (ks, np.linspace(0.0, 1.0, 4), 1.02, 0.98),
+        "ap_multipoles": ((ks, model, 1.02, 0.97), {"n_mu": 8}),
+        "multipole_covariance": ((ks, model, 3e-4, 1e9), {"n_mu": 8}),
+        "multipole_snr": ({0: pk, 2: pk * 0.5},
+                          np.repeat(np.eye(2)[:, :, None], 64, 2), (0, 2)),
+        "window_convolve_multipoles": (ks, {0: pk, 2: pk * 0.5},
+                                       np.geomspace(1.0, 1000.0, 64),
+                                       {0: np.ones(64), 2: np.zeros(64)}),
+        "couple_cls": (np.eye(5) + 0.1, np.ones(5)),
+        "decouple_bandpowers": (np.eye(11) + 0.01, np.ones(11), 10,
+                                np.array([2, 5, 10])),
+        "decoupled_covariance": (np.eye(11) + 0.01, np.eye(11), 10,
+                                 np.array([2, 5, 10])),
+    }
+
+
+HOST = _host_inputs()
+
+
+def _lensing_host_inputs():
+    """{name: args} of the root's weak-lensing, MASTER and CMB-lensing
+    functions (and angular_correlation) on small numpy inputs: l up to
+    ~200, quadratures of a few dozen nodes."""
+    rng = np.random.default_rng(41)
+    ells = np.arange(2, 60)
+    cls = 1e-9 * (ells / 30.0) ** -1.2
+    th = np.array([0.004, 0.03, 0.2])
+    mask = 1.0 / (1.0 + np.arange(25.0)) ** 2
+    lmax = 200
+    l = np.arange(lmax + 1.0)
+    ls = np.maximum(l, 1.0)
+    cl_tt = 2e3 * 2.0 * np.pi / (ls * (ls + 1.0)) * np.exp(-(l / 900) ** 2)
+    cl_ee, cl_te = 0.02 * cl_tt, 0.1 * cl_tt
+    clpp = 2e-9 / ((ls / 60.0) ** 4 + (ls / 60.0) ** 2)
+    for c in (cl_tt, cl_ee, cl_te, clpp):
+        c[:2] = 0.0
+    nl = 1e-5 * np.exp(l * (l + 1.0) * 1e-7)
+    grad = {"TT": cl_tt, "EE": cl_ee, "TE": cl_te}
+    total = {"TT": cl_tt + nl, "EE": cl_ee + 2 * nl, "BB": 2 * nl,
+             "TE": cl_te}
+    unl = np.stack([cl_tt, cl_ee, np.zeros_like(cl_tt), cl_te], -1)
+    Ls = np.array([40.0, 120.0])
+    o = {"lmin": 30, "lmax": lmax, "n_l": 24, "n_theta": 24}
+    return {
+        "angular_correlation": (ells, cls, th),
+        "wigner_d_sum": (ells, cls, th, (2, 2)),
+        "wigner_d_outer_sum": (ells, cls, th, (2, 2), (2, -2)),
+        "xi_gaussian_cov": (ells, cls, cls, 0.5 * cls, 0.5 * cls, th,
+                            "plus", "minus", 0.4),
+        "kappa_to_shear_cl_factor": (np.arange(0.0, 10.0),),
+        "xi_plus": (ells, cls, th, 0.1 * cls, "convergence"),
+        "xi_minus": (ells, cls, th, 0.1 * cls),
+        "gamma_t": (ells, cls, th),
+        "bin_operator": (30, np.array([2, 10, 20, 31]),
+                         rng.uniform(1.0, 2.0, 31)),
+        "cap_mask_cl": (30, 0.3),
+        "coupling_matrix": (12, mask, (2, 2)),
+        "gaussian_covariance_nka": (12, mask, *(rng.uniform(1.0, 2.0, 13)
+                                                for _ in range(4))),
+        "lens_cls_flat_sky": ((unl, clpp), {"lmax_out": 150, "n_phi": 32}),
+        "lens_cls_flat_sky_resummed": ((unl, clpp), {"lmax_out": 150,
+                                                     "n_theta": 256}),
+        "white_noise_nl": (l, 10.0, 1.4),
+        "total_cl_tt": (cl_tt, 10.0, 1.4),
+        "threej000_sq": (np.array([2, 10, 7]), np.array([3, 10, 3]),
+                         np.array([5, 21, 3])),
+        "n0_flat_sky": ((Ls, "EB", cl_ee, total["EE"], total["BB"]), o),
+        "n0_kappa_from_phi": (Ls, np.array([1e-7, 3e-7])),
+        "n0_minimum_variance": ([np.array([1e-7, 3e-7]),
+                                 np.array([2e-7, 1e-7])],),
+        "n0_pair_flat_sky": ((Ls, "TE", grad, total), o),
+        "n0_cross_flat_sky": ((Ls, "TT", "EE", grad, total), o),
+        "n0_mv_flat_sky": ((Ls, grad, total), {**o, "ests": ("TT", "EE")}),
+        "lensed_bb_from_ee": ((cl_ee, clpp), {"lmax_out": 150, "n_phi": 32}),
+        "n0_eb_iterative": ((Ls, cl_ee, total["EE"], clpp, 2 * nl),
+                            {**o, "n_iter": 2, "n_phi": 32}),
+        "n0_tt_fullsky": ((Ls, cl_tt, total["TT"]), {"lmin": 30,
+                                                      "lmax": 120}),
+        "n1_tt_flat_sky": ((Ls, cl_tt, total["TT"], clpp),
+                           {"lmin": 30, "lmax": lmax, "n_l": 8,
+                            "n_theta": 8, "n_s": 8, "n_alpha": 4}),
+    }
+
+
+LENSING_HOST = _lensing_host_inputs()
+# the TNS A/B integrals: their kernels cancel catastrophically, so any two
+# evaluation orders differ by more than 1e-10 (tests/test_torch_rsd.py
+# holds them against the JAX package within its own spread); on host data
+# they are held to the same call on CPU tensors, bit for bit
+TNS_AB = ("tns_ab_integrals", "tns_power")
+
+
+def _split_call(entry):
+    return entry if (len(entry) == 2 and isinstance(entry[1], dict)
+                     and isinstance(entry[0], tuple)) else (entry, {})
+
+
+def _host_leaves(out):
+    """The arrays of a result (a function's values at three points),
+    depth first."""
+    if callable(out) and not isinstance(out, (torch.Tensor, np.ndarray)):
+        return _host_leaves(out(np.array([0.01, 0.1, 1.0])))
+    if isinstance(out, dict):   # in key order, as jax.tree_util's
+        return [a for k in sorted(out) for a in _host_leaves(out[k])]
+    if isinstance(out, (list, tuple)):
+        return [a for v in out for a in _host_leaves(v)]
+    return [out]
+
+
+# the JAX functions of HOST that read an input on the host (so run op by
+# op); the rest run in one compiled program
+JAX_EAGER = ("cl_cov_t1h", "exclusion_correction", "interp",
+             "mean_pairwise_velocity", "pairwise_ksz_signal",
+             "projected_correlation", "sigma_b2_disk", "sigma_b2_tophat",
+             "trispectrum_1h", "trispectrum_1h_terms",
+             "window_convolve_multipoles")
+
+
+@pytest.fixture(scope="module")
+def jax_host():
+    """{name: leaves} of the JAX package's function of every entry of
+    HOST on its inputs (those of JAX_EAGER op by op, the rest in one
+    jax.jit with the inputs as constants: one compile, not ninety)."""
+    def call(name):
+        args, kw = _split_call(HOST[name])
+        return getattr(hmvec_tpu, name)(*args, **kw)
+
+    compiled = [n for n in sorted(HOST) if n not in JAX_EAGER + TNS_AB]
+    out = jax.jit(lambda: {n: call(n) for n in compiled})()
+    out.update({n: call(n) for n in JAX_EAGER})
+    return {n: _host_leaves(v) for n, v in out.items()}
+
+
+def test_every_function_that_makes_tensors_takes_host_data():
+    """The root's functions that choose their device by
+    on_device_of_inputs are exactly those held below, and every free
+    function of the package that takes a ``device`` takes it from that
+    one rule (the rest of the root compute in the array library they are
+    given, numpy in and numpy out, as the JAX package's do, or take a
+    class instance or a background that carries its device; the kSZ
+    forecasts and the pipelines build a model on their ``device``)."""
+    wrapped = {n for n in dir(hmvec_tpu_torch)
+               if hasattr(getattr(hmvec_tpu_torch, n), "__wrapped__")}
+    assert wrapped == set(HOST) | set(LENSING_HOST)
+    assert not set(HOST) & set(LENSING_HOST)
+    for name in wrapped:
+        fn = getattr(hmvec_tpu_torch, name)
+        assert "device" not in inspect.signature(fn.__wrapped__).parameters
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", sorted(HOST))
+def test_free_function_runs_on_the_card_for_host_data(name, jax_host):
+    """Given host data alone, a free function of the root runs on the
+    card (on a machine without one, making its first tensor fails), and on
+    the CPU when told so, where it matches the JAX function on the same
+    inputs: 1e-10 of each output's largest value (4.4e-13 at most,
+    pt_bias_integrals' Pb22; most agree to a few ulps), or, for the TNS
+    A/B integrals, the same call on CPU tensors bit for bit."""
+    args, kw = _split_call(HOST[name])
+    fn = getattr(hmvec_tpu_torch, name)
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in _host_leaves(fn(*args, **kw))
+                   if isinstance(t, torch.Tensor))
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            fn(*args, **kw)
+    got = _host_leaves(fn(*args, device="cpu", **kw))
+    if name in TNS_AB:
+        want = _host_leaves(fn(*(T(a) for a in args), **kw))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    else:
+        want = jax_host[name]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(g, torch.Tensor):
+            assert g.device.type == "cpu"
+        g, w = _np(g).astype(float), np.asarray(w, dtype=float)
+        assert g.shape == w.shape
+        finite = np.isfinite(w)
+        assert np.array_equal(np.isfinite(g), finite)
+        np.testing.assert_array_equal(g[~finite], w[~finite])
+        scale = np.max(np.abs(w[finite]), initial=0.0)
+        assert np.max(np.abs(g[finite] - w[finite]), initial=0.0) \
+            <= 1e-10 * scale
+
+
+def _tensors(a, device=None):
+    """a with every numpy array in it, through lists, tuples and dict
+    values, as a tensor on ``device``."""
+    if isinstance(a, np.ndarray):
+        return torch.as_tensor(a, device=device)
+    if isinstance(a, dict):
+        return {k: _tensors(v, device) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return type(a)(_tensors(v, device) for v in a)
+    return a
+
+
+@pytest.mark.parametrize("name", sorted(LENSING_HOST))
+def test_lensing_function_runs_on_the_card_for_host_data(name):
+    """The weak-lensing, MASTER and CMB-lensing functions of the root by
+    the same rule: given host data alone, the card (on a machine without
+    one, making the first tensor fails); with device="cpu", the CPU, where
+    each output equals the same call on CPU tensors bit for bit (that call
+    is held against the JAX package in tests/test_torch_lensing.py and
+    tests/test_torch_cmb_lensing.py; cap_mask_cl and bin_operator's
+    scalars make no tensor, and the call is the same)."""
+    args, kw = _split_call(LENSING_HOST[name])
+    fn = getattr(hmvec_tpu_torch, name)
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in _host_leaves(fn(*args, **kw))
+                   if isinstance(t, torch.Tensor))
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            fn(*args, **kw)
+    got = _host_leaves(fn(*args, device="cpu", **kw))
+    want = _host_leaves(fn(*_tensors(args), device="cpu",
+                           **_tensors(kw)))
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert isinstance(g, torch.Tensor) and g.device.type == "cpu"
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(HOST) + sorted(LENSING_HOST))
+def test_free_function_on_the_card_matches_its_cpu_call(name):
+    """On the card: given host data alone, every function above returns
+    its tensors on the card, and they agree with the same call on the CPU
+    (device="cpu"; held above against the JAX package) to 1e-10 of each
+    output's largest value; the TNS A/B integrals, whose kernels cancel
+    catastrophically, equal the same call on CUDA tensors bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = _split_call({**HOST, **LENSING_HOST}[name])
+    fn = getattr(hmvec_tpu_torch, name)
+    got = _host_leaves(fn(*args, **kw))
+    assert all(g.is_cuda for g in got if isinstance(g, torch.Tensor))
+    if name in TNS_AB:
+        want = _host_leaves(fn(*_tensors(args, "cuda"), **kw))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        return
+    want = _host_leaves(fn(*args, device="cpu", **kw))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = _np(g).astype(float), _np(w).astype(float)
+        assert g.shape == w.shape
+        finite = np.isfinite(w)
+        assert np.array_equal(np.isfinite(g), finite)
+        np.testing.assert_array_equal(g[~finite], w[~finite])
+        scale = np.max(np.abs(w[finite]), initial=0.0)
+        assert np.max(np.abs(g[finite] - w[finite]), initial=0.0) \
+            <= 1e-10 * scale
+
+
+def test_fftlog_profile_transform_runs_on_the_card_for_host_data():
+    """ops.fftlog.fftlog_profile_transform (outside the root) by the same
+    rule: the card for host data, the CPU when told, where it matches the
+    JAX function on the same inputs (1e-10 of each row's largest value)."""
+    rng = np.random.default_rng(37)
+    args = (lambda x: 1.0 / (x * (1.0 + x) ** 2),
+            rng.uniform(3.0, 9.0, (2, 4)), rng.uniform(0.02, 0.4, (2, 4)),
+            np.array([0.3, 1.2]), np.geomspace(1e-3, 1e3, 40))
+    if torch.cuda.is_available():
+        assert tfftlog.fftlog_profile_transform(*args, n=256)[1].is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            tfftlog.fftlog_profile_transform(*args, n=256)
+    got = tfftlog.fftlog_profile_transform(*args, n=256, device="cpu")[1]
+    assert got.device.type == "cpu"
+    rho, cmaxs, rss, zs, ks = args
+
+    def jax_side(c, r):
+        # the JAX function reads its own x grid on the host
+        with jax.ensure_compile_time_eval():
+            return jfftlog.fftlog_profile_transform(rho, c, r, zs, ks,
+                                                    n=256)[1]
+
+    want = jax.jit(jax_side)(cmaxs, rss)
+    assert _abs_to_max(got, want) <= 1e-10

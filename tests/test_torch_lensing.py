@@ -134,9 +134,12 @@ def test_root_threej000_sq_is_lensing_noises():
 def test_free_functions_resolve_the_card_for_host_data():
     """A free function given only host data runs on ``device``, the card
     by default; a tensor argument's own device wins."""
-    assert tw.pick_device(ELLS, CL_E) == torch.device("cuda")
-    assert tw.pick_device(ELLS, CL_E, device="cpu") == torch.device("cpu")
-    assert tw.pick_device(ELLS, T(CL_E)) == torch.device("cpu")
+    probe = tw.on_device_of_inputs(lambda *args: tw.call_device())
+    assert probe(ELLS, CL_E) == torch.device("cuda")
+    assert probe(ELLS, CL_E, device="cpu") == torch.device("cpu")
+    assert probe(ELLS, T(CL_E)) == torch.device("cpu")
+    assert probe(ELLS, {"e": [CL_E, T(CL_E)]}, device="cuda") \
+        == torch.device("cpu")
     out = tsh.wigner_d_sum(ELLS, CL_E, THETAS, (2, 2), device="cpu")
     assert out.device.type == "cpu"
     assert tsh.wigner_d_sum(ELLS, T(CL_E), THETAS, (2, 2)).device.type \

@@ -149,7 +149,7 @@ def test_profile_transform_matches_jax():
                                          T(rss), T(zs), ks_out, n=512)[1],
            tfft.fftlog_profile_transform(
                lambda x: gas(x, torch, T(amp)), cmaxs, rss, zs, ks_out,
-               n=512, do_mass_norm=False)[1]]
+               n=512, do_mass_norm=False, device="cpu")[1]]
     for gv, wv in zip(got, want):
         assert _close(gv, wv) <= GATE
 

@@ -233,11 +233,110 @@ def test_wrapper_rejects_what_it_does_not_take():
         st.resample_uniform_source(u, dkt, scales, ks, method="pallas")
 
 
+def _row_col(e, nk):
+    """The kernel's (row, column) of flat output index e and of e + 1 (a
+    pair's second target: the next column, or the next row's first)."""
+    b, j = np.divmod(e, nk)
+    j2 = j + 1
+    b2 = np.where(j2 == nk, b + 1, b)
+    return b, j, b2, np.where(j2 == nk, 0, j2)
+
+
+@pytest.mark.parametrize("occupancy", [{"rows": 8, "flat": 5},
+                                       {"rows": 1, "flat": 1}])
+@pytest.mark.parametrize("rows,nk", [(1, 1), (1, 2), (3, 3), (4001, 1),
+                                     (3, 101), (4001, 101), (500, 101),
+                                     (2000, 101), (1, 4097), (3, 1001),
+                                     (4000, 1001)])
+def test_launch_geometry_covers_the_output(rows, nk, occupancy):
+    """pair_lerp_geometry's launch, walked as the kernels walk it.  Whole
+    rows a block (rows per block R > 0): thread (c, r) of block x, on a
+    block nk rounded up to whole warps wide and R high, on column c of row
+    x R + r, idle past nk or the last row.  The flat kernel: block x takes
+    the pair ranges x, x + blocks, ... of 512 pairs each, thread t pairs t
+    and 256 + t of a range, pair q the flat targets 2q and 2q + 1.  Every
+    target of rows x nk is written exactly once and none past the end; at
+    odd nk some pairs straddle two rows and their second target is the
+    next row's first; whole rows where nk <= 256 and one wave holds their
+    blocks, as many a block as 256 threads hold; the flat kernel on at
+    most one wave of blocks."""
+    n_sm = 132
+    blocks, per_block_rows = rk.pair_lerp_geometry(rows, nk, n_sm,
+                                                   occupancy)
+    total = rows * nk
+    width = -(-nk // 32) * 32
+    packed = nk <= 256 and -(-rows // (256 // width)) <= n_sm * occupancy[
+        "rows"]
+    if per_block_rows:
+        assert packed and per_block_rows == 256 // width
+        assert blocks == -(-rows // per_block_rows)
+        x, y = np.arange(width), np.arange(per_block_rows)
+        b = (np.arange(blocks)[:, None, None] * per_block_rows
+             + y[None, :, None])
+        j = np.broadcast_to(x[None, None, :], b.shape[:2] + x.shape)
+        b = np.broadcast_to(b, j.shape)
+        live = (j < nk) & (b < rows)
+        written = (b * nk + j)[live]
+        assert np.array_equal(np.sort(written), np.arange(total))
+        return
+    assert not packed
+    assert 1 <= blocks <= n_sm * occupancy["flat"]
+    assert blocks == min(-(-total // 1024), n_sm * occupancy["flat"])
+    per_block = 256 * rk.PAIRS
+    npairs = -(-total // 2)
+    starts = np.concatenate([np.arange(x * per_block, npairs,
+                                       blocks * per_block)
+                             for x in range(blocks)])
+    assert np.array_equal(np.sort(starts), np.arange(0, npairs, per_block))
+    e = 2 * (starts[:, None] + np.arange(per_block)[None, :]).reshape(-1)
+    written = np.concatenate([e[e < total], e[e + 1 < total] + 1])
+    assert written.size == total
+    assert np.array_equal(np.sort(written), np.arange(total))
+    b, j, b2, j2 = _row_col(e[e + 1 < total], nk)
+    assert np.array_equal(b2 * nk + j2, e[e + 1 < total] + 1)
+    assert np.all((b < rows) & (b2 < rows) & (j < nk) & (j2 < nk))
+    seams = b2 != b
+    if nk % 2 and rows > 2:
+        assert seams.any() and np.all(j2[seams] == 0)
+    elif nk % 2 == 0:
+        assert not seams.any()
+
+
+def _edge_cases():
+    """(name, u, scales, ks, dkt) as numpy at the shapes that break a
+    tiled, vectorised or row-packed kernel: nk 1, 2, 3, 101, 1,001 and
+    4,097 against 1, 3 and 4,001 rows, nkt odd and even down to 3; dkt a
+    power of two and targets on a grid of quarters, so that positions land
+    exactly on 1 and nkt - 1; targets unsorted and repeated, below 1 and
+    above Nyquist; and one nkt of 40,001."""
+    rng = np.random.default_rng(21)
+    cases = []
+    for n, (nk, rows) in enumerate(
+            [(nk, rows) for nk in (1, 2, 3, 101, 1001, 4097)
+             for rows in (1, 3, 4001)]):
+        nkt = (3, 4, 1031, 2050)[n % 4]
+        m = np.round(rng.uniform(-1.0, nkt + 2.0, nk) * 4.0) / 4.0
+        special = [1.0, nkt - 1.0, 0.5, nkt + 0.25, 0.0][:nk]
+        m[:len(special)] = special
+        if nk > 5:
+            m[5:8] = m[0]
+        rng.shuffle(m)
+        scales = 2.0 ** rng.integers(-1, 2, rows).astype(np.float64)
+        scales[:3] = [1.0, nkt - 1.0, 0.5][:rows]
+        cases.append((f"{rows}x{nkt}->{nk}", rng.standard_normal((rows, nkt)),
+                      scales, m * 0.25, 0.25))
+    cases.append(("3x40001->101", rng.standard_normal((3, 40001)),
+                  np.array([1.0, 3.0, 7.0]),
+                  np.sort(rng.uniform(0.0, 40001.0, 101)) * 0.25, 0.25))
+    return cases
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
-    """Both kernels against the plain version on the card, bit for bit,
-    on the cases above and at the config-2 shape (4,000 rows x 2,049 kt
-    -> 1,001 k), with one launch each."""
+    """Both kernels against the plain version on the card, bit for bit
+    (torch.equal), with one launch each: the cases above, the config-2
+    shape (4,000 rows x 2,049 kt -> 1,001 k), the edge cases, a 3-d batch
+    and a vmapped call (one launch for the mapped batch)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -246,6 +345,9 @@ def test_kernels_match_plain_on_card():
     cases.append((rng.standard_normal((4000, 2049)),
                   rng.uniform(0.003, 12.0, 4000),
                   np.geomspace(1e-4, 100, 1001), 2 * np.pi / 20.0))
+    cases += [c[1:] for c in _edge_cases()]
+    cases.append((rng.standard_normal((2, 3, 7)), np.full((2, 3), 1.0),
+                  np.arange(33) * 0.25, 0.25))
     for u, scales, ks, dkt in cases:
         s, k = _t(scales).to(dev), _t(ks).to(dev)
         for wrapper, dtype in ((rk.pair_lerp_f64, F64),
@@ -256,3 +358,57 @@ def test_kernels_match_plain_on_card():
             torch.cuda.synchronize()
             assert got.is_cuda and wrapper.launches == n0 + 1
             assert torch.equal(got, rk.pair_lerp_plain(u_t, s, k, dkt))
+    u, scales, ks, dkt = _case("2d")
+    s, k = _t(scales).to(dev), _t(ks).to(dev)
+    U = _t(rng.standard_normal((5, *u.shape))).to(dev)
+    for wrapper, dtype in ((rk.pair_lerp_f64, F64),
+                           (rk.pair_lerp_f32, torch.float32)):
+        n0 = wrapper.launches
+        got = torch.func.vmap(lambda a: wrapper(a, s, k, dkt))(U.to(dtype))
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 1
+        assert torch.equal(got, torch.stack([
+            rk.pair_lerp_plain(a, s, k, dkt) for a in U.to(dtype)]))
+
+
+def _wide_case(dev, dtype):
+    """(u, scales, ks, dkt) on the card whose offsets into u pass 2^31
+    elements: (rows + 1) x nkt just above 2^31 at nkt = 2,049 (8.6 GB of
+    float32, 17.2 GB of float64), nk = 5 (odd: pairs straddle rows), so
+    that the flat kernel takes its 64-bit instantiation; targets on
+    quarters with dkt = 1/4 and scales 1/2, 1, 2, so that positions land
+    on 1 and nkt - 1, below 1 and above Nyquist."""
+    nkt, nk = 2049, 5
+    rows = 2**31 // nkt + 64
+    g = torch.Generator(device=dev).manual_seed(23)
+    u = torch.randn((rows, nkt), generator=g, dtype=dtype, device=dev)
+    scales = 2.0 ** torch.randint(-1, 2, (rows,), generator=g, device=dev)
+    ks = torch.tensor([0.25, (nkt - 1) * 0.25, 0.1, nkt * 0.25, 300.125],
+                      dtype=F64, device=dev)
+    return u, scales.to(F64), ks, 0.25
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_past_32_bit_offsets():
+    """Both kernels where an offset into u passes 2^31 elements (the flat
+    kernel's 64-bit instantiation, which a batch of ~210 cosmologies at
+    2,049 kt reaches) against the plain version, bit for bit, 2^17 rows at
+    a time, with one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    for wrapper, dtype in ((rk.pair_lerp_f32, torch.float32),
+                           (rk.pair_lerp_f64, F64)):
+        u, scales, ks, dkt = _wide_case(dev, dtype)
+        rows, nkt = u.shape
+        assert (rows + 1) * nkt > 2**31
+        n0 = wrapper.launches
+        got = wrapper(u, scales, ks, dkt)
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 1
+        step = 2**17
+        for a in range(0, rows, step):
+            assert torch.equal(got[a:a + step], rk.pair_lerp_plain(
+                u[a:a + step], scales[a:a + step], ks, dkt))
+        del u, got
+        torch.cuda.empty_cache()

@@ -122,12 +122,14 @@ def test_kaiser_and_scoccimarro_match_jax():
     pdt, ptt = pk * 0.9, pk * 0.8
 
     def calls(m, pk, pdt, ptt, b, f, sv):
+        # host data alone runs on the card unless the port is told the CPU
+        cpu = {} if m is jrsd else {"device": "cpu"}
         return [m.kaiser_pk_mu(KS, mus, pk, b, f, sv),
                 m.kaiser_pk_mu(KS, mus, pk[0], 1.5, 0.6, 4.0, "lorentzian"),
                 *m.rsd_multipoles(KS, pk, b, f, sv, n_mu=16).values(),
                 *m.rsd_multipoles(KS, pk[0], 1.2, 0.7, fog="lorentzian",
                                   ells=(0, 2), n_mu=8).values(),
-                m.sigma_v_lin(KT, PT),
+                m.sigma_v_lin(KT, PT, **cpu),
                 m.scoccimarro_pk_mu(KS, mus, pk, pdt, ptt, b, f, sv),
                 *m.scoccimarro_multipoles(KS, pk, pdt, ptt, b, f, sv,
                                           n_mu=16).values(),
