@@ -78,7 +78,22 @@ and an HI tracer on the fast NFW profile, the Battaglia pressure profile,
 the nine halofit versions and 'mead' under w0/wa, the CMB lensing C_L to
 L = 3000 on the nonlinear power, the BAO ratio, tau_*, z(tau), H0 from
 theta100 and the cluster-lensing profiles, against its golden file, with
-one launch of each kernel in the build.
+one launch of each kernel in the build.  The projfield phase drives the
+projected-field kSZ^2 group on the class build at the settings of
+examples/projected_field_ksz2.py (4,800 triangles a bispectrum call, also
+in chunks of two ells; the fast NFW leg; the lensing term, the Gaussian
+noise and the SNR), the checkpoint phase saves the build and restores it
+into a fresh HaloModel (spectra bit for bit, timed through
+utils.profiling), the flatsky phase the 16-sim lensing reconstruction of
+examples/lensing_qe_sim.py at n = 1,024 as one batch on white noise drawn
+by numpy from the golden file's seed (and a polarized draw through the
+EE, TE and EB estimators; the batch against one sim alone), and the
+emulator phase examples/emulator_pk.py (the training set by vmapped
+make_pmm_fn chunks, a float64 fit from JAX's initial net, the float32 fit,
+jacfwd against central differences, and the exact-tier training set's one
+kernel launch a chunk), each against its golden file, with no kernel
+launch in their calls and each entry point's latency, launches, host reads
+and peak memory.
 
 It differentiates both paths, and times the kernels, at one cosmology's
 shapes and at the batches', and the end-to-end calls.
@@ -122,6 +137,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -143,6 +159,9 @@ GOLDEN_X = DATA / "extensions_config1_golden.npz"
 GOLDEN_V = DATA / "cov_bispectrum_config1_golden.npz"
 GOLDEN_RN = DATA / "rsd_nonlimber_config1_golden.npz"
 GOLDEN_LC = DATA / "lensing_cmb_golden.npz"
+GOLDEN_PF = DATA / "projfield_config1_golden.npz"
+GOLDEN_FS = DATA / "flatsky_qe_golden.npz"
+GOLDEN_EM = DATA / "emulator_pk_golden.npz"
 FIXTURE_CMB = ROOT / "tests" / "fixtures" / "camb_table_fixture.npz"
 
 # kernel vs plain version on the card (absolute on u; relative on S1, S2;
@@ -222,6 +241,24 @@ GATE_LC = 1e-10
 GATE_LC_FAST = 1e-5
 GATE_LC_ROW = 1e-10
 GATE_LC_3J = 1e-9
+# the projected-field kSZ^2 group (tools/gen_torch_golden.py --config
+# projfield) on the README example's build: 1e-10 element by element, 1e-5
+# on the fast NFW profile's leg (against the golden file's analytic one)
+GATE_PF = 1e-10
+GATE_PF_FAST = 1e-5
+# the map-level reconstruction (--config flatsky): 1e-10 of each array's
+# largest value on the file's fixed sample of elements, the binned spectra
+# whole element by element; a batch of sims against one sim alone 1e-12
+GATE_FS = 1e-10
+GATE_FS_BATCH = 1e-12
+# the emulator (--config emulator): training-set rows 1e-10; a float64 fit
+# from JAX's initial net, its losses and predictions 1e-9; the float32 fit
+# against JAX's at the file's gate (ten times the spread of the two on the
+# CPU); the Jacobian by jacfwd against central differences, 1e-6 of its
+# largest element; the exact-tier training set 1e-7
+GATE_EM_ROWS = 1e-10
+GATE_EM_FIT64 = 1e-9
+GATE_EM_JAC_FD = 1e-6
 # nfw_contract beyond gridDim.y's 65,535: redshifts on gridDim.x (C13)
 C13_NZ, C13_NM, C13_NK = 70_000, 200, 16
 # the mass-function modes of config 1 by NFW tier: (fast, gate)
@@ -695,6 +732,510 @@ def lerp_wide_case(dev, dtype):
     ks = torch.tensor([0.25, (nkt - 1) * 0.25, 0.1, nkt * 0.25, 300.125],
                       dtype=torch.float64, device=dev)
     return u, scales.to(torch.float64), ks, 0.25
+
+
+def sample_err(got, idx, want, maxabs):
+    """Max |got.flat[idx] - want| over the whole array's largest |value|
+    (from the golden file): a fixed sample of a large array."""
+    g = got.reshape(-1)[torch.as_tensor(idx, device=got.device)].cpu().numpy()
+    return float(np.max(np.abs(g - want)) / float(maxabs))
+
+
+def to_max(got, want):
+    """Max |got - want| over the largest |want| (tensors)."""
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def entry_stats(phase, calls, dev, card, n=5):
+    """Latency (median of n, host clock to synchronize()), launches and
+    host reads (CardOps) and peak memory of each entry point, printed."""
+    stats = {}
+    for what, fn in calls.items():
+        n_l, n_sync = card_ops(fn)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_v = host_ms(fn, n=n, warmup=0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        stats[what] = {"ms": t_v, "launches": n_l, "host_reads": n_sync,
+                       "peak_mib": peak}
+        print(f"[time] {phase} {what}: {t_v!r} ms (host clock to "
+              f"synchronize, median of {n}), {n_l} launches and {n_sync} "
+              f"host reads (aten operations on the card, CardOps), peak "
+              f"{peak:.1f} MiB allocated ({card})")
+    return stats
+
+
+def projfield_filter(nl):
+    """examples/projected_field_ksz2.py's filter b_l / (C_l^TT + N_l) and
+    C_l^TT on l = 2..8,000 (tools/gen_torch_golden.py's recipe)."""
+    fgrid = np.arange(2.0, 8001.0)
+    cl_tt = 2.0 * np.pi * 2500.0 / (fgrid * (fgrid + 1.0) ** 2) \
+        * np.exp(-((fgrid / 3500.0) ** 2))
+    fvals = np.exp(-0.5 * (fgrid * 1.4 * np.pi / 10800.0 / 2.355) ** 2) \
+        / (cl_tt + nl)
+    return fgrid, cl_tt, fvals
+
+
+def phase_projfield(hm, dev, card, counts):
+    """The projected-field kSZ^2 group on the class build at the settings
+    of examples/projected_field_ksz2.py, against its golden file; no
+    kernel launched in its calls.  Returns (launches, stats)."""
+    from hmvec_tpu_torch.models import limber as tlimb
+    from hmvec_tpu_torch.models import projfield as tpf
+    from hmvec_tpu_torch.models.lensing_noise import white_noise_nl
+
+    t_phase = time.perf_counter()
+    gp = np.load(GOLDEN_PF)
+    for key in ("zs", "ks", "ms"):
+        check(np.array_equal(gp[key], getattr(hm, key + "_np")),
+              f"the projfield golden file is on the build's {key}")
+    zs, ks = hm.zs_np, hm.ks_np
+    ells, tri, fsky = gp["ells"], gp["tri"], float(gp["fsky"])
+    nodes = dict(zip(("n_radial", "n_angle"), map(int, gp["nodes"])))
+    fgrid = np.arange(2.0, 8001.0)
+    nl = white_noise_nl(fgrid, *map(float, gp["noise"]), device=dev)
+    nl = nl.cpu().numpy()
+    fgrid, cl_tt, fvals = projfield_filter(nl)
+    table = (fgrid, fvals)
+    dndz = np.exp(-0.5 * ((zs - 0.6) / 0.25) ** 2)
+    pgm, pgg = hm.get_power("g", name2="nfw"), hm.get_power("g", name2="g")
+    ckg = tlimb.C_kg(hm.bg, fgrid, zs, ks, pgm, zs, gdndz=dndz, lzs=1100.0)
+    cl_phig = 2.0 * ckg / torch.as_tensor(fgrid, device=dev) ** 2
+    chis = hm.comoving_radial_distance(hm.zs).cpu().numpy()
+    hzs = hm.h_of_z(hm.zs).cpu().numpy()
+    ngal2d = float(hm.hods["g"]["ngal"][0]) * np.trapezoid(
+        chis**2 / hzs * dndz / np.trapezoid(dndz, zs), zs)
+    clgg = tlimb.C_gg(hm.bg, ells, zs, ks, pgg, zs, gdndz=dndz) \
+        + 1.0 / ngal2d
+    torch.cuda.synchronize()
+    res = {}
+    calls = {
+        "cl_ksz2_galaxy": lambda: tpf.cl_ksz2_galaxy(
+            hm, ells, table, gdndz=dndz, **nodes),
+        "cl_ksz2_galaxy ell_chunk=2": lambda: tpf.cl_ksz2_galaxy(
+            hm, ells, table, gdndz=dndz, ell_chunk=2, **nodes),
+        "cl_ksz2_kappa nfw": lambda: tpf.cl_ksz2_kappa(hm, ells, table,
+                                                       **nodes),
+        "cl_ksz2_kappa nfw_fast": lambda: tpf.cl_ksz2_kappa(
+            hm, ells, table, name_matter="nfw_fast", **nodes),
+        "hybrid_bispectrum_ttg": lambda: tpf.hybrid_bispectrum_ttg(
+            hm, *tri, gdndz=dndz),
+        "vrms2_linear": lambda: tpf.vrms2_linear(hm),
+        "cl_t2_lensing": lambda: tpf.cl_t2_lensing(
+            ells, table, cl_tt, cl_phig, lmin=2.0, lmax=8000.0),
+        "cl_t2_t2_gaussian": lambda: tpf.cl_t2_t2_gaussian(
+            ells, table, cl_tt + nl, lmin=2.0, lmax=8000.0, device=dev),
+        "ksz2_snr": lambda: tpf.ksz2_snr(
+            ells, res["cl_ksz2_galaxy"], res["cl_t2_t2_gaussian"], clgg,
+            fsky=fsky),
+    }
+    # the main path of the phase: the calls with the counts set to 0 just
+    # before and read just after
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts.reset()
+    for what, fn in calls.items():
+        res[what] = fn()
+    torch.cuda.synchronize()
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    check(not any(launches.values()), f"the projfield calls launch no "
+          f"kernel: {launches}")
+    fields = {
+        "C_kg (the lensing term's input)": (ckg, "ckg", GATE_PF),
+        "C_gg + shot noise": (clgg, "clgg", GATE_PF),
+        "cl_ksz2_galaxy": (res["cl_ksz2_galaxy"], "ksz2_g", GATE_PF),
+        "cl_ksz2_galaxy ell_chunk=2": (res["cl_ksz2_galaxy ell_chunk=2"],
+                                       "ksz2_g", GATE_PF),
+        "cl_ksz2_kappa nfw": (res["cl_ksz2_kappa nfw"], "ksz2_k", GATE_PF),
+        "cl_ksz2_kappa nfw_fast": (res["cl_ksz2_kappa nfw_fast"], "ksz2_k",
+                                   GATE_PF_FAST),
+        "hybrid_bispectrum_ttg": (res["hybrid_bispectrum_ttg"], "hybrid",
+                                  GATE_PF),
+        "vrms2_linear": (res["vrms2_linear"], "vrms2", GATE_PF),
+        "cl_t2_lensing": (res["cl_t2_lensing"], "t2_lensing", GATE_PF),
+        "cl_t2_t2_gaussian": (res["cl_t2_t2_gaussian"], "t2_t2", GATE_PF),
+        "ksz2_snr per band": (res["ksz2_snr"][0], "snr2", GATE_PF),
+        "ksz2_snr total": (res["ksz2_snr"][1], "snr", GATE_PF),
+    }
+    for what, (got, key, gate) in fields.items():
+        want = gp[key]
+        check(got.device == dev and got.dtype == torch.float64
+              and tuple(got.shape) == want.shape
+              and bool(torch.isfinite(got).all()),
+              f"projfield {what} output {tuple(got.shape)}")
+        e = close_err(got.cpu().numpy(), want)
+        check(e <= gate, f"projfield {what} vs golden: {e!r} > {gate}")
+        print(f"[projfield] {what} {tuple(got.shape)}: max rel err vs the "
+              f"JAX golden {e!r} element by element (gate {gate})")
+    print(f"[projfield] the {len(calls)} calls' launches {launches}; peak "
+          f"{peak:.1f} MiB allocated ({card})")
+    stats = entry_stats("projfield", calls, dev, card)
+    print(f"[projfield] the phase's wall time "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    return launches, stats
+
+
+def log_interp_on_L(nodes, vals, lmax):
+    """examples/lensing_qe_sim.py's N0 on integer L: log-log interpolation
+    of the node values, 0 below L = 2 (tools/gen_torch_golden.py's)."""
+    Li = np.arange(lmax + 1, dtype=np.float64)
+    out = np.exp(np.interp(np.log(np.maximum(Li, 2.0)), np.log(nodes),
+                           np.log(vals)))
+    out[:2] = 0.0
+    return out
+
+
+def phase_flatsky(dev, card, counts):
+    """The map-level lensing reconstruction of examples/lensing_qe_sim.py
+    (16 sims as one batch) on white noise drawn by numpy from the golden
+    file's seed, against the golden file; no kernel launched.  Returns
+    (launches, stats)."""
+    from hmvec_tpu_torch.models import flatsky as tfs
+    from hmvec_tpu_torch.models import lensing_noise as lnm
+    from hmvec_tpu_torch.models.lensed_cf import lens_cls_flat_sky_resummed
+
+    t_phase = time.perf_counter()
+    gf = np.load(GOLDEN_FS)
+    cfg = dict(zip(gf["settings_names"].tolist(), gf["settings"]))
+    n, pix, lmax_t = int(cfg["n"]), float(cfg["pix"]), int(cfg["lmax_t"])
+    lmax_rec, ns, o = int(cfg["lmax_rec"]), int(cfg["nsims"]), \
+        int(cfg["oversample"])
+    unl, clpp, bins = gf["unlensed"], gf["clpp"], gf["bins"]
+    # the spectra: the port's own lensed spectra, noise, N0 family and N1
+    clpp_pad = np.zeros(unl.shape[0])
+    clpp_pad[:clpp.size] = clpp
+    cl_len = lens_cls_flat_sky_resummed(unl, clpp_pad, lmax_out=lmax_t,
+                                        device=dev)
+    cl_len[:2] = 0.0
+    lv = np.arange(lmax_t + 1.0)
+    nl = lnm.white_noise_nl(lv, float(cfg["noise_t"]), float(cfg["beam"]),
+                            device=dev)
+    nl_p = lnm.white_noise_nl(lv, float(cfg["noise_t"]) * math.sqrt(2.0),
+                              float(cfg["beam"]), device=dev)
+    tot = cl_len[:, 0] + nl
+    tot_ee, tot_bb = cl_len[:, 1] + nl_p, cl_len[:, 2] + nl_p
+    nodes = gf["nodes"]
+    kw = dict(lmin=30, lmax=lmax_t)
+    grads = {"TT": cl_len[:, 0], "EE": cl_len[:, 1], "TE": cl_len[:, 3]}
+    tots = {"TT": tot, "EE": tot_ee, "BB": tot_bb, "TE": cl_len[:, 3]}
+    n0_nodes = torch.stack([
+        lnm.n0_flat_sky(nodes, "TT", cl_len[:, 0], tot, **kw),
+        lnm.n0_flat_sky(nodes, "EE", cl_len[:, 1], tot_ee, **kw),
+        lnm.n0_flat_sky(nodes, "EB", cl_len[:, 1], tot_ee, cl_total2=tot_bb,
+                        **kw),
+        lnm.n0_te_simple_flat_sky(nodes, grads, tots, **kw)[0]])
+    n0n = n0_nodes.cpu().numpy()
+    n0, n0_ee, n0_eb = (log_interp_on_L(nodes, v, lmax_rec) for v in n0n[:3])
+    a_te = log_interp_on_L(nodes, 1.0 / n0n[3], lmax_rec)
+    L_n1 = gf["L_n1"]
+    n1 = lnm.n1_tt_flat_sky(L_n1, cl_len[:, 0], tot, clpp, n0_phi=np.interp(
+        L_n1, np.arange(lmax_rec + 1.0), n0), **kw)
+    # the resummed spectra relative to each row's largest value, as the
+    # lensing phase holds them (their J2-J6 recurrences' absolute error)
+    for what, got, want, measure in (
+            ("lens_cls_flat_sky_resummed", cl_len.T, gf["cl_len"].T,
+             row_err),
+            ("N0 TT/EE/EB and the TE response at the nodes", n0_nodes,
+             gf["n0_nodes"], close_err),
+            ("n1_tt_flat_sky", n1, gf["n1"], close_err)):
+        e = measure(got.cpu().numpy(), want)
+        check(e <= GATE_FS, f"flatsky {what} vs golden: {e!r}")
+        kind = "of the row's largest value" if measure is row_err \
+            else "element by element"
+        print(f"[flatsky] {what} {tuple(want.shape)}: max rel err vs the "
+              f"JAX golden {e!r} {kind} (gate {GATE_FS})")
+    # white noise, as the golden file drew it
+    rng = np.random.default_rng(int(cfg["seed"]))
+    w = rng.standard_normal((ns, 3, n, n))
+    wp = rng.standard_normal((2, n, n))
+    check(np.array_equal(w.reshape(-1)[gf["idx"][:16]], gf["noise_check"]),
+          "numpy draws the golden file's white noise")
+    W = torch.as_tensor(w, device=dev)
+    Wp = torch.as_tensor(wp, device=dev)
+    del w, wp
+    cl_t = torch.as_tensor(unl[:lmax_t + 1, 0], device=dev)
+    qe = lambda t: tfs.qe_tt(t, pix, cl_len[:, 0], tot, n0, lmin=30,
+                             lmax=lmax_t)
+
+    def sims(w):
+        """The example's per-sim chain on w (..., 3, n, n)."""
+        t0 = tfs._synth_from_noise(w[..., 0, :, :], pix, cl_t)
+        phi = tfs._synth_from_noise(w[..., 1, :, :], pix, clpp)
+        noise = tfs._synth_from_noise(w[..., 2, :, :], pix, nl)
+        lensed = tfs.lens_map(t0, phi, pix, oversample=o)
+        ph = qe(lensed + noise)
+        ph0 = qe(t0 + noise)
+        pk = torch.fft.fft2(phi)
+        binned = torch.stack([tfs.fourier_power(a, b, pix, bins)[1]
+                              for a, b in ((ph, pk), (ph, ph), (ph0, ph0),
+                                           (pk, pk))], dim=-2)
+        return {"lensed": lensed, "ph": ph, "ph0": ph0, "phi": phi,
+                "binned": binned}
+
+    def pol(phi):
+        t, q, u = tfs._synth_tqu_from_noise(
+            Wp[0], Wp[1], None, pix, cl_t, unl[:lmax_t + 1, 1],
+            unl[:lmax_t + 1, 3])
+        tl, ql, ul = (tfs.lens_map(m, phi, pix, oversample=o)
+                      for m in (t, q, u))
+        return {"ee": tfs.qe_ee(ql, ul, pix, cl_len[:, 1], tot_ee, n0_ee,
+                                **kw),
+                "te": tfs.qe_te(tl, ql, ul, pix, cl_len[:, 3], tot, tot_ee,
+                                a_te, **kw),
+                "eb": tfs.qe_eb(ql, ul, pix, cl_len[:, 1], tot_ee, tot_bb,
+                                n0_eb, **kw)}
+
+    # the main path of the phase: the 16 sims as one batch, then the
+    # polarized draw, the counts set to 0 just before and read just after
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts.reset()
+    out = sims(W)
+    out_pol = pol(out["phi"][0])
+    torch.cuda.synchronize()
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    check(not any(launches.values()), f"the flatsky calls launch no kernel: "
+          f"{launches}")
+    for key in ("lensed", "ph", "ph0"):
+        got = out[key]
+        check(got.device == dev and tuple(got.shape) == (ns, n, n),
+              f"flatsky {key} shape {tuple(got.shape)}")
+        e = sample_err(got, gf["idx"], gf[f"{key}_sample"],
+                       gf[f"{key}_maxabs"])
+        check(e <= GATE_FS, f"flatsky {key} vs golden: {e!r}")
+        print(f"[flatsky] {key} ({ns}, {n}, {n}): max err vs the JAX golden "
+              f"{e!r} of the array's largest value on "
+              f"{gf['idx'].size} sampled elements (gate {GATE_FS})")
+    for key, got in out_pol.items():
+        e = sample_err(got, gf["idx_pol"], gf[f"ph_{key}_sample"],
+                       gf[f"ph_{key}_maxabs"])
+        check(got.device == dev and e <= GATE_FS, f"flatsky qe_{key} vs golden: "
+              f"{e!r}")
+        print(f"[flatsky] qe_{key} on the lensed synth_tqu draw: max err vs "
+              f"the JAX golden {e!r} of the array's largest value on "
+              f"{gf['idx_pol'].size} sampled elements (gate {GATE_FS})")
+    for j, key in enumerate(("cx", "caa", "c00", "cpp")):
+        got = out["binned"][:, j].cpu().numpy()
+        e = close_err(got, gf[f"binned_{key}"])
+        check(e <= GATE_FS, f"flatsky binned {key} vs golden: {e!r}")
+        print(f"[flatsky] binned {key} {got.shape}: max rel err vs the JAX "
+              f"golden {e!r} element by element (gate {GATE_FS})")
+    # the batch against one sim alone
+    i1 = min(3, ns - 1)
+    one = sims(W[i1])
+    e_b = max(to_max(out[k][i1], one[k]) for k in out)
+    check(e_b <= GATE_FS_BATCH, f"flatsky batch vs one sim: {e_b!r}")
+    cx = out["binned"][:, 0].sum(0)
+    caa = out["binned"][:, 1].sum(0)
+    cpp = out["binned"][:, 3].sum(0)
+    rho = (cx / torch.sqrt(caa * cpp)).cpu().numpy()
+    print(f"[flatsky] sim {i1} of the batch against it alone: max err "
+          f"{e_b!r} of each array's largest value (gate {GATE_FS_BATCH}); "
+          f"the reconstruction's cross-correlation rho(L) over the bins "
+          f"{np.round(rho, 3).tolist()}; the batch's launches {launches}, "
+          f"peak {peak:.1f} MiB allocated ({card})")
+    del one, out, out_pol
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ph1 = qe(W[0, 0])
+    calls = {
+        "synth_gaussian (CUDA generator, one map)": lambda: tfs.synth_gaussian(
+            gen, n, pix, cl_t),
+        "the 16-sim reconstruction (synthesis, lens_map, 2 qe_tt, 4 binned "
+        "spectra)": lambda: sims(W),
+        "lens_map x16": lambda: tfs.lens_map(W[:, 0], W[:, 1] * 1e-4, pix,
+                                             oversample=o),
+        "qe_tt x16": lambda: qe(W[:, 0]),
+        "fourier_power x16": lambda: tfs.fourier_power(ph1, ph1, pix, bins),
+        "synth_tqu + lens_map + qe_ee, qe_te, qe_eb": lambda: pol(W[0, 1]
+                                                                  * 1e-4),
+    }
+    stats = entry_stats("flatsky", calls, dev, card)
+    del W, Wp
+    torch.cuda.empty_cache()
+    print(f"[flatsky] the phase's wall time "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    return launches, stats
+
+
+def phase_emulator(dev, card, counts, wrappers):
+    """examples/emulator_pk.py on the card: the training set by vmapped
+    make_pmm_fn chunks, a float64 fit from JAX's initial net, the float32
+    fit, jacfwd through the emulator, against the golden file.  Returns
+    (launches, stats)."""
+    from hmvec_tpu_torch import pipeline as pl
+    from hmvec_tpu_torch.models import emulator as tem
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 GEMMs run in float32 (TF32 off)")
+    ge = np.load(GOLDEN_EM)
+    names = tuple(ge["names"].tolist())
+    lo, hi = ge["lo"], ge["hi"]
+    n_train, n_val, steps, chunk, seed = map(int, ge["fit"])
+    fit = dict(n_train=n_train, n_val=n_val,
+               widths=tuple(map(int, ge["widths"])),
+               learning_rate=float(ge["learning_rate"]), log_y=True,
+               chunk=chunk, seed=seed)
+    nW = len([k for k in ge.files if re.fullmatch(r"W\d+", k)])
+    init = {"W": [ge[f"W{i}"] for i in range(nW)],
+            "b": [np.zeros(ge[f"W{i}"].shape[1]) for i in range(nW)]}
+    pmm = pl.make_pmm_fn(ge["zs"], ge["ks"], ge["ms"], device=dev)
+    target = tem.pipeline_target(pmm, names)
+    thetas = tem.sample_params(lo, hi, n_train + n_val, seed=seed)
+    n_chunks = -(-thetas.shape[0] // chunk)
+    # the main path of the phase: the training set, both fits and the
+    # Jacobian, the counts set to 0 just before and read just after
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts.reset()
+    Y = tem._training_set(target, thetas, chunk, dev)
+    em64, info64 = tem.fit_emulator(target, lo, hi, steps=int(ge["steps64"]),
+                                    dtype=torch.float64, init_net=init, **fit)
+    em32, info32 = tem.fit_emulator(target, lo, hi, steps=steps,
+                                    init_net=init, **fit)
+    theta0 = torch.as_tensor(ge["val_thetas"][0], device=dev)
+    jac = torch.func.jacfwd(em64)(theta0)
+    torch.cuda.synchronize()
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    check(not any(launches.values()), f"the emulator's plain-tier pipeline "
+          f"launches no kernel: {launches}")
+    e_rows = close_err(Y[ge["rows"]], ge["Y_rows"])
+    check(e_rows <= GATE_EM_ROWS, f"emulator training rows vs golden: "
+          f"{e_rows!r}")
+    for em in (em64, em32):
+        check(em.device == dev and all(p.device == dev
+                                       for p in em.parameters()),
+              "the emulator trained on the card")
+    check(em32.net.W[0].dtype == torch.float32
+          and em64.net.W[0].dtype == torch.float64, "the fits' dtypes")
+    e64 = float(np.max(np.abs(info64["losses"] / ge["losses64"] - 1.0)))
+    check(e64 <= GATE_EM_FIT64, f"float64 fit losses vs golden: {e64!r}")
+    with torch.no_grad():
+        pred64 = em64(ge["val_thetas"]).cpu().numpy()
+    e_p64 = close_err(pred64, ge["pred64"])
+    check(e_p64 <= GATE_EM_FIT64, f"float64 fit predictions vs golden: "
+          f"{e_p64!r}")
+    metrics = np.array([np.mean(info32["losses"][-50:]),
+                        info32["val_max_rel"], info32["val_rms_rel"]])
+    want32 = np.array([np.mean(ge["losses32"][-50:]), *ge["val32"]])
+    spread = np.abs(metrics / want32 - 1.0)
+    gate32 = float(ge["f32_gate"])
+    check(float(spread.max()) <= gate32, f"float32 fit vs JAX's: {spread} > "
+          f"{gate32}")
+    # jacfwd against central differences of the float64 emulator
+    h = 1e-6 * torch.as_tensor(hi - lo, device=dev)
+    with torch.no_grad():
+        fd = torch.stack([(em64(theta0 + h[i] * torch.eye(3, device=dev)[i])
+                           - em64(theta0 - h[i] * torch.eye(3, device=dev)[i]))
+                          / (2.0 * h[i]) for i in range(3)], dim=-1)
+    e_jac = to_max(jac, fd)
+    check(e_jac <= GATE_EM_JAC_FD, f"jacfwd vs central differences: "
+          f"{e_jac!r}")
+    print(f"[emulator] training set {Y.shape} on the card in {n_chunks} "
+          f"vmapped chunks: every 16th row vs the JAX golden {e_rows!r} "
+          f"element by element (gate {GATE_EM_ROWS}); float64 fit of "
+          f"{int(ge['steps64'])} steps from JAX's initial net: losses "
+          f"{e64!r}, predictions {e_p64!r} (gate {GATE_EM_FIT64}); float32 "
+          f"fit of {steps} steps: final loss {metrics[0]!r} (JAX "
+          f"{want32[0]!r}), held-out max rel {metrics[1]!r} (JAX "
+          f"{want32[1]!r}), rms {metrics[2]!r} (JAX {want32[2]!r}); spread "
+          f"{spread.tolist()} (gate {gate32!r}, ten times the CPU spread "
+          f"{ge['f32_spread_cpu'].tolist()}); jacfwd vs central differences "
+          f"{e_jac!r} of its largest element (gate {GATE_EM_JAC_FD}); the "
+          f"phase's launches {launches}, peak {peak:.1f} MiB ({card})")
+    # the same training set through the exact NFW kernel: one launch a
+    # chunk (the vmap rule folds the chunk into the kernel's rows)
+    pmm_x = pl.make_pmm_fn(ge["zs"], ge["ks"], ge["ms"], device=dev,
+                           fast="exact")
+    target_x = tem.pipeline_target(pmm_x, names)
+    counts.reset()
+    Yx = tem._training_set(target_x, thetas, chunk, dev)
+    torch.cuda.synchronize()
+    launches_x = counts.read()
+    want_x = {k: (n_chunks if k == "nfw_uk_exact" else 0) for k in wrappers}
+    check(launches_x == want_x, f"exact-tier training set: one "
+          f"nfw_uk_exact launch a chunk, got {launches_x}")
+    e_x = close_err(Yx[ge["rows"]], ge["Y_rows"])
+    check(e_x <= GATE_PMM["exact"], f"exact-tier training rows: {e_x!r}")
+    print(f"[emulator] the training set through nfw_uk_exact: launches "
+          f"{launches_x}, rows vs the golden {e_x!r} (gate "
+          f"{GATE_PMM['exact']})")
+    chain = torch.as_tensor(np.random.default_rng(1).uniform(lo, hi,
+                                                             (512, 3)),
+                            device=dev)
+    th_chunk = torch.as_tensor(thetas[:chunk], device=dev)
+    gen = torch.func.vmap(target)
+    calls = {
+        f"training-set chunk ({chunk} cosmologies, vmapped make_pmm_fn)":
+            lambda: gen(th_chunk),
+        "emulator float32, 512 cosmologies": lambda: em32(chain),
+        "jacfwd through the float64 emulator": lambda: torch.func.jacfwd(
+            em64)(theta0),
+    }
+    stats = entry_stats("emulator", calls, dev, card)
+    t0 = time.perf_counter()
+    tem.fit_emulator(target, lo, hi, steps=steps, init_net=init, **fit)
+    torch.cuda.synchronize()
+    t_fit = (time.perf_counter() - t0) * 1e3
+    stats[f"fit_emulator float32 ({steps} steps, with its training set)"] = {
+        "ms": t_fit}
+    print(f"[time] emulator fit_emulator float32 ({steps} steps, training "
+          f"set included): {t_fit!r} ms (host clock to synchronize, one "
+          f"call) ({card})")
+    print(f"[emulator] the phase's wall time "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    return launches, stats
+
+
+def phase_checkpoint(hm, build, dev, card, counts):
+    """The class build saved, restored into a fresh HaloModel on the card,
+    and its spectra equal bit for bit; timed through utils.profiling."""
+    import tempfile
+
+    from hmvec_tpu_torch.utils import checkpoint as tck
+    from hmvec_tpu_torch.utils import profiling as tprof
+
+    spectra = {**CLASS_SPECTRA, "pmm_fast": ("nfw_fast", None)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "class_build.npz")
+        res = {}
+        counts.reset()
+        with tprof.timer("save", res):
+            tck.save_halo_model(hm, path)
+        fresh = build()
+        with tprof.timer("restore", res):
+            tck.restore_halo_model(fresh, path)
+            torch.cuda.synchronize()
+        launches = counts.read()
+        size = pathlib.Path(path).stat().st_size / 2**20
+        for key, names in spectra.items():
+            a, b = fresh.get_power(*names), hm.get_power(*names)
+            check(a.device == dev and torch.equal(a, b), f"checkpoint {key}: the "
+                  f"restored build's spectrum equals the build's")
+        check(not any(launches.values()), f"save and restore launch no "
+              f"kernel: {launches}")
+        t_restore = tprof.time_fn(lambda: tck.restore_halo_model(
+            fresh, path).Pzk, iters=3, warmup=1)
+        with tprof.torch_trace(str(pathlib.Path(tmp) / "trace")) as prof:
+            tprof.fetch_sync(fresh.get_power("g"))
+        n_cuda = sum(1 for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"[checkpoint] the class build ({len(hm.uk_profiles)} profiles, "
+          f"{len(hm.hods)} HOD) saved to {size:.1f} MiB in "
+          f"{res['save'] * 1e3!r} ms, restored into a fresh HaloModel on the "
+          f"card in {res['restore'] * 1e3!r} ms (host clock; time_fn median "
+          f"of 3: {t_restore * 1e3!r} ms): {len(spectra)} spectra equal bit "
+          f"for bit; launches {launches}; torch_trace of a get_power saw "
+          f"{n_cuda} kernels ({card})")
+    return launches, {"save": {"ms": res["save"] * 1e3},
+                      "restore": {"ms": t_restore * 1e3},
+                      "file_mib": size}
 
 
 def main() -> int:
@@ -2098,19 +2639,7 @@ def main() -> int:
           f"{lc_peak:.1f} MiB allocated ({card})")
     del res_lc
     # latency, launches, host reads and peak memory of each entry point
-    lc_stats = {}
-    for what, fn in lc_calls.items():
-        n_l, n_sync = card_ops(fn)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        t_v = host_ms(fn, n=5, warmup=0)
-        peak_v = torch.cuda.max_memory_allocated(dev) / 2**20
-        lc_stats[what] = {"ms": t_v, "launches": n_l, "host_reads": n_sync,
-                          "peak_mib": peak_v}
-        print(f"[time] lensing {what}: {t_v!r} ms (host clock to "
-              f"synchronize, median of 5), {n_l} launches and {n_sync} host "
-              f"reads (aten operations on the card, CardOps), peak "
-              f"{peak_v:.1f} MiB allocated ({card})")
+    lc_stats = entry_stats("lensing", lc_calls, dev, card)
     # CardOps beside the profiler's kernel count on two of the calls
     for what in ("shear_cls_with_ia", "n0_mv_flat_sky"):
         n_prof, sync_prof = traced(lc_calls[what])
@@ -2119,6 +2648,21 @@ def main() -> int:
               f"torch.profiler {n_prof} kernels and {sync_prof} host reads")
     print(f"[lensing] the phase's wall time "
           f"{time.perf_counter() - t_phase_lc:.1f} s (host clock)")
+
+    # ---- phase 4j: projected-field kSZ^2, flat-sky maps, the emulator,
+    # stage checkpoints (projfield and checkpoint on the same build, whose
+    # B1 and B4a launches are re-checked) ----------------------------------
+    counts = types.SimpleNamespace(reset=reset_counts, read=read_counts)
+    check(launches["class"] == want_class, f"the build the projfield and "
+          f"checkpoint phases run on launched what the class phase counted: "
+          f"{launches['class']}")
+    launches["projfield"], pf_stats = phase_projfield(hm, dev, card, counts)
+    launches["checkpoint"], ck_stats = phase_checkpoint(
+        hm, lambda: HaloModel(zs, ks_np, ms=ms, params=cosmo_c, device=dev),
+        dev, card, counts)
+    launches["flatsky"], fs_stats = phase_flatsky(dev, card, counts)
+    launches["emulator"], em_stats = phase_emulator(dev, card, counts,
+                                                    wrappers)
 
     # B4a at the 4,000-row shapes beside the device time of an empty launch
     # (a one-element zero_ replayed in a CUDA graph): the electron path's
@@ -2598,6 +3142,10 @@ def main() -> int:
     print("[cov_bispectrum] " + json.dumps(cov_stats))
     print("[rsd_nonlimber] " + json.dumps(rn_stats))
     print("[lensing] " + json.dumps(lc_stats))
+    print("[projfield] " + json.dumps(pf_stats))
+    print("[flatsky] " + json.dumps(fs_stats))
+    print("[emulator] " + json.dumps(em_stats))
+    print("[checkpoint] " + json.dumps(ck_stats))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,11 @@ default) when given only host data, all by one rule
 (``utils.weights.on_device_of_inputs``); those that compute in the array
 library they are given (numpy in, numpy out) do so as the JAX package's
 do, and ``distances_ext.solve_h0_from_theta100`` bisects on the host.
-The public names of ``hmvec_tpu`` whose modules are still to be ported
-are listed in ROADMAP.md (A9) and the README.
+The map-level simulations and quadratic estimators are the module
+``flatsky``; stage checkpoints and timers are ``utils.checkpoint`` and
+``utils.profiling``.  The public names of ``hmvec_tpu`` whose modules are
+still to be ported (the Boltzmann group) are listed in ROADMAP.md (A9)
+and the README.
 """
 
 from .params import battaglia_defaults, default_params, merge_params  # noqa: F401
@@ -97,6 +100,14 @@ from .models.hod import (  # noqa: F401
     avg_Ns, avg_NsNsm1, avg_nc_zheng05, avg_ns_zheng05, build_hod_zheng05,
     hod_default_mfunc, ngal_from_mthresh)
 from .models.limber import limber_integral  # noqa: F401
+from .models import flatsky  # noqa: F401
+from .models.projfield import (  # noqa: F401
+    bispectrum_ttg_lensing, cl_ksz2_galaxy, cl_ksz2_kappa, cl_t2_lensing,
+    cl_t2_t2_gaussian, filtered_bispectrum_cl, hybrid_bispectrum_ttg,
+    ksz2_snr, vrms2_linear)
+from .models.emulator import (  # noqa: F401
+    Emulator, fit_emulator, load_emulator, pipeline_target, sample_params,
+    save_emulator)
 from .models.linear_power import EHEngine, TabulatedEngine  # noqa: F401
 from .ops.special import Wkr, Wkr_taylor  # noqa: F401
 from .ops.rootfind import invert_monotone, vectorized_bisection_search  # noqa: F401

@@ -14,6 +14,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 
 def jax_jvp(fn, names):
@@ -88,3 +89,63 @@ class JaxSubprocess:
         if self.proc is not None and self.proc.poll() is None:
             self.proc.kill()
             self.proc.communicate()
+
+
+def jax_halo_model_of(th, params=None):
+    """The JAX package's HaloModel on a port instance's grids, holding the
+    port instance's tables (linear power, sigma^2, n(z, m), b(z, m), the
+    profiles u(k) and <u^2>, the HOD grids), for a test of what reads
+    those tables.  It is made by the JAX Cosmology constructor (at
+    ``params``) and these tables, not by the HaloModel constructor, whose
+    stages run op by op and compile each operation on first use (seconds);
+    the tables themselves are held against the JAX class by
+    tests/test_torch_halo_model.py."""
+    from hmvec_tpu.models import cosmology as jcos
+    from hmvec_tpu.models import halo_model as jhm
+
+    def arr(x):
+        return jnp.asarray(x.detach().cpu().numpy())
+
+    hm = object.__new__(jhm.HaloModel)
+    jcos.Cosmology.__init__(hm, params=params)
+    hm.mdef, hm.mode, hm.concmode = th.mdef, th.mode, th.concmode
+    hm.tinker_delta = th.tinker_delta
+    for key in ("zs", "ks", "ms", "Pzk", "sigma2", "nzm", "bh"):
+        setattr(hm, key, arr(getattr(th, key)))
+    hm.uk_profiles = {k: arr(v) for k, v in th.uk_profiles.items()}
+    hm.uk2_profiles = {k: arr(v) for k, v in th.uk2_profiles.items()}
+    hm.pk_profiles = {k: arr(v) for k, v in th.pk_profiles.items()}
+    hm.cib_tracers = {}
+    hm.hods = {name: {**{k: arr(v) for k, v in h.items()
+                         if isinstance(v, torch.Tensor)},
+                      "satellite_profile": h["satellite_profile"],
+                      "central_profile": h["central_profile"]}
+               for name, h in th.hods.items()}
+    return hm
+
+
+def compiled(jvp, theta):
+    """A ``jax_jvp`` product after one call at theta, which compiles it:
+    a task for a worker thread (see ``Prefetch``)."""
+    jvp_value(jvp, theta)
+    return jvp
+
+
+class Prefetch:
+    """JAX references computed by worker threads from a test module's
+    start, while its torch side runs in the main thread: XLA compiles
+    without holding the GIL, so two compiles, or a compile and the torch
+    side, overlap instead of running one after the other.  ``submit``
+    schedules fn(*args) and returns its future (``result()`` raises what
+    fn raised); ``close`` waits for every task."""
+
+    def __init__(self, workers=2):
+        import concurrent.futures
+        self.pool = concurrent.futures.ThreadPoolExecutor(
+            workers, thread_name_prefix="jax-reference")
+
+    def submit(self, fn, *args, **kwargs):
+        return self.pool.submit(fn, *args, **kwargs)
+
+    def close(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)

@@ -30,6 +30,7 @@ try:
     from hmvec_tpu.ops import quadrature as jquad
     from hmvec_tpu.ops import sine_transform as jst
     from hmvec_tpu.ops import special as jspecial
+    from _torch_jax import Prefetch
 except ImportError:    # a machine with the card and no JAX
     jnp = None
 
@@ -54,13 +55,6 @@ T = torch.as_tensor
 # not have (A10)
 NOT_PORTED = {
     "boltz": ("BoltzEngine", "rs_drag_integral"),
-    "emulator": ("Emulator", "fit_emulator", "pipeline_target",
-                 "save_emulator", "load_emulator", "sample_params"),
-    "projfield/flatsky": ("flatsky", "filtered_bispectrum_cl",
-                          "cl_ksz2_galaxy", "hybrid_bispectrum_ttg",
-                          "vrms2_linear", "cl_t2_lensing",
-                          "bispectrum_ttg_lensing", "cl_t2_t2_gaussian",
-                          "ksz2_snr", "cl_ksz2_kappa"),
 }
 
 
@@ -450,6 +444,10 @@ def _host_inputs():
     lms = np.linspace(12.0, 14.0, 4)
     hp = dict(default_params)
     model = lambda k, mu: 1e4 * k / (1.0 + (k / 0.02) ** 2.5) * (1 + mu**2)
+    fl = np.arange(2.0, 601.0)
+    fv = 1.0 / (1.0 + (fl / 300.0) ** 2)
+    cl_int = np.concatenate([[0.0, 0.0], 1e-9 / (fl + 10.0) ** 1.5])
+    few = {"n_radial": 8, "n_angle": 6}
     bessel = (rng.uniform(0.5, 1.5, 32), np.geomspace(100.0, 3000.0, 32),
               np.array([10, 20]))
     return {
@@ -575,7 +573,22 @@ def _host_inputs():
                                 np.array([2, 5, 10])),
         "decoupled_covariance": (np.eye(11) + 0.01, np.eye(11), 10,
                                  np.array([2, 5, 10])),
+        # models/projfield.py: a filter table, a closed-form bispectrum
+        # that either array library evaluates, integer-l spectra
+        "filtered_bispectrum_cl": ((np.array([100.0, 400.0]), (fl, fv),
+                                    _b_test, 2.0, 600.0), few),
+        "bispectrum_ttg_lensing": (cl_int, 0.1 * cl_int),
+        "cl_t2_lensing": ((np.array([100.0, 400.0]), (fl, fv), cl_int,
+                           0.1 * cl_int, 2.0, 600.0), few),
+        "cl_t2_t2_gaussian": ((np.array([100.0, 400.0]), (fl, fv),
+                               cl_int + 1e-5, 2.0, 600.0), few),
+        "ksz2_snr": (ells[:4], cls[:4], 10.0 * cls[:4], 0.1 * cls[:4] + 1e-9,
+                     0.4),
     }
+
+
+def _b_test(l1, l2, l3):
+    return (1.0 + l1 / 300.0) / (1.0 + (l2 / 700.0) ** 2) * l3 ** 0.5
 
 
 HOST = _host_inputs()
@@ -660,10 +673,11 @@ def _split_call(entry):
 
 
 def _host_leaves(out):
-    """The arrays of a result (a function's values at three points),
-    depth first."""
+    """The arrays of a result (a function's values at three points, in
+    each of its arguments), depth first."""
     if callable(out) and not isinstance(out, (torch.Tensor, np.ndarray)):
-        return _host_leaves(out(np.array([0.01, 0.1, 1.0])))
+        n_args = len(inspect.signature(out).parameters)
+        return _host_leaves(out(*[np.array([0.01, 0.1, 1.0])] * n_args))
     if isinstance(out, dict):   # in key order, as jax.tree_util's
         return [a for k in sorted(out) for a in _host_leaves(out[k])]
     if isinstance(out, (list, tuple)):
@@ -673,15 +687,15 @@ def _host_leaves(out):
 
 # the JAX functions of HOST that read an input on the host (so run op by
 # op); the rest run in one compiled program
-JAX_EAGER = ("cl_cov_t1h", "exclusion_correction", "interp",
+JAX_EAGER = ("bispectrum_ttg_lensing", "cl_cov_t1h",
+             "exclusion_correction", "interp",
              "mean_pairwise_velocity", "pairwise_ksz_signal",
              "projected_correlation", "sigma_b2_disk", "sigma_b2_tophat",
              "trispectrum_1h", "trispectrum_1h_terms",
              "window_convolve_multipoles")
 
 
-@pytest.fixture(scope="module")
-def jax_host():
+def _jax_host():
     """{name: leaves} of the JAX package's function of every entry of
     HOST on its inputs (those of JAX_EAGER op by op, the rest in one
     jax.jit with the inputs as constants: one compile, not ninety)."""
@@ -693,6 +707,24 @@ def jax_host():
     out = jax.jit(lambda: {n: call(n) for n in compiled})()
     out.update({n: call(n) for n in JAX_EAGER})
     return {n: _host_leaves(v) for n, v in out.items()}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_refs():
+    """The host-data sweep's JAX references (one program of ~10 s of
+    compile), computed by a worker thread from the module's start, beside
+    the file's other tests (``_torch_jax.Prefetch``)."""
+    if jnp is None:      # the card tests need no JAX
+        yield None
+        return
+    pre = Prefetch(1)
+    yield {"host": pre.submit(_jax_host)}
+    pre.close()
+
+
+@pytest.fixture(scope="module")
+def jax_host(_jax_refs):
+    return _jax_refs["host"].result()
 
 
 def test_every_function_that_makes_tensors_takes_host_data():

@@ -18,7 +18,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 import jax
 import jax.numpy as jnp
 
-from _torch_jax import jacobian_columns, jax_jvp, jvp_value
+from _torch_jax import (Prefetch, compiled, jacobian_columns, jax_jvp,
+                        jvp_value)
 from hmvec_tpu import pipeline as jpipe
 from hmvec_tpu.models import background as jbg
 from hmvec_tpu.params import merge_params as jmerge
@@ -48,6 +49,22 @@ def _two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(old)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_jvps():
+    """The file's two JAX pipeline jvps (~20 s of compile each), compiled
+    by worker threads from the module's start, beside each other and the
+    torch side (``_torch_jax.Prefetch``)."""
+    theta = [P0[k] for k in NAMES]
+    pre = Prefetch()
+    jvps = {"pmm": pre.submit(compiled, jax_jvp(jpipe.make_pmm_fn(
+                ZS, KS, MS, fast=False, jit=False), NAMES), theta),
+            "electron": pre.submit(compiled, jax_jvp(jpipe.make_electron_fn(
+                ZS_E, KS_E, MS_E, nxs=NXS, xmax=XMAX, jit=False), NAMES),
+                theta)}
+    yield jvps
+    pre.close()
 
 
 def _rel(got, want):
@@ -184,11 +201,10 @@ def test_one_growth_table_per_call(monkeypatch, make):
 
 
 @pytest.fixture(scope="module")
-def jax_pmm_jvp():
+def jax_pmm_jvp(_jax_jvps):
     """JAX's make_pmm_fn (plain, growth 'auto') as jvp over NAMES, one
     compile: Pmm at each (w0, wa) of W0WA and the Jacobian at P0."""
-    return jax_jvp(jpipe.make_pmm_fn(ZS, KS, MS, fast=False, jit=False),
-                   NAMES)
+    return _jax_jvps["pmm"].result()
 
 
 @pytest.fixture(scope="module")
@@ -283,11 +299,10 @@ def test_reverse_gradient_in_w0wa_matches_forward(torch_jac, name):
 
 
 @pytest.fixture(scope="module")
-def jax_electron_jvp():
+def jax_electron_jvp(_jax_jvps):
     """JAX's make_electron_fn (growth 'auto') as jvp over NAMES on the
     electron grid, one compile."""
-    return jax_jvp(jpipe.make_electron_fn(ZS_E, KS_E, MS_E, nxs=NXS,
-                                           xmax=XMAX, jit=False), NAMES)
+    return _jax_jvps["electron"].result()
 
 
 def test_electron_fisher_jacobian_w0_matches_jax(jax_electron_jvp):

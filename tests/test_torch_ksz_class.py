@@ -18,6 +18,7 @@ import torch
 try:
     import jax.numpy as jnp
     from hmvec_tpu.models import ksz as jksz
+    from _torch_jax import Prefetch
 except ImportError:    # a machine with the card and no JAX
     jnp = None
 
@@ -55,15 +56,53 @@ def _rel(got, want):
     return float(np.max(np.abs(got / want - 1.0)))
 
 
+# the template and survey tests' JAX calls
+TEMPLATE_ELLS = np.concatenate([[10.0], np.geomspace(300.0, 9000.0, 6),
+                                [1e6]])
+TEMPLATE_KW = dict(fparams={"omch2": 0.12},
+                   params={"omch2": 0.115, "rho0_A0": 3800.0})
+SURVEY_KW = dict(CFG, zs=SURVEY_ZS, dndz=SURVEY_DNDZ, Cls=CLS, **SURVEY)
+BS = np.array([1.3, 1.7])
+
+
+def _jax_snr():
+    return {key: jksz.get_ksz_snr(10.0, 0.55, 1e-4, CLS, sigz=sigz, **CFG)
+            for key, sigz in (("spec", None), ("photo", SIGZ))}
+
+
+def _jax_template_and_survey():
+    return {"template": jksz.get_ksz_template_signal_snapshot(
+                TEMPLATE_ELLS, 10.0, 0.55, 1e-4, 1.6, **TEMPLATE_KW, **CFG),
+            "bins": jksz._survey_bins(SURVEY_ZS, SURVEY_DNDZ,
+                                      SURVEY["zedges"], SURVEY["fsky"],
+                                      SURVEY["Ngals"], None),
+            "survey": jksz.get_ksz_snr_survey(nfw_numeric=False,
+                                              **SURVEY_KW),
+            "survey_photo": jksz.get_ksz_snr_survey(sigz=SIGZ, bs=BS,
+                                                    **SURVEY_KW)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_refs():
+    """The file's JAX kSZ references (the JAX class runs op by op, and
+    each operation compiles on first use: ~25 s), computed by two worker
+    threads from the module's start, beside each other and the torch
+    side (``_torch_jax.Prefetch``); the N_vv test's, which patches the
+    module defaults, stays in its test."""
+    pre = Prefetch()
+    yield {"snr": pre.submit(_jax_snr),
+           "rest": pre.submit(_jax_template_and_survey)}
+    pre.close()
+
+
 @pytest.fixture(scope="module")
-def snr_pairs():
+def snr_pairs(_jax_refs):
     """get_ksz_snr of JAX and the port, without and with photo-z."""
-    out = {}
-    for key, sigz in (("spec", None), ("photo", SIGZ)):
-        out[key] = (jksz.get_ksz_snr(10.0, 0.55, 1e-4, CLS, sigz=sigz, **CFG),
-                    tksz.get_ksz_snr(10.0, 0.55, 1e-4, CLS, sigz=sigz,
-                                     device="cpu", **CFG))
-    return out
+    mine = {key: tksz.get_ksz_snr(10.0, 0.55, 1e-4, CLS, sigz=sigz,
+                                  device="cpu", **CFG)
+            for key, sigz in (("spec", None), ("photo", SIGZ))}
+    jax_side = _jax_refs["snr"].result()
+    return {key: (jax_side[key], mine[key]) for key in mine}
 
 
 @pytest.mark.parametrize("key", ["spec", "photo"])
@@ -101,9 +140,12 @@ def test_class_matches_the_ported_pipeline(snr_pairs):
     assert _rel(vrec, kt.vrec) <= 1e-12
 
 
-def test_nvv_function_matches_jax(monkeypatch):
+def test_nvv_function_matches_jax(monkeypatch, _jax_refs):
     """Nvv takes no mass grid: both packages' default grid is set to MS,
-    and the electron sampling comes through the parameters."""
+    and the electron sampling comes through the parameters (after the
+    worker threads' JAX calls, which read the same module defaults)."""
+    for task in _jax_refs.values():
+        task.result()
     for mod in (jksz, tksz):
         monkeypatch.setitem(mod.defaults, "min_mass", MS[0])
         monkeypatch.setitem(mod.defaults, "max_mass", MS[-1])
@@ -117,41 +159,35 @@ def test_nvv_function_matches_jax(monkeypatch):
         assert _rel(g, w) <= 1e-10
 
 
-def test_template_signal_snapshot_matches_jax():
+def test_template_signal_snapshot_matches_jax(_jax_refs):
     """The kSZ template x CMB at a fiducial and a shifted cosmology; the
     ells reach beyond the kS grid on both sides (left = right = 0)."""
-    ells = np.concatenate([[10.0], np.geomspace(300.0, 9000.0, 6),
-                           [1e6]])
-    fparams = {"omch2": 0.12}
-    params = {"omch2": 0.115, "rho0_A0": 3800.0}
     got = tksz.get_ksz_template_signal_snapshot(
-        ells, 10.0, 0.55, 1e-4, 1.6, fparams=fparams, params=params,
-        device="cpu", **CFG)
-    want = jksz.get_ksz_template_signal_snapshot(
-        ells, 10.0, 0.55, 1e-4, 1.6, fparams=fparams, params=params, **CFG)
+        TEMPLATE_ELLS, 10.0, 0.55, 1e-4, 1.6, device="cpu", **TEMPLATE_KW,
+        **CFG)
+    want = _jax_refs["rest"].result()["template"]
     cl_t, cl_j = _np(got[0]), np.asarray(want[0])
     assert cl_t[0] == cl_j[0] == 0.0 and cl_t[-1] == cl_j[-1] == 0.0
     assert _rel(cl_t[1:-1], cl_j[1:-1]) <= 1e-10
 
 
-def test_survey_bins_match_jax():
+def test_survey_bins_match_jax(_jax_refs):
     got = tksz._survey_bins(SURVEY_ZS, SURVEY_DNDZ, SURVEY["zedges"],
                             SURVEY["fsky"], SURVEY["Ngals"], None,
                             device="cpu")
-    want = jksz._survey_bins(SURVEY_ZS, SURVEY_DNDZ, SURVEY["zedges"],
-                             SURVEY["fsky"], SURVEY["Ngals"], None)
+    want = _jax_refs["rest"].result()["bins"]
     for g, w in zip(got, want):
         assert _rel(g, w) <= 1e-12
 
 
-def test_snr_survey_paths_match_jax():
+def test_snr_survey_paths_match_jax(_jax_refs):
     """Both paths of get_ksz_snr_survey: without photo-z the port runs the
     survey pipeline, and nfw_numeric (an option of the class alone) takes
     it bin by bin, as the JAX package does; each is held against JAX's
     per-bin path at 1e-10 and the two against each other.  With photo-z
     both run bin by bin."""
-    kw = dict(CFG, zs=SURVEY_ZS, dndz=SURVEY_DNDZ, Cls=CLS, **SURVEY)
-    want = jksz.get_ksz_snr_survey(nfw_numeric=False, **kw)
+    kw = SURVEY_KW
+    want = _jax_refs["rest"].result()["survey"]
     fused = tksz.get_ksz_snr_survey(device="cpu", **kw)
     per_bin = tksz.get_ksz_snr_survey(device="cpu", nfw_numeric=False, **kw)
     for got in (fused, per_bin):
@@ -159,9 +195,9 @@ def test_snr_survey_paths_match_jax():
             assert _rel(g, w) <= 1e-10
         assert abs(got[5] / want[5] - 1.0) <= 1e-10
     assert abs(fused[5] / per_bin[5] - 1.0) <= 1e-12
-    bs = np.array([1.3, 1.7])
+    bs = BS
     photo_t = tksz.get_ksz_snr_survey(device="cpu", sigz=SIGZ, bs=bs, **kw)
-    photo_j = jksz.get_ksz_snr_survey(sigz=SIGZ, bs=bs, **kw)
+    photo_j = _jax_refs["rest"].result()["survey_photo"]
     for g, w in zip(photo_t[3:5], photo_j[3:5]):
         assert _rel(g, w) <= 1e-10
     with pytest.raises(ValueError):

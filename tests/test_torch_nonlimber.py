@@ -20,6 +20,7 @@ from hmvec_tpu.models import background as jbg
 from hmvec_tpu.models import cosmology as jcos
 from hmvec_tpu.models import nonlimber as jnl
 from hmvec_tpu.ops import fftlog as jfft
+from _torch_jax import Prefetch
 
 import hmvec_tpu_torch
 from hmvec_tpu_torch import params as tpar
@@ -303,49 +304,71 @@ def test_hybrid_spectra_match_jax(which):
 
 # ---- the Cosmology methods -----------------------------------------------------
 
-def test_cosmology_methods_match_jax():
-    """The five methods through both classes; under w0 the instance's
-    integrated growth is the exact spectra's default, and a call may still
-    pick the closed form."""
-    params = {**PARAMS, "w0": -0.92}
-    jc = jcos.Cosmology(params)
-    tc = tcos.Cosmology(params, device="cpu")
-    assert tc.growth_mode == jc.growth_mode == "ode"
-    pzk = PZK_NL
-
-    def calls(c, p):
-        return [c.C_gg_exact(ELLS, KS, PK0, GZS, GDNDZ, bias=1.4, rsd=True,
-                             chis=CHIS),
-                c.C_gg_exact(ELLS, KS, PK0, GZS, GDNDZ, chis=CHIS,
-                             growth_mode="closed"),
-                c.C_kg_exact(ELLS, KS, PK0, GZS, GDNDZ, lzs=1.2, chis=CHIS),
-                c.C_kk_exact(ELLS, KS, PK0, lzs1=1.2, chis=CHIS),
-                c.C_gg_hybrid(ELLS, KS, PK0, ZS_NL, p, GZS, GDNDZ,
-                              bias=1.4, chis=CHIS),
-                c.C_kk_hybrid(ELLS, KS, PK0, ZS_NL, p, lzs1=1.2, lzs2=1.2,
-                              chis=CHIS)]
-
-    want = jax.jit(lambda p: calls(jc, p))(pzk)
-    got = calls(tc, T(pzk))
-    for i, (gv, wv) in enumerate(zip(got, want)):
-        assert _close(gv, wv) <= GATE, (i, _close(gv, wv))
-    assert not hasattr(tcos.Cosmology.C_gg_exact, "deferred_group")
+METHODS_PARAMS = {**PARAMS, "w0": -0.92}
 
 
-def test_exact_gradient_matches_jax_jvp():
-    """d/d(omch2) of C_gg_exact (with RSD and magnification) and of
-    C_kk_exact, through the background (distances, z(chi), growth),
-    against JAX's forward mode."""
-    x0 = PARAMS["omch2"]
+def _method_calls(c, p):
+    """The five Cosmology methods of test_cosmology_methods_match_jax."""
+    return [c.C_gg_exact(ELLS, KS, PK0, GZS, GDNDZ, bias=1.4, rsd=True,
+                         chis=CHIS),
+            c.C_gg_exact(ELLS, KS, PK0, GZS, GDNDZ, chis=CHIS,
+                         growth_mode="closed"),
+            c.C_kg_exact(ELLS, KS, PK0, GZS, GDNDZ, lzs=1.2, chis=CHIS),
+            c.C_kk_exact(ELLS, KS, PK0, lzs1=1.2, chis=CHIS),
+            c.C_gg_hybrid(ELLS, KS, PK0, ZS_NL, p, GZS, GDNDZ, bias=1.4,
+                          chis=CHIS),
+            c.C_kk_hybrid(ELLS, KS, PK0, ZS_NL, p, lzs1=1.2, lzs2=1.2,
+                          chis=CHIS)]
 
+
+def _jax_methods():
+    jc = jcos.Cosmology(METHODS_PARAMS)
+    return jc.growth_mode, jax.jit(lambda p: _method_calls(jc, p))(PZK_NL)
+
+
+def _jax_gradient():
+    """C_gg_exact (RSD, magnification) and C_kk_exact and their forward
+    derivative in omch2, by the JAX package's free functions."""
     def jax_fn(x):
         bg = jbg.background(jpar.merge_params({**PARAMS, "omch2": x}))
         return (jnl.C_gg_exact(bg, ELLS, KS, PK0, GZS, GDNDZ, bias=1.6,
                                rsd=True, smag=0.3, chis=CHIS),
                 jnl.C_kk_exact(bg, ELLS, KS, PK0, lzs1=1.1, chis=CHIS))
 
-    (wg, wk), (dg, dk) = jax.jit(lambda x: jax.jvp(jax_fn, (x,), (1.0,)))(
-        jnp.asarray(x0))
+    return jax.jit(lambda x: jax.jvp(jax_fn, (x,), (1.0,)))(
+        jnp.asarray(PARAMS["omch2"]))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_refs():
+    """The JAX sides of the two Cosmology-level tests (~15 s of compile),
+    computed by two worker threads from the module's start, beside each
+    other and the file's other tests (``_torch_jax.Prefetch``)."""
+    pre = Prefetch()
+    yield {"methods": pre.submit(_jax_methods),
+           "gradient": pre.submit(_jax_gradient)}
+    pre.close()
+
+
+def test_cosmology_methods_match_jax(_jax_refs):
+    """The five methods through both classes; under w0 the instance's
+    integrated growth is the exact spectra's default, and a call may still
+    pick the closed form."""
+    tc = tcos.Cosmology(METHODS_PARAMS, device="cpu")
+    got = _method_calls(tc, T(PZK_NL))
+    mode, want = _jax_refs["methods"].result()
+    assert tc.growth_mode == mode == "ode"
+    for i, (gv, wv) in enumerate(zip(got, want)):
+        assert _close(gv, wv) <= GATE, (i, _close(gv, wv))
+    assert not hasattr(tcos.Cosmology.C_gg_exact, "deferred_group")
+
+
+def test_exact_gradient_matches_jax_jvp(_jax_refs):
+    """d/d(omch2) of C_gg_exact (with RSD and magnification) and of
+    C_kk_exact, through the background (distances, z(chi), growth),
+    against JAX's forward mode."""
+    x0 = PARAMS["omch2"]
+    (wg, wk), (dg, dk) = _jax_refs["gradient"].result()
     x = torch.tensor(x0, dtype=torch.float64, requires_grad=True)
     tb = tbg.background(tpar.to_torch_params(
         {**tpar.merge_params(PARAMS), "omch2": x}, "cpu"), "cpu")

@@ -34,6 +34,7 @@ from hmvec_tpu.models import rsd as jrsd
 from hmvec_tpu.models import rsd_obs as jro
 from hmvec_tpu.models import spt as jspt
 from hmvec_tpu.models import tns as jtns
+from _torch_jax import Prefetch
 
 import hmvec_tpu_torch
 from hmvec_tpu_torch.models import cosmology as tcos
@@ -109,6 +110,50 @@ def _jit(fn, *args):
         with jax.ensure_compile_time_eval():
             return fn(*a)
     return jax.jit(body)(*args)
+
+
+TNS_POWER_KS = np.geomspace(1.0, 5.0, 6)
+TNS_POWER_KW = dict(b=1.6, f=0.65, n_q=32, n_x=16, n_mu=16, qmin=1e-4,
+                    qmax=1e2)
+
+
+def _multipole_case(model):
+    """(ks, keywords, sigma_v) of test_get_rsd_multipoles_matches_jax: a
+    given sigma_v with the Kaiser model, the linear-theory one with the
+    loop models."""
+    ks = np.geomspace(0.01, 3.0, 14)
+    kw = dict(LOOP, model=model, n_mu=16, b=np.array([1.3, 2.2]))
+    return ks, kw, (dict(sigma_v=2.5) if model == "kaiser" else {})
+
+
+def _jax_a(jc):
+    out = {("p1loop", ir): _jit(lambda: jc.P_mm_1loop(
+        ZS, KS, **dict(LOOP, ir_resum=ir))) for ir in (False, True)}
+    out["grad"] = _jax_p1loop_jvp()
+    return out
+
+
+def _jax_b(jc):
+    out = {}
+    for model in ("kaiser", "scoccimarro", "tns"):
+        ks, kw, sv = _multipole_case(model)
+        out["multipoles", model] = _jit(
+            lambda: jc.get_rsd_multipoles(ZS, ks, **sv, **kw))
+    out["tns_power"] = _jit(lambda pt: jtns.tns_power(
+        TNS_POWER_KS, KT, pt, one_loop=False, **TNS_POWER_KW), PT)
+    return out
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_refs():
+    """The JAX sides of the class tests and of tns_power (one compiled
+    program each, ~45 s of compile together), computed by two worker
+    threads from the module's start, beside each other and the file's
+    other tests (``_torch_jax.Prefetch``)."""
+    jc = jcos.Cosmology(PARAMS)
+    pre = Prefetch()
+    yield {"jc": jc, "a": pre.submit(_jax_a, jc), "b": pre.submit(_jax_b, jc)}
+    pre.close()
 
 
 # ---- models/rsd.py ------------------------------------------------------------
@@ -357,16 +402,14 @@ def test_tns_matches_jax_within_its_own_spread():
         assert _close(gv, wv) <= GATE, (i, _close(gv, wv))
 
 
-def test_tns_power_matches_jax():
+def test_tns_power_matches_jax(_jax_refs):
     """The end-to-end convenience at tree level against JAX, on ks of
     1/Mpc and above (below it, the A/B spread of the test above), and at
     one loop as the composition of the pieces held above.  At 32 q nodes
     the A/B integrals' rounding reaches the multipoles at 7.1e-9 even
     there (measured), hence 5e-8."""
-    ks = np.geomspace(1.0, 5.0, 6)
-    kw = dict(b=1.6, f=0.65, n_q=32, n_x=16, n_mu=16, qmin=1e-4, qmax=1e2)
-    want = _jit(lambda pt: jtns.tns_power(ks, KT, pt, one_loop=False, **kw),
-                PT)
+    ks, kw = TNS_POWER_KS, TNS_POWER_KW
+    want = _jax_refs["b"].result()["tns_power"]
     got = ttns.tns_power(ks, KT, T(PT), one_loop=False, **kw)
     for ell in (0, 2, 4):
         assert _close(got[0][ell], want[0][ell]) <= 5e-8, ell
@@ -455,29 +498,25 @@ def test_window_coupling_and_convolution_match_jax():
 # ---- the class methods --------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def cosmos():
-    return (jcos.Cosmology(PARAMS), tcos.Cosmology(PARAMS, device="cpu"))
+def cosmos(_jax_refs):
+    return (_jax_refs["jc"], tcos.Cosmology(PARAMS, device="cpu"))
 
 
 @pytest.mark.parametrize("ir_resum", [False, True])
-def test_P_mm_1loop_matches_jax(cosmos, ir_resum):
-    jc, tc = cosmos
+def test_P_mm_1loop_matches_jax(cosmos, _jax_refs, ir_resum):
+    _, tc = cosmos
     kw = dict(LOOP, ir_resum=ir_resum)
-    want = _jit(lambda: jc.P_mm_1loop(ZS, KS, **kw))
+    want = _jax_refs["a"].result()["p1loop", ir_resum]
     got = tc.P_mm_1loop(ZS, KS, **kw)
     assert got.shape == (ZS.size, KS.size)
     assert _close(got, want) <= GATE
 
 
 @pytest.mark.parametrize("model", ["kaiser", "scoccimarro", "tns"])
-def test_get_rsd_multipoles_matches_jax(cosmos, model):
-    jc, tc = cosmos
-    ks = np.geomspace(0.01, 3.0, 14)
-    kw = dict(LOOP, model=model, n_mu=16, b=np.array([1.3, 2.2]))
-    # a given sigma_v (as tensors) with the Kaiser model, the linear-theory
-    # one with the loop models
-    sv = dict(sigma_v=2.5) if model == "kaiser" else {}
-    want = _jit(lambda: jc.get_rsd_multipoles(ZS, ks, **sv, **kw))
+def test_get_rsd_multipoles_matches_jax(cosmos, _jax_refs, model):
+    _, tc = cosmos
+    ks, kw, sv = _multipole_case(model)
+    want = _jax_refs["b"].result()["multipoles", model]
     got = tc.get_rsd_multipoles(T(ZS), T(ks), **sv, **kw)
     for ell in (0, 2, 4):
         for g, w in ((got[ell], want[ell]),):
@@ -512,14 +551,15 @@ def test_galaxy_rsd_multipoles_match_jax(cosmos):
         assert _close(got[1][ell], want[1][ell]) <= GATE, ell
 
 
-def test_P_mm_1loop_gradient_matches_jax_jvp():
-    """d/d(omch2) of Cosmology.P_mm_1loop (the linear table, the loops and
-    the growth all move) against JAX's forward mode of the same formula
-    on the JAX package's free functions (its class reads omch2 back to
-    the host)."""
-    x0 = PARAMS["omch2"]
-    kw = dict(n_q=32, n_x=16, n_q13=64)
+GRAD_KW = dict(n_q=32, n_x=16, n_q13=64)
+
+
+def _jax_p1loop_jvp():
+    """The formula of Cosmology.P_mm_1loop on the JAX package's free
+    functions (its class reads omch2 back to the host) and its forward
+    derivative in omch2."""
     ks_tab = np.geomspace(1e-5, 1e3, 1200)
+    kw = GRAD_KW
 
     def jax_fn(x):
         bg = jbg.background(jpar.merge_params({**PARAMS, "omch2": x}))
@@ -534,8 +574,18 @@ def test_P_mm_1loop_gradient_matches_jax_jvp():
         return (eng.plin(bg, jnp.asarray(ZS), jnp.asarray(KS))
                 + ((D / D0) ** 4)[:, None] * loops0[None, :])
 
-    want, dwant = _jit(lambda x: jax.jvp(jax_fn, (x,), (1.0,)),
-                       jnp.asarray(x0))
+    return _jit(lambda x: jax.jvp(jax_fn, (x,), (1.0,)),
+                jnp.asarray(PARAMS["omch2"]))
+
+
+def test_P_mm_1loop_gradient_matches_jax_jvp(_jax_refs):
+    """d/d(omch2) of Cosmology.P_mm_1loop (the linear table, the loops and
+    the growth all move) against JAX's forward mode of the same formula
+    on the JAX package's free functions (its class reads omch2 back to
+    the host)."""
+    x0 = PARAMS["omch2"]
+    kw = GRAD_KW
+    want, dwant = _jax_refs["a"].result()["grad"]
     x = torch.tensor(x0, dtype=torch.float64, requires_grad=True)
     got = tcos.Cosmology({**PARAMS, "omch2": x}, device="cpu").P_mm_1loop(
         ZS, KS, **kw)

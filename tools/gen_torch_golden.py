@@ -119,11 +119,42 @@ and n1_tt_flat_sky at 8 L, 20,000 threej000_sq triangles at L = 3,000,
 on C_phiphi from cmb_lensing_limber(3000, nonlinear=True); the tabulated
 get_cmb_cls and cmb_lensing_kk_exact of tests/fixtures/camb_table_fixture.npz.
 
+--config projfield: the projected-field kSZ^2 group at the settings of
+examples/projected_field_ksz2.py on the README example's build at config
+1's width and the bench cosmology -> hmvec_tpu_torch/data/
+projfield_config1_golden.npz: cl_ksz2_galaxy (the example's filter on l =
+2..8,000, a Gaussian dndz on the build's zs, ells 100-1,600, 40 x 20
+nodes), cl_ksz2_kappa on the analytic NFW profile, vrms2_linear,
+hybrid_bispectrum_ttg at 64 seeded triangles, C_kg on l = 2..8,000 and
+from it cl_t2_lensing, cl_t2_t2_gaussian, C_gg with shot noise and
+ksz2_snr (~3 min).
+
+--config flatsky: the map-level lensing reconstruction of
+examples/lensing_qe_sim.py (n = 1,024, 1' pixels, lmax_t 2,500, L to 800,
+oversample 2, 16 sims) on white noise drawn by numpy from a seed (so the
+machine with the card draws the same) -> hmvec_tpu_torch/data/
+flatsky_qe_golden.npz: the unlensed and lensed spectra, the TT, EE, EB N0
+and the TE simple-weight response at 24 nodes, N1 at L = 100, 300, 600;
+per sim the lensed map, phi_hat and its unlensed-sim twin at a fixed
+sample of 4,096 elements with each array's largest |value|, and the four
+binned spectra whole; on one synth_tqu draw lensed by sim 0's phi, the
+EE, TE and EB phi_hat at 2,048 elements (~1 min).
+
+--config emulator: examples/emulator_pk.py -- make_pmm_fn at 3 z x 128 k
+x 96 m over (omch2, ombh2, ns), 256 + 64 Sobol' points, widths 128^3,
+2,000 steps, log_y -> hmvec_tpu_torch/data/emulator_pk_golden.npz: every
+16th row of the training set, JAX's initial net (float64; the float32 fit
+starts at its float32 cast), the float32 fit's loss curve and held-out
+errors, a 50-step float64 fit's losses and its predictions at four
+held-out points; and the port's float32 fit on the CPU from the same net,
+whose spread against JAX's (final loss, held-out errors) sets the card's
+gate at ten times it (~2 min; imports the port too).
+
 The machine with the GPU has no JAX, so chip_smoke.py compares the port
 against these files.  Each run writes only its own file.
 
 Run from the repository root:
-    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x|v|rsd_nonlimber|lensing]
+    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x|v|rsd_nonlimber|lensing|projfield|flatsky|emulator]
 """
 
 from __future__ import annotations
@@ -149,7 +180,10 @@ OUT = {"1": DATA / "pmm_config1_golden.npz",
        "x": DATA / "extensions_config1_golden.npz",
        "v": DATA / "cov_bispectrum_config1_golden.npz",
        "rsd_nonlimber": DATA / "rsd_nonlimber_config1_golden.npz",
-       "lensing": DATA / "lensing_cmb_golden.npz"}
+       "lensing": DATA / "lensing_cmb_golden.npz",
+       "projfield": DATA / "projfield_config1_golden.npz",
+       "flatsky": DATA / "flatsky_qe_golden.npz",
+       "emulator": DATA / "emulator_pk_golden.npz"}
 NXS, XMAX = 4096, 20          # bench.py config 2
 NGAL = 1e-4                   # bench.py config 3, per z
 ELLS, ZSOURCE = np.geomspace(30, 3000, 60), 1100.0   # bench.py config 4
@@ -769,6 +803,348 @@ def write_lensing_cmb_golden(zs, ms, ks):
                                         dtype=np.float64), **out)
 
 
+# the projfield phase: examples/projected_field_ksz2.py's settings
+PF_ELLS = np.array([100.0, 200.0, 400.0, 700.0, 1100.0, 1600.0])
+PF_NODES = {"n_radial": 40, "n_angle": 20}
+PF_NOISE = (6.0, 1.4)          # muK-arcmin, beam FWHM arcmin
+PF_FSKY = 0.4
+PF_NTRI = 64
+
+
+def projfield_filter(nl):
+    """The example's filter b_l / (C_l^TT + N_l) and C_l^TT on l = 2..8,000
+    (nl: the white noise there)."""
+    fgrid = np.arange(2.0, 8001.0)
+    cl_tt = 2.0 * np.pi * 2500.0 / (fgrid * (fgrid + 1.0) ** 2) \
+        * np.exp(-((fgrid / 3500.0) ** 2))
+    fvals = np.exp(-0.5 * (fgrid * 1.4 * np.pi / 10800.0 / 2.355) ** 2) \
+        / (cl_tt + nl)
+    return fgrid, cl_tt, fvals
+
+
+def write_projfield_golden(zs, ms, ks):
+    """The projected-field kSZ^2 group on the README example's build."""
+    import jax
+    import hmvec_tpu as hm
+    from hmvec_tpu.models import limber as jlimb
+    from hmvec_tpu.models import projfield as jpf
+    from hmvec_tpu.models.lensing_noise import white_noise_nl
+
+    def jit(fn):
+        def body():
+            with jax.ensure_compile_time_eval():
+                return fn()
+        return np.asarray(jax.jit(body)())
+
+    ngal = np.full(zs.size, NGAL)
+    hcos = hm.HaloModel(zs, ks, ms=ms, params=BENCH_OVERRIDES)
+    hcos.add_battaglia_profile("e", family="AGN")
+    hcos.add_battaglia_pres_profile("y")
+    hcos.add_hod("g", ngal=ngal)
+    fgrid = np.arange(2.0, 8001.0)
+    nl = np.asarray(white_noise_nl(fgrid, *PF_NOISE))
+    fgrid, cl_tt, fvals = projfield_filter(nl)
+    table = (fgrid, fvals)
+    dndz = np.exp(-0.5 * ((zs - 0.6) / 0.25) ** 2)
+    tri = np.random.default_rng(1600).uniform(50.0, 3000.0, (3, PF_NTRI))
+    out = {}
+    out["ksz2_g"] = jit(lambda: jpf.cl_ksz2_galaxy(
+        hcos, PF_ELLS, table, gdndz=dndz, **PF_NODES))
+    print("ksz2_g", out["ksz2_g"])
+    out["ksz2_k"] = jit(lambda: jpf.cl_ksz2_kappa(hcos, PF_ELLS, table,
+                                                  **PF_NODES))
+    out["vrms2"] = jit(lambda: jpf.vrms2_linear(hcos))
+    out["hybrid"] = jit(lambda: jpf.hybrid_bispectrum_ttg(hcos, *tri,
+                                                          gdndz=dndz))
+    pgm = np.asarray(hcos.get_power("g", name2="nfw"))
+    pgg = np.asarray(hcos.get_power("g", name2="g"))
+    out["ckg"] = jit(lambda: jlimb.C_kg(hcos.bg, fgrid, zs, ks, pgm, zs,
+                                        gdndz=dndz, lzs=1100.0))
+    cl_phig = 2.0 * out["ckg"] / fgrid**2
+    out["t2_lensing"] = jit(lambda: jpf.cl_t2_lensing(
+        PF_ELLS, table, cl_tt, cl_phig, lmin=2.0, lmax=8000.0))
+    out["t2_t2"] = jit(lambda: jpf.cl_t2_t2_gaussian(
+        PF_ELLS, table, cl_tt + nl, lmin=2.0, lmax=8000.0))
+    chis = np.asarray(hcos.comoving_radial_distance(zs))
+    hzs = np.asarray(hcos.h_of_z(zs))
+    ngal2d = NGAL * np.trapezoid(chis**2 / hzs * dndz
+                                 / np.trapezoid(dndz, zs), zs)
+    out["clgg"] = jit(lambda: jlimb.C_gg(hcos.bg, PF_ELLS, zs, ks, pgg, zs,
+                                         gdndz=dndz)) + 1.0 / ngal2d
+    snr2, snr = jax.jit(lambda a, b, c: jpf.ksz2_snr(PF_ELLS, a, b, c,
+                                                     fsky=PF_FSKY))(
+        out["ksz2_g"], out["t2_t2"], out["clgg"])
+    out["snr2"], out["snr"] = np.asarray(snr2), np.asarray(snr)
+    print("t2_lensing", out["t2_lensing"], "snr", out["snr"])
+    return dict(zs=zs, ms=ms, ks=ks, ngal=ngal, ells=PF_ELLS, tri=tri,
+                nodes=np.asarray([PF_NODES["n_radial"],
+                                  PF_NODES["n_angle"]]),
+                noise=np.asarray(PF_NOISE), fsky=np.asarray(PF_FSKY),
+                param_names=np.asarray(list(BENCH_OVERRIDES)),
+                param_values=np.asarray(list(BENCH_OVERRIDES.values()),
+                                        dtype=np.float64), **out)
+
+
+# the flatsky phase: examples/lensing_qe_sim.py's settings
+FS = {"n": 1024, "pix": 1.0, "lmax_t": 2500, "lmax_rec": 800, "nsims": 16,
+      "oversample": 2, "noise_t": 7.0, "beam": 1.4, "seed": 1024}
+FS_NSAMPLE, FS_NSAMPLE_POL = 4096, 2048
+FS_BINS = np.linspace(40.0, 600.0, 12)
+FS_LN1 = np.array([100.0, 300.0, 600.0])
+
+
+def flatsky_spectra():
+    """The example's unlensed TT (with the EE and TE of the lensing
+    phase's recipe) on l = 0..lmax_t + 400, as (lmax+1, 4) [TT, EE, BB,
+    TE], and its C_phiphi on L = 0..1,200."""
+    lpad = FS["lmax_t"] + 400
+    l = np.arange(lpad + 1, dtype=np.float64)
+    ls = np.maximum(l, 1.0)
+    dl_tt = 2500.0 * np.exp(-((l / 1800.0) ** 2)) \
+        * (1.0 + 0.25 * np.sin(l / 48.0)) + 20.0
+    dl_ee = 40.0 * np.exp(-((l / 1500.0) ** 2)) \
+        * (1.0 + 0.4 * np.sin(l / 48.0 + 1.0)) + 0.5
+    dl_te = 100.0 * np.exp(-((l / 1500.0) ** 2)) * np.sin(l / 48.0 + 0.5)
+    unl = np.zeros((lpad + 1, 4))
+    for col, d in ((0, dl_tt), (1, dl_ee), (3, dl_te)):
+        unl[:, col] = 2.0 * np.pi * d / (ls * (ls + 1.0))
+    unl[:2] = 0.0
+    Lpp = np.arange(1201, dtype=np.float64)
+    q = np.maximum(Lpp, 1.0) / 50.0
+    clpp = 2.0 * np.pi * (1.5e-7 * q / (1.0 + q**3.2) ** 0.8) \
+        / (np.maximum(Lpp, 1.0) * (Lpp + 1.0)) ** 2
+    clpp[:2] = 0.0
+    return unl, clpp
+
+
+def flatsky_noise():
+    """Unit white noise: (nsims, 3, n, n) for each sim's T, phi and noise
+    maps, then (2, n, n) for the polarized draw, from one numpy seed."""
+    n = FS["n"]
+    rng = np.random.default_rng(FS["seed"])
+    w = rng.standard_normal((FS["nsims"], 3, n, n))
+    return w, rng.standard_normal((2, n, n))
+
+
+def flatsky_samples():
+    """Fixed flat indices: into a (nsims, n, n) batch and into one map."""
+    n, ns = FS["n"], FS["nsims"]
+    rng = np.random.default_rng(FS["seed"] + 1)
+    return (np.sort(rng.choice(ns * n * n, FS_NSAMPLE, replace=False)),
+            np.sort(rng.choice(n * n, FS_NSAMPLE_POL, replace=False)))
+
+
+def log_interp_on_L(nodes, vals, lmax):
+    """examples/lensing_qe_sim.py's N0 on integer L: log-log interpolation
+    of the node values, 0 below L = 2."""
+    Li = np.arange(lmax + 1, dtype=np.float64)
+    out = np.exp(np.interp(np.log(np.maximum(Li, 2.0)), np.log(nodes),
+                           np.log(vals)))
+    out[:2] = 0.0
+    return out
+
+
+def write_flatsky_golden():
+    """The map-level reconstruction of examples/lensing_qe_sim.py."""
+    import jax
+    import jax.numpy as jnp
+    from hmvec_tpu.models import flatsky as jfs
+    from hmvec_tpu.models import lensing_noise as jln
+    from hmvec_tpu.models.lensed_cf import lens_cls_flat_sky_resummed
+
+    n, pix, lmax_t, lmax_rec = FS["n"], FS["pix"], FS["lmax_t"], \
+        FS["lmax_rec"]
+    unl, clpp = flatsky_spectra()
+    clpp_pad = np.zeros(unl.shape[0])
+    clpp_pad[:clpp.size] = clpp
+    cl_len = np.array(jax.jit(lambda u, c: lens_cls_flat_sky_resummed(
+        u, c, lmax_out=lmax_t))(unl, clpp_pad))
+    cl_len[:2] = 0.0
+    lv = np.arange(lmax_t + 1.0)
+    nl = np.asarray(jln.white_noise_nl(lv, FS["noise_t"], FS["beam"]))
+    nl_p = np.asarray(jln.white_noise_nl(lv, FS["noise_t"] * np.sqrt(2.0),
+                                         FS["beam"]))
+    tot = cl_len[:, 0] + nl
+    tot_ee, tot_bb = cl_len[:, 1] + nl_p, cl_len[:, 2] + nl_p
+    nodes = np.unique(np.round(np.geomspace(30, lmax_rec, 24)))
+    kw = dict(lmin=30, lmax=lmax_t)
+
+    def norms(cl_len, tot, tot_ee, tot_bb):
+        grads = {"TT": cl_len[:, 0], "EE": cl_len[:, 1], "TE": cl_len[:, 3]}
+        tots = {"TT": tot, "EE": tot_ee, "BB": tot_bb, "TE": cl_len[:, 3]}
+        return (jln.n0_flat_sky(nodes, "TT", cl_len[:, 0], tot, **kw),
+                jln.n0_flat_sky(nodes, "EE", cl_len[:, 1], tot_ee, **kw),
+                jln.n0_flat_sky(nodes, "EB", cl_len[:, 1], tot_ee,
+                                cl_total2=tot_bb, **kw),
+                jln.n0_te_simple_flat_sky(nodes, grads, tots, **kw)[0])
+
+    n0n, n0n_ee, n0n_eb, resp_te = (np.asarray(a) for a in jax.jit(norms)(
+        cl_len, tot, tot_ee, tot_bb))
+    n0 = log_interp_on_L(nodes, n0n, lmax_rec)
+    n0_ee = log_interp_on_L(nodes, n0n_ee, lmax_rec)
+    n0_eb = log_interp_on_L(nodes, n0n_eb, lmax_rec)
+    a_te = log_interp_on_L(nodes, 1.0 / resp_te, lmax_rec)
+    n0_at = np.interp(FS_LN1, np.arange(lmax_rec + 1.0), n0)
+    n1 = np.asarray(jax.jit(lambda c, t, p, a: jln.n1_tt_flat_sky(
+        FS_LN1, c, t, p, n0_phi=a, **kw))(cl_len[:, 0], tot, clpp, n0_at))
+    print("N1/N0 at L = 100/300/600:", n1 / n0_at)
+
+    def synth(w, cl):
+        a = pix * np.pi / 10800.0
+        lmod = jfs.fourier_grid(n, pix)[2]
+        return jnp.fft.ifft2(jnp.fft.fft2(w / a)
+                             * jnp.sqrt(jfs._cl_on_grid(cl, lmod))).real
+
+    qe = lambda t: jfs.qe_tt(t, pix, cl_len[:, 0], tot, n0, lmin=30,
+                             lmax=lmax_t)
+
+    @jax.jit
+    def one(w):
+        t0 = synth(w[0], unl[:lmax_t + 1, 0])
+        phi = synth(w[1], clpp)
+        noise = synth(w[2], nl)
+        lensed = jfs.lens_map(t0, phi, pix, oversample=FS["oversample"])
+        ph = qe(lensed + noise)
+        ph0 = qe(t0 + noise)
+        pk = jnp.fft.fft2(phi)
+        spectra = [jfs.fourier_power(a, b, pix, FS_BINS)[1]
+                   for a, b in ((ph, pk), (ph, ph), (ph0, ph0), (pk, pk))]
+        return lensed, ph, ph0, phi, jnp.stack(spectra)
+
+    w, wp = flatsky_noise()
+    idx, idx_pol = flatsky_samples()
+    outs = {k: [] for k in ("lensed", "ph", "ph0", "binned")}
+    phi0 = None
+    for i in range(FS["nsims"]):
+        lensed, ph, ph0, phi, binned = (np.asarray(a) for a in one(w[i]))
+        phi0 = phi if i == 0 else phi0
+        for k, v in (("lensed", lensed), ("ph", ph), ("ph0", ph0),
+                     ("binned", binned)):
+            outs[k].append(v)
+    out = {}
+    for k in ("lensed", "ph", "ph0"):
+        full = np.stack(outs[k])
+        out[f"{k}_sample"] = full.reshape(-1)[idx]
+        out[f"{k}_maxabs"] = np.asarray(np.max(np.abs(full)))
+    binned = np.stack(outs["binned"])            # (nsims, 4, nbins)
+    for j, k in enumerate(("cx", "caa", "c00", "cpp")):
+        out[f"binned_{k}"] = binned[:, j]
+
+    @jax.jit
+    def pol(wp, phi):
+        a = pix * np.pi / 10800.0
+        lmod = jfs.fourier_grid(n, pix)[2]
+        g1, g2 = jnp.fft.fft2(wp[0] / a), jnp.fft.fft2(wp[1] / a)
+        ctt, cee, cte = (jfs._cl_on_grid(unl[:lmax_t + 1, c], lmod)
+                         for c in (0, 1, 3))
+        sqtt = jnp.sqrt(ctt)
+        r = jnp.where(sqtt > 0.0, cte / jnp.where(sqtt > 0.0, sqtt, 1.0),
+                      0.0)
+        tk = sqtt * g1
+        ek = r * g1 + jnp.sqrt(jnp.maximum(cee - r**2, 0.0)) * g2
+        c2, s2 = jfs._spin2_phases(n, pix)
+        t = jnp.fft.ifft2(tk).real
+        q = jnp.fft.ifft2(c2 * ek).real
+        u = jnp.fft.ifft2(s2 * ek).real
+        tl, ql, ul = (jfs.lens_map(m, phi, pix, oversample=FS["oversample"])
+                      for m in (t, q, u))
+        return (jfs.qe_ee(ql, ul, pix, cl_len[:, 1], tot_ee, n0_ee,
+                          lmin=30, lmax=lmax_t),
+                jfs.qe_te(tl, ql, ul, pix, cl_len[:, 3], tot, tot_ee, a_te,
+                          lmin=30, lmax=lmax_t),
+                jfs.qe_eb(ql, ul, pix, cl_len[:, 1], tot_ee, tot_bb, n0_eb,
+                          lmin=30, lmax=lmax_t))
+
+    for k, v in zip(("ee", "te", "eb"), pol(wp, phi0)):
+        v = np.asarray(v)
+        out[f"ph_{k}_sample"] = v.reshape(-1)[idx_pol]
+        out[f"ph_{k}_maxabs"] = np.asarray(np.max(np.abs(v)))
+    print("binned cx[0]", out["binned_cx"][0])
+    return dict(unlensed=unl, clpp=clpp, cl_len=cl_len, nodes=nodes,
+                n0_nodes=np.stack([n0n, n0n_ee, n0n_eb, resp_te]), n1=n1,
+                L_n1=FS_LN1, bins=FS_BINS, idx=idx, idx_pol=idx_pol,
+                noise_check=w.reshape(-1)[idx[:16]],
+                settings_names=np.asarray(list(FS)),
+                settings=np.asarray(list(FS.values()), dtype=np.float64),
+                **out)
+
+
+# the emulator phase: examples/emulator_pk.py's settings
+EM = {"zs": np.array([0.0, 0.5, 1.0]), "ks": np.geomspace(1e-3, 10.0, 128),
+      "ms": np.geomspace(2e10, 1e17, 96)}
+EM_NAMES = ("omch2", "ombh2", "ns")
+EM_LO, EM_HI = np.array([0.10, 0.020, 0.92]), np.array([0.14, 0.024, 1.00])
+EM_FIT = dict(n_train=256, n_val=64, widths=(128, 128, 128), steps=2000,
+              learning_rate=3e-3, log_y=True, chunk=32, seed=0)
+EM_STEPS64 = 50
+EM_ROWS = np.arange(0, 320, 16)
+
+
+def emulator_f32_spread(got, want):
+    """The float32 fit's metrics against JAX's: |got/want - 1| of the final
+    loss (mean of the last 50 steps) and of both held-out errors."""
+    def metrics(info):
+        return np.array([np.mean(info["losses"][-50:]), info["val_max_rel"],
+                         info["val_rms_rel"]], dtype=np.float64)
+    return np.abs(metrics(got) / metrics(want) - 1.0)
+
+
+def write_emulator_golden():
+    """The example's emulator, in both packages on the CPU."""
+    import jax
+    import jax.numpy as jnp
+    from hmvec_tpu import pipeline as jpl
+    from hmvec_tpu.models import emulator as jem
+    import torch
+    from hmvec_tpu_torch import pipeline as tpl
+    from hmvec_tpu_torch.models import emulator as tem
+
+    pmm = jpl.make_pmm_fn(EM["zs"], EM["ks"], EM["ms"], jit=False)
+    target = jem.pipeline_target(pmm, EM_NAMES)
+    thetas = jem.sample_params(EM_LO, EM_HI, 320, seed=EM_FIT["seed"])
+    gen = jax.jit(jax.vmap(target))
+    Y = np.concatenate([np.asarray(gen(jnp.asarray(thetas[s:s + 32])))
+                        for s in range(0, 320, 32)])
+    em32, info32 = jem.fit_emulator(target, EM_LO, EM_HI, key=0, **EM_FIT)
+    sizes = info32["sizes"]
+    net = jem._init_net(jax.random.PRNGKey(0), sizes, jnp.float64)
+    fit64 = dict(EM_FIT, steps=EM_STEPS64)
+    em64, info64 = jem.fit_emulator(target, EM_LO, EM_HI, key=0,
+                                    dtype=jnp.float64, **fit64)
+    val = thetas[EM_FIT["n_train"]:EM_FIT["n_train"] + 4]
+    pred64 = np.asarray(jax.jit(em64.__call__)(jnp.asarray(val)))
+    print("JAX float32 fit: final loss", np.mean(info32["losses"][-50:]),
+          "val", info32["val_max_rel"], info32["val_rms_rel"])
+    # the port's float32 fit on the CPU from the same net: the spread that
+    # sets the card's gate
+    torch.set_num_threads(min(8, torch.get_num_threads()))
+    init = {k: [np.asarray(a) for a in v] for k, v in net.items()}
+    t_target = tem.pipeline_target(tpl.make_pmm_fn(
+        EM["zs"], EM["ks"], EM["ms"], device="cpu"), EM_NAMES)
+    _, t_info = tem.fit_emulator(t_target, EM_LO, EM_HI, init_net=init,
+                                 **EM_FIT)
+    spread = emulator_f32_spread(t_info, info32)
+    print("port float32 fit on the CPU: final loss",
+          np.mean(t_info["losses"][-50:]), "val", t_info["val_max_rel"],
+          t_info["val_rms_rel"], "spread vs JAX", spread)
+    return dict(zs=EM["zs"], ks=EM["ks"], ms=EM["ms"],
+                names=np.asarray(EM_NAMES), lo=EM_LO, hi=EM_HI,
+                widths=np.asarray(EM_FIT["widths"]),
+                fit=np.asarray([EM_FIT[k] for k in ("n_train", "n_val",
+                                                    "steps", "chunk",
+                                                    "seed")]),
+                learning_rate=np.asarray(EM_FIT["learning_rate"]),
+                rows=EM_ROWS, Y_rows=Y[EM_ROWS],
+                **{f"W{i}": np.asarray(w) for i, w in enumerate(net["W"])},
+                losses32=np.asarray(info32["losses"]),
+                val32=np.asarray([info32["val_max_rel"],
+                                  info32["val_rms_rel"]]),
+                steps64=np.asarray(EM_STEPS64),
+                losses64=np.asarray(info64["losses"]), val_thetas=val,
+                pred64=pred64, f32_spread_cpu=spread,
+                f32_gate=np.asarray(10.0 * np.max(spread)))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(OUT), default="1")
@@ -788,7 +1164,8 @@ def main():
             ("omch2", "As")), **write_batch_golden(jpl, jnp, zs, ms, ks))
         print(f"wrote {path.relative_to(REPO)} ({path.stat().st_size} bytes)")
         return
-    if args.config in ("5", "m", "c", "x", "v", "rsd_nonlimber", "lensing"):
+    if args.config in ("5", "m", "c", "x", "v", "rsd_nonlimber", "lensing",
+                       "projfield", "flatsky", "emulator"):
         if args.config == "5":
             arrays = write_ksz_golden(jpl, jnp)
         elif args.config == "c":
@@ -801,6 +1178,12 @@ def main():
             arrays = write_rsd_nonlimber_golden(zs, ms, ks)
         elif args.config == "lensing":
             arrays = write_lensing_cmb_golden(zs, ms, ks)
+        elif args.config == "projfield":
+            arrays = write_projfield_golden(zs, ms, ks)
+        elif args.config == "flatsky":
+            arrays = write_flatsky_golden()
+        elif args.config == "emulator":
+            arrays = write_emulator_golden()
         else:
             arrays = dict(zs=zs, ms=ms, ks=ks,
                           **write_massfn_golden(jpl, jnp, zs, ms, ks))
