@@ -93,7 +93,13 @@ make_pmm_fn chunks, a float64 fit from JAX's initial net, the float32 fit,
 jacfwd against central differences, and the exact-tier training set's one
 kernel launch a chunk), each against its golden file, with no kernel
 launch in their calls and each entry point's latency, launches, host reads
-and peak memory.
+and peak memory.  The boltz phase holds the Boltzmann group's two kernels
+(recomb_rk4 at n = 16,384, hierarchy_rk4 on the reduced grid of the CPU
+tests' golden file) against their plain versions, keeps the k = 0.5 row
+of the default grid finite, and drives Cosmology().get_cmb_cls(approx=
+True) at lmax 3,000, BoltzEngine() and the README example on
+engine="boltz" against their golden files (one recomb_rk4 and four
+hierarchy_rk4 launches a solve; B1 once and B4a twice a build).
 
 It differentiates both paths, and times the kernels, at one cosmology's
 shapes and at the batches', and the end-to-end calls.
@@ -162,6 +168,10 @@ GOLDEN_LC = DATA / "lensing_cmb_golden.npz"
 GOLDEN_PF = DATA / "projfield_config1_golden.npz"
 GOLDEN_FS = DATA / "flatsky_qe_golden.npz"
 GOLDEN_EM = DATA / "emulator_pk_golden.npz"
+GOLDEN_BS = DATA / "boltz_small_golden.npz"
+GOLDEN_BC = DATA / "boltz_cmb_golden.npz"
+GOLDEN_BE = DATA / "boltz_engine_golden.npz"
+GOLDEN_BK = DATA / "boltz_class_golden.npz"
 FIXTURE_CMB = ROOT / "tests" / "fixtures" / "camb_table_fixture.npz"
 
 # kernel vs plain version on the card (absolute on u; relative on S1, S2;
@@ -260,6 +270,19 @@ GATE_EM_ROWS = 1e-10
 GATE_EM_FIT64 = 1e-9
 GATE_EM_JAC_FD = 1e-6
 # nfw_contract beyond gridDim.y's 65,535: redshifts on gridDim.x (C13)
+# the Boltzmann group: a kernel against its plain version on the same card
+# tensors (both keep every multiply and add unfused: -fmad=false), relative
+# to a row's largest value; the recombination table against the JAX
+# golden file; the solve, the C_l, the engine's tables and the README
+# build on the engine against the golden files: the tight-coupling era
+# amplifies rounding ~1e7 (tests/test_torch_boltz_solve.py
+# test_the_solve_amplifies_rounding), so two evaluation orders agree to
+# ~1e-7 there (the CPU port against the JAX package: states 2.8e-7 of a
+# state's largest component, C_l 2.2e-6 element by element at lmax 3,400)
+GATE_BOLTZ_KERNEL = 1e-10
+GATE_BOLTZ_REC = 1e-10
+GATE_BOLTZ_SOLVE = 1e-6
+GATE_BOLTZ_OUT = 1e-5
 C13_NZ, C13_NM, C13_NK = 70_000, 200, 16
 # the mass-function modes of config 1 by NFW tier: (fast, gate)
 MASSFN_TIERS = {"plain": (False, 1e-10), "fast": (True, 1e-5)}
@@ -298,9 +321,17 @@ KERNEL_ROWS = (
     ("pair_lerp_f32", "resample_kernels",
      "hmvec_tpu/ops/pallas_resample.py:110",
      ("electron_fast", "electron_fast_b2")),
+    ("recomb_rk4", "boltz_kernels",
+     "no Pallas counterpart: the lax.scan of hmvec_tpu/models/recomb.py:190",
+     ("boltz_cmb", "boltz_engine", "boltz_class")),
+    ("hierarchy_rk4", "boltz_kernels",
+     "no Pallas counterpart: the lax.scan / fori_loop of "
+     "hmvec_tpu/models/boltzlite.py:540-553, vmapped at :624",
+     ("boltz_cmb", "boltz_engine", "boltz_class")),
 )
 SOURCE = {"nfw_kernels": "hmvec_tpu_torch/csrc/nfw_kernels.cu",
-          "resample_kernels": "hmvec_tpu_torch/csrc/resample_kernels.cu"}
+          "resample_kernels": "hmvec_tpu_torch/csrc/resample_kernels.cu",
+          "boltz_kernels": "hmvec_tpu_torch/csrc/boltz_kernels.cu"}
 
 # the card's data-sheet peaks (H100 SXM, dense, outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -350,7 +381,7 @@ def kernel_name(symbol: str) -> str:
     (nfw_uk_kernel<float>, nfw_contract_kernel, pair_lerp_kernel<double,
     2, 2, true>, ...); other symbols as they are."""
     m = re.search(r"(nfw_uk_kernel|nfw_contract_kernel|pair_lerp_rows_kernel"
-                  r"|pair_lerp_kernel)"
+                  r"|pair_lerp_kernel|recomb_rk4_kernel|hierarchy_rk4_kernel)"
                   r"(?:I([fd])((?:L[ib]\d+E)*)E)?", symbol)
     if not m:
         return symbol
@@ -1238,6 +1269,376 @@ def phase_checkpoint(hm, build, dev, card, counts):
                       "file_mib": size}
 
 
+class F64Ops(TorchDispatchMode):
+    """The float64 operations of a plain PyTorch computation: the float64
+    elements that each arithmetic aten operation writes (one operation
+    each; a division or a square root counts one, as an issue floor does).
+    Comparisons write booleans and selects (where) do no arithmetic, so
+    neither counts."""
+
+    ARITH = {"add", "sub", "mul", "div", "neg", "clamp_min", "clamp",
+             "maximum", "minimum", "abs", "rsub", "reciprocal", "sqrt", "exp",
+             "log", "pow", "sum", "sub_", "add_", "mul_", "div_"}
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func._schema.name.split("::")[-1] in self.ARITH:
+            for t in (out if isinstance(out, (list, tuple)) else [out]):
+                if isinstance(t, torch.Tensor) and t.dtype == torch.float64:
+                    self.ops += t.numel()
+        return out
+
+
+def hierarchy_work(bk, xtab, ks, n_outer, n_inner, store):
+    """(bytes, float64 operations, operations of one row's steps) of one
+    hierarchy_rk4 call on these inputs.  The operations: the plain
+    version's own count (F64Ops) of each right-hand side (tight-coupling
+    or full, chosen per row and sub-point by the table as the kernel
+    chooses), of the slaving after a tight-coupled step and of the RK4
+    combination, calibrated on one row and summed over the rows and
+    sub-points of this call."""
+    dev = ks.device
+    c = bk.Consts(1.0, 1.0, 1.0, 1.0, 1.0,
+                  h0m_d=torch.ones((), dtype=torch.float64, device=dev))
+    # one sub-point as the plain version holds it: x-only values as
+    # numbers, the divisors as 0-d tensors
+    q0 = dict(zip(bk.XCOLS, xtab[0, 0].tolist()))
+    q0.update(zip(bk.DIVISORS, torch.stack(bk.divisors(
+        c, dict(zip(bk.XCOLS, xtab[0, 0].unbind(0))))).unbind(0)))
+    s1 = torch.ones((1, bk.NSTATE), dtype=torch.float64, device=dev)
+    k1 = torch.ones(1, dtype=torch.float64, device=dev)
+    per = {}
+    for name, fn in (("full", lambda: bk.rhs_full(c, q0, k1, s1)),
+                     ("tc", lambda: bk.rhs_tc(c, q0, k1, s1)),
+                     ("slave", lambda: bk.with_slaved(q0, k1, s1)),
+                     ):
+        with F64Ops() as m:
+            fn()
+        per[name] = m.ops
+    # the RK4 combination: three stage inputs s + h k (2 each) and
+    # s + dx/6 (k1 + 2 k2 + 2 k3 + k4) (7), per state entry
+    per["rk"] = 13 * bk.NSTATE
+    tab = xtab.cpu().numpy()
+    kk = ks.cpu().numpy()
+    tc = (tab[:, :, 9][:, :, None] != 0.0) & (
+        np.abs(tab[:, :, 2])[:, :, None] > 10.0 * kk[None, None, :]
+        / tab[:, :, 1][:, :, None])                  # (steps, 3, rows)
+    n_tc = tc[:, [0, 1, 1, 2], :].sum()
+    n_full = tc.shape[0] * 4 * kk.size - n_tc
+    steps = n_outer * n_inner
+    ops = (n_tc * per["tc"] + n_full * per["full"] + tc[:, 2, :].sum()
+           * per["slave"] + steps * kk.size * per["rk"])
+    row_ops = ops / kk.size
+    nbytes = 8 * (xtab.numel() + 2 * kk.size + 5 + kk.size * bk.NSTATE
+                  * (2 + (n_outer if store else 0)))
+    return int(nbytes), {"f64": int(ops)}, float(row_ops)
+
+
+def hierarchy_vs_plain(bk, args):
+    """(error of a row's largest value, largest absolute error, plain ms by
+    the host clock) of one hierarchy_rk4 launch against its plain version
+    on the same card tensors: the end state and, where stored, every outer
+    point."""
+    got = bk.hierarchy_rk4(*args)
+    t0 = time.perf_counter()
+    want = bk.hierarchy_rk4_plain(*args)
+    torch.cuda.synchronize()
+    t_plain = (time.perf_counter() - t0) * 1e3
+    e = a = 0.0
+    for g, w in zip(got, want):
+        if g is not None:
+            e = max(e, close_err(g.cpu().numpy(), w.cpu().numpy()))
+            a = max(a, (g - w).abs().max().item())
+    return e, a, t_plain
+
+
+def phase_boltz(dev, card, counts, wrappers, sass):
+    """The Boltzmann group on the card: recomb_rk4 (K6) and hierarchy_rk4
+    (K7) against their plain versions, the k = 0.5 row of the default grid
+    kept finite, and the slice's path at full width against the JAX
+    golden files, each entry point with the counts set to 0 just before
+    it and read just after: Cosmology().get_cmb_cls(approx=True) at lmax
+    3,000, BoltzEngine() at its defaults and the README example built
+    with engine="boltz".  Returns (launches by entry point, stats, the
+    two kernels' rows)."""
+    from hmvec_tpu_torch import BoltzEngine, Cosmology, HaloModel
+    from hmvec_tpu_torch.models import background as bgmod
+    from hmvec_tpu_torch.models import boltz_engine as tbe
+    from hmvec_tpu_torch.models import boltzlite as tbl
+    from hmvec_tpu_torch.models import recomb as trec
+    from hmvec_tpu_torch.ops import boltz_kernels as bk
+    from hmvec_tpu_torch.params import merge_params
+
+    t_phase = time.perf_counter()
+    gs, gc, ge, gk = (np.load(p) for p in (GOLDEN_BS, GOLDEN_BC, GOLDEN_BE,
+                                           GOLDEN_BK))
+    f_sm = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]) * 1e6
+    rows, launches, stats = {}, {}, {}
+    bg = bgmod.background(merge_params({}), dev)
+
+    # K6 at n = 16,384 against its plain version
+    t_sec = time.perf_counter()
+    xs = trec._linspace(-18.0, 0.0, 16384, dev)
+    dx = xs[1] - xs[0]
+    tab, sn, xe0 = trec.recomb_tables(bg, xs, dx)
+    args6 = (tab[None].contiguous(), sn[None].contiguous(), xe0.reshape(1),
+             float(dx))
+    got6 = bk.recomb_rk4(*args6)
+    t0 = time.perf_counter()
+    want6 = bk.recomb_rk4_plain(*args6)
+    torch.cuda.synchronize()
+    plain6 = (time.perf_counter() - t0) * 1e3
+    e6 = close_err(got6.cpu().numpy(), want6.cpu().numpy())
+    abs6 = (got6 - want6).abs().max().item()
+    check(e6 <= GATE_BOLTZ_KERNEL, f"recomb_rk4 vs plain: {e6!r}")
+    ms6 = event_ms(lambda: bk.recomb_rk4(*args6), n=5, warmup=1)
+    # the work this run's table needs: a Saha step (its flag set at x)
+    # reads the flag and saha_next and does no arithmetic; a Peebles step
+    # reads its three sub-points' 7 columns and does the plain version's
+    # count of one Peebles step (counted on the first step that is Peebles
+    # at all three sub-points); x_e0 read, x_e written
+    flags = (tab[:, :, 6] != 0.0).cpu().numpy()
+    peebles = int((~flags[:, 0]).sum())
+    partial = int((~flags[:, 0] & flags[:, 1:].any(1)).sum())
+    i_p = int(np.flatnonzero(~flags.any(1))[0])
+    with F64Ops() as m6:
+        bk.recomb_rk4_plain(args6[0][:, i_p:i_p + 1], args6[1][:, i_p:i_p + 1],
+                            xe0.reshape(1), float(dx))
+    step_ops6 = m6.ops
+    ops6 = peebles * step_ops6
+    n6 = 8 * (peebles * 3 * 7 + (16383 - peebles) * 2 + 1 + 16384)
+    b6 = bound(n6, {"f64": ops6})
+    floor6 = ops6 / f_sm * 1e3
+    rows["recomb_rk4"] = {
+        "max_abs_err": abs6, "max_rel_err": e6, "ms": ms6,
+        "plain_ms": plain6, "bound_ms": b6[0], "bound_by": b6[1],
+        "serial_floor_ms": floor6, "steps": 16383, "peebles_steps": peebles,
+        "shape": "1 cosmology x 16,383 steps"}
+    print(f"[boltz] recomb_rk4 at n = 16,384 ({peebles} Peebles steps of "
+          f"16,383, {partial} of them with a later sub-point in Saha "
+          f"equilibrium): max err vs the plain version {abs6!r} abs, {e6!r} "
+          f"of the row's largest (gate {GATE_BOLTZ_KERNEL}); {ms6!r} ms "
+          f"(CUDA events, median of 5), plain version {plain6!r} ms (host "
+          f"clock, one call); bound {b6[0]!r} ms by {b6[1]} ({n6} bytes, "
+          f"{ops6} float64 operations: {step_ops6} a Peebles step by the "
+          f"plain version's count); issue floor of its one thread "
+          f"{floor6!r} ms (those operations at one a cycle at "
+          f"{f_sm / 1e6:.0f} MHz); section {time.perf_counter() - t_sec:.1f}"
+          f" s ({card})")
+
+    # K7 on the reduced grid of the CPU tests' golden file, every segment
+    # against the plain version on the same card tensors
+    t_sec = time.perf_counter()
+    grid = dict(zip(gs["grid_names"].tolist(), map(int, gs["grid_values"])))
+    ctx = tbl.make_ctx(bg, trec.recombination(bg, n=int(gs["n_rec"])))
+    with recorded(tbl, "hierarchy_rk4") as segs:
+        sol = tbl.solve_perturbations(ctx, gs["ks"], **grid)
+    torch.cuda.synchronize()
+    check(len(segs) == 4, f"the reduced solve: 4 hierarchy_rk4 launches, "
+          f"got {len(segs)}")
+    ms7 = plain7 = 0.0
+    n7, ops7, row7 = 0, 0, 0.0
+    e7 = a7 = 0.0
+    for args in segs:
+        e, a, t_plain = hierarchy_vs_plain(bk, args)
+        e7, a7, plain7 = max(e7, e), max(a7, a), plain7 + t_plain
+        ms7 += event_ms(lambda a=args: bk.hierarchy_rk4(*a), n=3, warmup=1)
+        nb, ops, r_ops = hierarchy_work(bk, *args[:2], *args[5:8])
+        n7, ops7, row7 = n7 + nb, ops7 + ops["f64"], row7 + r_ops
+    check(e7 <= GATE_BOLTZ_KERNEL, f"hierarchy_rk4 vs plain: {e7!r}")
+    e_sol = close_err(sol.states[:, ::3].cpu().numpy(),
+                      gs["massless_states_every3"])
+    e_zeta = abs(float(sol.zeta_unit) / float(gs["massless_zeta_unit"]) - 1)
+    check(e_sol <= GATE_BOLTZ_SOLVE and e_zeta <= GATE_BOLTZ_REC,
+          f"the reduced solve vs its golden file: {e_sol!r}, {e_zeta!r}")
+    b7 = bound(n7, {"f64": ops7})
+    floor7 = row7 / f_sm * 1e3
+    reduced7 = {
+        "max_abs_err": a7, "max_rel_err": e7, "ms": ms7, "plain_ms": plain7,
+        "bound_ms": b7[0], "bound_by": b7[1], "serial_floor_ms": floor7,
+        "shape": f"{gs['ks'].size} k (+ the curvature row) x the reduced "
+                 f"grid's 4 segments", "vs_golden": e_sol}
+    print(f"[boltz] hierarchy_rk4 on the reduced grid ({gs['ks'].size} k, "
+          f"n_a {grid['n_a']}, n_b {grid['n_b_outer']} x "
+          f"{grid['n_b_inner']}, n_c {grid['n_c_outer']} x "
+          f"{grid['n_c_inner']}; 4 launches): max err vs the plain version "
+          f"{a7!r} abs, {e7!r} of a row's largest (gate "
+          f"{GATE_BOLTZ_KERNEL}); states vs the JAX golden {e_sol!r} (gate "
+          f"{GATE_BOLTZ_SOLVE}), zeta_unit {e_zeta!r}; {ms7!r} ms (CUDA "
+          f"events, sum of the launches' medians of 3), plain version "
+          f"{plain7!r} ms (host clock); bound {b7[0]!r} ms by {b7[1]} ({n7} "
+          f"bytes, {ops7} float64 operations); issue floor of one thread "
+          f"{floor7!r} ms; section {time.perf_counter() - t_sec:.1f} s "
+          f"({card})")
+
+    # the k = 0.5 row of the default grid at segment_c_inner_steps' count:
+    # finite, and bounded at late times (the kernel only)
+    t_sec = time.perf_counter()
+    rec = trec.recombination(bg)
+    ctx = tbl.make_ctx(bg, rec)
+    n_c = tbl.segment_c_inner_steps(0.5, float(bg.H0))
+    st = tbl.solve_perturbations(ctx, [0.5], n_c_inner=n_c).states
+    late = st[0, -40:].abs().max().item()
+    check(bool(torch.isfinite(st).all()) and late < 1e6,
+          f"k = 0.5 at n_c_inner {n_c}: finite and bounded ({late!r})")
+    print(f"[boltz] k = 0.5 on the default grid at n_c_inner {n_c}: states "
+          f"finite, late-time max |state| {late!r} (< 1e6); section "
+          f"{time.perf_counter() - t_sec:.1f} s")
+
+    def entry(name, fn, want):
+        """fn with the counts set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        counts.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = counts.read()
+        w = {n: want.get(n, 0) for n in wrappers}
+        check(launches[name] == w, f"{name}: launches {launches[name]}, "
+              f"expected {w}")
+        return out
+
+    def cmb():
+        return Cosmology(device=dev).get_cmb_cls(approx=True)
+
+    # get_cmb_cls(approx=True) at lmax 3,000: one recombination, four
+    # segments
+    t_sec = time.perf_counter()
+    with recorded(tbl, "hierarchy_rk4") as segs_cmb:
+        out = entry("boltz_cmb", cmb, {"recomb_rk4": 1, "hierarchy_rk4": 4})
+    errs = {}
+    for key in ("total", "unlensed_scalar", "lens_potential"):
+        o = out[key]
+        check(o.is_cuda and o.dtype == torch.float64
+              and tuple(o.shape) == gc[key].shape, f"get_cmb_cls {key}")
+        got, want = o.cpu().numpy().T, gc[key].T
+        live = np.any(want != 0.0, axis=1)
+        errs[key] = close_err(got[live][:, 2:], want[live][:, 2:])
+        check(bool(np.isfinite(got).all()) and errs[key] <= GATE_BOLTZ_OUT,
+              f"get_cmb_cls {key} vs golden: {errs[key]!r}")
+    check(out["approx"] is True, "get_cmb_cls marks the approximation")
+    rec_e = max(close_err(getattr(rec, k)[::4].cpu().numpy()[None],
+                          gc[f"rec_{k}"][None])
+                for k in ("xe", "tau_x", "eta"))
+    check(rec_e <= GATE_BOLTZ_REC, f"recombination vs golden: {rec_e!r}")
+    t_cmb = time.perf_counter() - t_sec
+    # K7 at the main path's shapes: each of the four launches of that
+    # get_cmb_cls (192 rows in six blocks, k to 0.5, 1,500 / 4,200 /
+    # 6,080 steps, the curvature row's segment C) against the plain
+    # version on the same card tensors
+    t_sec = time.perf_counter()
+    seg_rows, n7, ops7 = [], 0, 0
+    for a in segs_cmb:
+        e, a_err, t_plain = hierarchy_vs_plain(bk, a)
+        check(e <= GATE_BOLTZ_KERNEL, f"hierarchy_rk4 vs plain on the main "
+              f"path's segment of {a[1].numel()} rows, {a[5] * a[6]} steps: "
+              f"{e!r}")
+        t_k = event_ms(lambda a=a: bk.hierarchy_rk4(*a), n=3, warmup=1)
+        nb, ops, r_ops = hierarchy_work(bk, *a[:2], *a[5:8])
+        n7, ops7 = n7 + nb, ops7 + ops["f64"]
+        b_ms, b_by = bound(nb, ops)
+        seg_rows.append({"rows": int(a[1].numel()), "steps": a[5] * a[6],
+                         "max_abs_err": a_err, "max_rel_err": e,
+                         "ms": t_k, "plain_ms": t_plain, "bound_ms": b_ms,
+                         "bound_by": b_by,
+                         "serial_floor_ms": r_ops / f_sm * 1e3})
+    # the kernels line's row: the main path's four launches summed, the
+    # largest error over them and the reduced grid's
+    b7 = bound(n7, {"f64": ops7})
+    rows["hierarchy_rk4"] = {
+        "max_abs_err": max([a7] + [r["max_abs_err"] for r in seg_rows]),
+        "max_rel_err": max([e7] + [r["max_rel_err"] for r in seg_rows]),
+        **{key: sum(r[key] for r in seg_rows)
+           for key in ("ms", "plain_ms", "serial_floor_ms")},
+        "bound_ms": b7[0], "bound_by": b7[1],
+        "shape": "get_cmb_cls()'s 4 segments (192 / 192 / 191 / 1 rows)",
+        "cmb_segments": seg_rows, "reduced_grid": reduced7}
+    print(f"[boltz] get_cmb_cls(approx=True) at lmax 3,000 vs the JAX "
+          f"golden (close_err by column): {errs} (gate {GATE_BOLTZ_OUT}); "
+          f"recombination {rec_e!r} (gate {GATE_BOLTZ_REC}); launches "
+          f"{launches['boltz_cmb']}; section {t_cmb:.1f} s; hierarchy_rk4 "
+          f"per segment against the plain version (gate "
+          f"{GATE_BOLTZ_KERNEL}): {seg_rows}; section "
+          f"{time.perf_counter() - t_sec:.1f} s ({card})")
+    stats["get_cmb_cls"] = entry_stats("boltz", {"get_cmb_cls": cmb}, dev,
+                                       card, n=3)["get_cmb_cls"]
+
+    # BoltzEngine() at its defaults: one solve
+    def engine():
+        tbe._TABLE_CACHE.clear()
+        return BoltzEngine(device=dev)
+
+    eng = entry("boltz_engine", engine, {"recomb_rk4": 1,
+                                         "hierarchy_rk4": 4})
+    e_eng = {"ks_t": close_err(eng.ks_t, ge["ks_t"]),
+             "p0_t": close_err(eng.p0_t, ge["p0_t"]),
+             "lnratio": close_err(eng._lnratio, ge["lnratio"]),
+             "graft_ratio": abs(eng._graft_ratio / float(ge["graft_ratio"])
+                                - 1.0)}
+    p_lin = eng.plin(bg, ge["zs"], ge["ks"])
+    e_eng["plin"] = close_err(p_lin.cpu().numpy(), ge["plin"])
+    rs, zd = tbe.rs_drag_integral()
+    e_eng["rs_drag"] = max(abs(rs / float(ge["rs_drag"]) - 1.0),
+                           abs(zd / float(ge["z_drag"]) - 1.0))
+    check(all(v <= GATE_BOLTZ_OUT for v in e_eng.values())
+          and e_eng["rs_drag"] <= GATE_BOLTZ_REC,
+          f"BoltzEngine() vs golden: {e_eng}")
+    print(f"[boltz] BoltzEngine() vs the JAX golden: {e_eng} (gate "
+          f"{GATE_BOLTZ_OUT}; r_s and z_drag {GATE_BOLTZ_REC}); launches "
+          f"{launches['boltz_engine']}")
+    stats["BoltzEngine"] = entry_stats("boltz", {"BoltzEngine": engine},
+                                       dev, card, n=3)["BoltzEngine"]
+    stats["plin"] = entry_stats("boltz", {"plin": lambda: eng.plin(
+        bg, ge["zs"], ge["ks"])}, dev, card)["plin"]
+
+    # the README example built on engine="boltz": the solve, B1 once and
+    # B4a twice
+    cosmo = dict(zip(gk["param_names"].tolist(),
+                     map(float, gk["param_values"])))
+
+    def build():
+        tbe._TABLE_CACHE.clear()
+        hm = HaloModel(gk["zs"], gk["ks"], ms=gk["ms"], params=cosmo,
+                       engine="boltz", device=dev)
+        hm.add_battaglia_profile("e", family="AGN")
+        hm.add_battaglia_pres_profile("y")
+        hm.add_hod("g", ngal=gk["ngal"])
+        hm.add_nfw_profile("nfw_fast", fast=True)
+        return hm
+
+    hm = entry("boltz_class", build, {"recomb_rk4": 1, "hierarchy_rk4": 4,
+                                      "nfw_uk_fast": 1, "pair_lerp_f64": 2})
+    e_cls = {}
+    for key, names in {**CLASS_SPECTRA, "pmm_fast": ("nfw_fast", None)}.items():
+        o = hm.get_power(*names)
+        want = gk[key.replace("_fast", "")]
+        check(o.is_cuda and tuple(o.shape) == want.shape
+              and bool(torch.isfinite(o).all()), f"boltz class {key}")
+        e_cls[key] = float(np.max(np.abs(o.cpu().numpy() / want - 1.0)))
+        check(e_cls[key] <= GATE_BOLTZ_OUT, f"boltz class {key} vs golden: "
+              f"{e_cls[key]!r}")
+    print(f"[boltz] the README example on engine='boltz' at 20x200x1001 vs "
+          f"the JAX class's golden: {e_cls} (gate {GATE_BOLTZ_OUT}); build "
+          f"launches {launches['boltz_class']}")
+    stats["class_build"] = entry_stats("boltz", {"class_build": build}, dev,
+                                       card, n=1)["class_build"]
+    for name in ("recomb_rk4_kernel", "hierarchy_rk4_kernel"):
+        if name in sass:
+            rows[name.replace("_kernel", "")]["sass_body"] = dict(
+                sass[name]["body"])
+    del hm, eng
+    torch.cuda.empty_cache()
+    print(f"[boltz] the phase's wall time {time.perf_counter() - t_phase:.1f}"
+          f" s (host clock)")
+    return launches, stats, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1258,7 +1659,10 @@ def main() -> int:
     torch.cuda.set_device(dev)
     # the float64 path has no float32 matmul, but state the setting
     torch.backends.cuda.matmul.allow_tf32 = False
-    modules = {"nfw_kernels": nk, "resample_kernels": rk}
+    from hmvec_tpu_torch.ops import boltz_kernels as bk
+
+    modules = {"nfw_kernels": nk, "resample_kernels": rk,
+               "boltz_kernels": bk}
     wrappers = {name: getattr(modules[mod], name)
                 for name, mod, _, _ in KERNEL_ROWS}
 
@@ -1284,7 +1688,8 @@ def main() -> int:
         [str(pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")), "-sass",
          info["path"]], capture_output=True, text=True, check=True,
         timeout=120).stdout
-    for name, regions in sorted(sass_counts(sass).items()):
+    sass = sass_counts(sass)
+    for name, regions in sorted(sass.items()):
         body, cold = regions["body"], regions["cold"]
         print(f"[env] sass {name}: {sum(body.values())} instructions in the "
               f"body {dict(sorted(body.items()))}, {sum(cold.values())} in "
@@ -2908,6 +3313,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
 
+    # ---- phase 4k: the Boltzmann group (recomb, boltzlite, boltz_engine)
+    boltz_launches, boltz_stats, boltz_rows = phase_boltz(dev, card, counts,
+                                                          wrappers, sass)
+    launches.update(boltz_launches)
+
     for name, _, _, paths in KERNEL_ROWS:
         for path in paths:
             check(launches[path][name] > 0, f"{name} launched on {path}")
@@ -2980,7 +3390,7 @@ def main() -> int:
                             + 16 * zs.size * ks.numel(), ops_c)
     for name, (u, s_, k_, dkt) in tables.items():
         work[name] = pair_lerp_work(u, s_, k_, dkt)
-    bounds = {name: bound(*work[name]) for name in wrappers}
+    bounds = {name: bound(*work[name]) for name in work}
     library = {name: None for name in wrappers}
     for name, (t_k, t_p) in times.items():
         extra = (f", torch.gather of the 2 nk samples {gather_ms[name]!r} ms"
@@ -3108,6 +3518,11 @@ def main() -> int:
               f"call (host clock to synchronize, median of 10), peak "
               f"{peak:.1f} MiB allocated ({card})")
 
+    # the Boltzmann group's kernels, timed in their phase (phase 4k)
+    for name, row in boltz_rows.items():
+        times[name] = (row["ms"], row["plain_ms"])
+        bounds[name] = (row["bound_ms"], row["bound_by"])
+        err[name] = row["max_abs_err"]
     kernels = []
     for name, mod, replaces, _ in KERNEL_ROWS:
         row = {"name": name, "route": "cuda", "source": SOURCE[mod],
@@ -3132,6 +3547,9 @@ def main() -> int:
             row["settle_4000_rows"] = b4a_settle
         if name == "nfw_contract":
             row["c13_max_rel_err"] = err["nfw_contract_c13"]
+        if name in boltz_rows:
+            row.update({k: v for k, v in boltz_rows[name].items()
+                        if k not in row})
         kernels.append(row)
     check(all(math.isfinite(k["ms"]) and math.isfinite(k["plain_ms"])
               and math.isfinite(k["bound_ms"]) for k in kernels), "timings")
@@ -3146,6 +3564,7 @@ def main() -> int:
     print("[flatsky] " + json.dumps(fs_stats))
     print("[emulator] " + json.dumps(em_stats))
     print("[checkpoint] " + json.dumps(ck_stats))
+    print("[boltz] " + json.dumps(boltz_stats))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

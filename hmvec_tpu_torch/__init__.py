@@ -109,6 +109,7 @@ from .models.emulator import (  # noqa: F401
     Emulator, fit_emulator, load_emulator, pipeline_target, sample_params,
     save_emulator)
 from .models.linear_power import EHEngine, TabulatedEngine  # noqa: F401
+from .models.boltz_engine import BoltzEngine, rs_drag_integral  # noqa: F401
 from .ops.special import Wkr, Wkr_taylor  # noqa: F401
 from .ops.rootfind import invert_monotone, vectorized_bisection_search  # noqa: F401
 from .ops.quadrature import interp  # noqa: F401

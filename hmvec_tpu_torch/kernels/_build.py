@@ -42,6 +42,10 @@ LIB_NAME = "libhmvec_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+# flags of one source only: the Boltzmann integrators keep every multiply
+# and add as its own IEEE operation (no FMA contraction), so that they
+# repeat their plain versions' arithmetic bit for bit
+SOURCE_FLAGS = {"boltz_kernels.cu": ("-fmad=false",)}
 
 # Series terms kept per precision and Si/Ci domain (x <= 4, <= 10, <= 40),
 # and asymptotic-tail terms.  The tables are least-squares Chebyshev fits:
@@ -199,6 +203,7 @@ def _build(nvcc: str) -> pathlib.Path:
         h.update(src.read_bytes())
     h.update(header.encode())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
@@ -213,8 +218,8 @@ def _build(nvcc: str) -> pathlib.Path:
     tmp_dir = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
     srcs = sorted(CSRC.glob("*.cu"))
     objs = [tmp_dir / f"{s.stem}.o" for s in srcs]
-    compile_cmds = [[nvcc, *NVCC_FLAGS, "-c", "-I", str(out_dir), "-I",
-                     str(CSRC), "-o", str(o), str(s)]
+    compile_cmds = [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s.name, ()), "-c",
+                     "-I", str(out_dir), "-I", str(CSRC), "-o", str(o), str(s)]
                     for s, o in zip(srcs, objs)]
     tmp = tmp_dir / LIB_NAME
     link_cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
@@ -246,6 +251,12 @@ def _declare(lib):
     fn.restype = i
     fn = lib.hmvec_nfw_kernel_info
     fn.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = i
+    fn = lib.hmvec_recomb_rk4
+    fn.argtypes = [p, p, p, d, i, i, p, i, p]
+    fn.restype = i
+    fn = lib.hmvec_hierarchy_rk4
+    fn.argtypes = [p, p, p, p, d, i, i, i, p, p, i, p]
     fn.restype = i
     for name in ("hmvec_pair_lerp_f64", "hmvec_pair_lerp_f32"):
         fn = getattr(lib, name)

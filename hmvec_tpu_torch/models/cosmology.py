@@ -21,9 +21,9 @@ a tabulated engine's nonlinear table, else HMcode for 'mead*' and halofit
 for the other versions.  ``theta100`` solves H0 on the host before the
 background is built.
 
-Every method of the JAX class answers (``DEFERRED`` is empty); the one
-path still to be ported, ``get_cmb_cls(approx=True)`` without a table,
-raises NotImplementedError naming the Boltzmann group of ROADMAP A9.
+Every method of the JAX class answers (``DEFERRED`` is empty), the
+engine-free primary CMB spectra (``get_cmb_cls(approx=True)``, the
+boltzlite solver) and ``engine="boltz"`` included.
 """
 
 from __future__ import annotations
@@ -108,7 +108,10 @@ class Cosmology:
         if params and "theta100" in params:
             self.p["H0"] = dext.solve_h0_from_theta100(self.p,
                                                        params["theta100"])
-        self.engine = lpm.make_engine(engine, pk_table)
+        # the engine after theta100: a "boltz" solve must see the solved H0
+        self.engine = lpm.make_engine(engine, pk_table, params=self.p,
+                                      engine_opts=engine_opts,
+                                      device=self.device)
         self.bg = bgmod.background(self.p, self.device)
 
         # sigma8 / S8: P_lin is linear in As, so As is rescaled to the
@@ -535,28 +538,36 @@ class Cosmology:
     def cmb_lensing_limber(self, lmax, nonlinear=False):
         return dext.cmb_lensing_limber(self, lmax, nonlinear=nonlinear)
 
-    # ---- primary CMB spectra from a table ----
+    # ---- primary CMB spectra ----
     def get_cmb_cls(self, lmax=3000, lens_potential_accuracy=4,
                     nonlinear=True, approx=False, lens_method="resummed"):
-        """Primary CMB power spectra from the constructor's ``cls_table``
-        (as CAMB would give them; tools/gen_camb_table.py writes one): the
-        dict {'total', 'unlensed_scalar', 'lens_potential'} of the table's
-        keys ('cls_lensed', 'cls_unlensed', 'cls_lens_potential'; muK^2,
-        raw C_l, rows 0..lmax), cut or NaN-padded to lmax + 1, as float64
-        tensors on the instance's device.  Without a table, approx=True
-        asks for the built-in Boltzmann solver, which the port does not
-        have yet (the Boltzmann group of ROADMAP A9)."""
-        del lens_potential_accuracy, nonlinear, lens_method
+        """Primary CMB power spectra: the dict {'total', 'unlensed_scalar',
+        'lens_potential'} (muK^2, raw C_l, rows 0..lmax) as float64
+        tensors on the instance's device.
+
+        From the constructor's ``cls_table`` (as CAMB would give them;
+        tools/gen_camb_table.py writes one): the table's keys
+        ('cls_lensed', 'cls_unlensed', 'cls_lens_potential'), cut or
+        NaN-padded to lmax + 1.  Without a table, ``approx=True`` runs the
+        built-in reduced Boltzmann solver (models/boltzlite.py) to
+        lmax + 400: its unlensed TT/EE/TE, and a lensing potential that
+        blends its exact (non-Limber) projection below L = 80 into
+        ``cmb_lensing_limber(nonlinear=)`` above L = 130, linearly in
+        between; 'total' lenses them by the resummed correlation-function
+        method (``lens_method='resummed'``, models/lensed_cf.py) or the
+        first-order convolution (``'first_order'``, models/lensed_cls.py).
+        The dict then carries ``'approx': True``."""
+        del lens_potential_accuracy
         if self.cls_table is None:
             if not approx:
                 raise NotImplementedError(
                     "Primary CMB Cls need a Boltzmann product; pass "
                     "cls_table=... to the ctor (generate offline with "
-                    "tools/gen_camb_table.py)")
-            raise NotImplementedError(
-                "get_cmb_cls(approx=True) needs the boltzlite solver of the "
-                "boltz group (recomb, boltzlite, boltz_engine) of ROADMAP "
-                "A9, which is not ported yet; pass cls_table=...")
+                    "tools/gen_camb_table.py) for CAMB precision, or call "
+                    "with approx=True for the built-in few-percent "
+                    "boltzlite solver (models/boltzlite.py).")
+            return self._cmb_cls_boltzlite(lmax, nonlinear, lens_method)
+        del nonlinear, lens_method
 
         def cut(arr):
             arr = np.asarray(arr, dtype=np.float64)
@@ -575,6 +586,38 @@ class Cosmology:
                 "cls_table has none of the recognized keys "
                 "('cls_lensed', 'cls_unlensed', 'cls_lens_potential')")
         return out
+
+    def _cmb_cls_boltzlite(self, lmax, nonlinear, lens_method):
+        """get_cmb_cls(approx=True) without a table (see there)."""
+        from . import boltzlite, lensed_cf, lensed_cls
+        if lens_method == "resummed":
+            lens_fn = lensed_cf.lens_cls_flat_sky_resummed
+        elif lens_method == "first_order":
+            lens_fn = lensed_cls.lens_cls_flat_sky
+        else:
+            raise ValueError(f"unknown lens_method {lens_method!r}")
+        lpad = lmax + 400
+        unl, clpp_exact = boltzlite.compute_cls(dict(self.p), lmax=lpad,
+                                                lens_potential=True,
+                                                device=self.device)
+        unl = self._t(unl)
+        _, clkk = self.cmb_lensing_limber(lpad, nonlinear=nonlinear)
+        ells = torch.arange(lpad + 1, dtype=_F64, device=self.device)
+        e2 = ells[2:]
+        clpp = torch.zeros(lpad + 1, dtype=_F64, device=self.device)
+        clpp[2:] = 4.0 * self._t(clkk) / (e2 * e2 * ((e2 + 1.0)
+                                                     * (e2 + 1.0)))
+        # low L: the exact LOS projection of the solve replaces Limber;
+        # linear blend over L in [80, 130], Limber alone above
+        wts = torch.clamp((ells - 80.0) / 50.0, 0.0, 1.0)
+        clpp = wts * clpp + (1.0 - wts) * self._t(clpp_exact)[:lpad + 1]
+        total = lens_fn(unl, clpp, lmax_out=lmax)
+        el = ells[2:lmax + 1]
+        ll1 = el * (el + 1.0)
+        dd = torch.zeros((lmax + 1, 3), dtype=_F64, device=self.device)
+        dd[2:, 0] = clpp[2:lmax + 1] * (ll1 * ll1) / (2.0 * np.pi)
+        return {"total": self._t(total), "unlensed_scalar": unl[:lmax + 1],
+                "lens_potential": dd, "approx": True}
 
     def cmb_lensing_kk_exact(self, lmax, lens_potential_accuracy=4):
         """Exact (non-Limber) C_kappakappa from the table's lensing

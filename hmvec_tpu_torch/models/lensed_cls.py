@@ -26,26 +26,11 @@ import torch
 
 from ..ops.quadrature import linear_interp
 from ..utils.weights import call_device, on_device_of_inputs
+from .boltzlite import default_l_nodes
 
 _F64 = torch.float64
 # elements of one (nodes, l', phi) temporary: 2^24 float64 = 128 MiB
 _CHUNK_ELEMENTS = 2**24
-
-
-def default_l_nodes(lmax: int):
-    """C_l evaluation nodes: dense through the first peaks, then every
-    Delta l = 40 (the acoustic period is ~300, so >= 7 nodes per period);
-    a copy of hmvec_tpu/models/boltzlite.py's."""
-    base = [2, 3, 4, 5, 7, 9, 12, 16, 21, 27, 35, 45, 60, 80, 100, 125,
-            150, 175, 200, 220, 240, 260, 280, 300]
-    ls = [l for l in base if l <= lmax]
-    l = 300
-    while l < lmax:
-        l = min(l + 40, lmax)
-        ls.append(l)
-    if ls[-1] != lmax:
-        ls.append(lmax)
-    return np.unique(np.asarray(ls, dtype=np.int64))
 
 
 def _phi_grid(n_phi: int):

@@ -3,7 +3,8 @@ hmvec_tpu/models/linear_power.py).
 
 ``EHEngine`` is the engine-free analytic Eisenstein-Hu power, where the
 accuracy tiers coincide; ``TabulatedEngine`` reads P(z, k) from a table on
-the host (a CAMB or CLASS run), and ``make_engine`` picks one by name.
+the host (a CAMB or CLASS run), ``boltz_engine.BoltzEngine`` solves the
+boltzlite hierarchy, and ``make_engine`` picks one by name.
 sigma^2(R, z) is one (z, k) @ (k, m) float64 matmul with static Simpson
 weights (``torch.matmul``: the JAX package also leaves this product to the
 compiler, outside any kernel).
@@ -218,20 +219,20 @@ class TabulatedEngine:
         return bg.as8**2 * self._interp("nl" if nonlinear else "lin", zs, ks)
 
 
-def make_engine(engine="eh", pk_table=None):
-    """The linear-power engine for a name: "eh" (``EHEngine``), or "camb" /
+def make_engine(engine="eh", pk_table=None, params=None, engine_opts=None,
+                device="cuda"):
+    """The linear-power engine for a name: "eh" (``EHEngine``); "camb" /
     "class", which take ``pk_table`` = (zs_t, ks_t, p_t[, p_nl_t]) as a
-    ``TabulatedEngine`` and are the analytic engine without one.  An
-    engine object (anything with ``plin`` and ``pzk_grid``) is returned as
-    it is.  "boltz" is not ported yet."""
+    ``TabulatedEngine`` and are the analytic engine without one; "boltz",
+    the boltzlite hierarchy solve (``boltz_engine.BoltzEngine(params,
+    **engine_opts)``, solved on ``device``).  An engine object (anything
+    with ``plin`` and ``pzk_grid``) is returned as it is."""
     if not isinstance(engine, str):
         return engine
     if engine == "boltz":
-        raise NotImplementedError(
-            "engine 'boltz' (the boltzlite hierarchy solve) is not ported "
-            "yet: it lands with the Boltzmann group of ROADMAP A9 (recomb, "
-            "boltzlite, boltz_engine); use 'eh', or 'camb'/'class' with "
-            "pk_table")
+        from .boltz_engine import BoltzEngine
+        return BoltzEngine(params, **{"device": device,
+                                      **(engine_opts or {})})
     if engine in ("eh", "camb", "class"):
         if pk_table is not None:
             return TabulatedEngine(*pk_table)

@@ -289,12 +289,13 @@ def test_get_cmb_cls_from_a_table_matches_jax(lmax):
 
 
 def test_get_cmb_cls_without_a_table_refuses():
-    """Without a table: the JAX package's refusal, and approx=True (the
-    boltzlite solver) names the Boltzmann group still to be ported."""
+    """Without a table: the JAX package's refusal; approx=True (the
+    boltzlite solver, tests/test_torch_boltz.py) is the way around it,
+    and the exact C_kk still needs a tabulated lensing potential."""
     tc = tcos.Cosmology(device="cpu")
-    with pytest.raises(NotImplementedError, match="cls_table"):
+    with pytest.raises(NotImplementedError, match="approx=True"):
         tc.get_cmb_cls(lmax=300)
-    with pytest.raises(NotImplementedError, match="boltz group"):
-        tc.get_cmb_cls(lmax=300, approx=True)
+    with pytest.raises(ValueError, match="lens_method"):
+        tc.get_cmb_cls(lmax=300, approx=True, lens_method="exact")
     with pytest.raises(NotImplementedError, match="lensing potential"):
         tc.cmb_lensing_kk_exact(300)

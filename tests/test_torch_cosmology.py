@@ -52,10 +52,8 @@ T = torch.as_tensor
 
 # the public names of hmvec_tpu/__init__.py that the port does not have
 # yet, by the group of ROADMAP A9 that brings them, and the ones it will
-# not have (A10)
-NOT_PORTED = {
-    "boltz": ("BoltzEngine", "rs_drag_integral"),
-}
+# not have (A10): none is left
+NOT_PORTED = {}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -132,15 +130,31 @@ def test_every_public_method_is_ported_or_deferred(name):
         assert group == deferred.get(meth), meth
 
 
-def test_deferred_methods_raise_naming_their_group():
-    """No method is deferred any more; the one path still refused,
-    get_cmb_cls(approx=True) without a table, names its group (the
-    Boltzmann solver of ROADMAP A9)."""
+def test_deferred_methods_raise_naming_their_group(monkeypatch):
+    """No method is deferred any more, and the last path that was,
+    get_cmb_cls(approx=True) without a table, answers through the
+    boltzlite solver (stubbed here; tests/test_torch_boltz.py holds the
+    wiring against the JAX class)."""
+    from hmvec_tpu_torch.models import boltzlite as tbl
+
     hm = thm.HaloModel(ZS[:2], KS[:8], ms=np.geomspace(1e11, 1e15, 6),
                        device="cpu")
     assert tcos.DEFERRED == {} and thm.DEFERRED == {}
-    with pytest.raises(NotImplementedError, match="boltz group"):
-        hm.get_cmb_cls(lmax=100, approx=True)
+    called = []
+
+    def compute_cls(params, lmax, lens_potential=False, device=None):
+        called.append(lmax)
+        cls = torch.zeros((lmax + 1, 4), dtype=torch.float64)
+        return cls, torch.full((lmax + 1,), 1e-9, dtype=torch.float64)
+
+    monkeypatch.setattr(tbl, "compute_cls", compute_cls)
+    monkeypatch.setattr(type(hm), "cmb_lensing_limber",
+                        lambda self, lmax, nonlinear=False: (
+                            T(np.arange(2.0, lmax + 1)),
+                            T(np.full(lmax - 1, 1e-8))))
+    out = hm.get_cmb_cls(lmax=100, approx=True, lens_method="first_order")
+    assert called == [500] and out["approx"] is True
+    assert out["total"].shape == (101, 4)
 
 
 def test_the_classes_need_a_card_unless_asked_for_the_cpu():
@@ -584,6 +598,9 @@ def _host_inputs():
                                cl_int + 1e-5, 2.0, 600.0), few),
         "ksz2_snr": (ells[:4], cls[:4], 10.0 * cls[:4], 0.1 * cls[:4] + 1e-9,
                      0.4),
+        # the recombination history of a cosmology given by its numbers
+        "rs_drag_integral": ((), {"params": {"ombh2": 0.0224,
+                                             "H0": 68.0}}),
     }
 
 
@@ -690,8 +707,8 @@ def _host_leaves(out):
 JAX_EAGER = ("bispectrum_ttg_lensing", "cl_cov_t1h",
              "exclusion_correction", "interp",
              "mean_pairwise_velocity", "pairwise_ksz_signal",
-             "projected_correlation", "sigma_b2_disk", "sigma_b2_tophat",
-             "trispectrum_1h", "trispectrum_1h_terms",
+             "projected_correlation", "rs_drag_integral", "sigma_b2_disk",
+             "sigma_b2_tophat", "trispectrum_1h", "trispectrum_1h_terms",
              "window_convolve_multipoles")
 
 

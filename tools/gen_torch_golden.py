@@ -150,11 +150,31 @@ held-out points; and the port's float32 fit on the CPU from the same net,
 whose spread against JAX's (final loss, held-out errors) sets the card's
 gate at ten times it (~2 min; imports the port too).
 
+--config boltz_small: the Boltzmann group's solve at a reduced grid, for
+the CPU tests (tests/test_torch_boltz*.py): at the default cosmology
+(massless) and at mnu = 0.06 with the massive-nu fluid, the
+recombination table at n = 4,096, solve_perturbations on 6 k in
+[1e-4, 0.1]/Mpc with n_a 300, n_b 210 x 4, n_c 120 x 11 (below this
+grid's segment-C stability edge of ~0.15/Mpc), its states, compute_sources
+and matter_power_slices on the same grid at the engine's z slices (for
+the fluid: both components); and at mnu = 0.06 the slices of the
+massless-hierarchy solve that BoltzEngine(massive_nu="eh99") reads ->
+hmvec_tpu_torch/data/boltz_small_golden.npz.  Each cosmology's JAX
+programs run in a process of their own (~1-2 min together).
+
+--config boltz: the Boltzmann group at full width, for chip_smoke.py's
+boltz phase: Cosmology().get_cmb_cls(approx=True) at lmax 3,000 (total,
+unlensed, lens potential) and every 4th row of the default recombination
+table -> hmvec_tpu_torch/data/boltz_cmb_golden.npz; the default
+BoltzEngine()'s tables and its plin at config 1's 20 z x 1001 k ->
+boltz_engine_golden.npz; the README example built with engine="boltz"
+(config c's spectra) -> boltz_class_golden.npz.  Two processes (~10 min).
+
 The machine with the GPU has no JAX, so chip_smoke.py compares the port
 against these files.  Each run writes only its own file.
 
 Run from the repository root:
-    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x|v|rsd_nonlimber|lensing|projfield|flatsky|emulator]
+    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x|v|rsd_nonlimber|lensing|projfield|flatsky|emulator|boltz_small|boltz]
 """
 
 from __future__ import annotations
@@ -183,7 +203,9 @@ OUT = {"1": DATA / "pmm_config1_golden.npz",
        "lensing": DATA / "lensing_cmb_golden.npz",
        "projfield": DATA / "projfield_config1_golden.npz",
        "flatsky": DATA / "flatsky_qe_golden.npz",
-       "emulator": DATA / "emulator_pk_golden.npz"}
+       "emulator": DATA / "emulator_pk_golden.npz",
+       "boltz_small": DATA / "boltz_small_golden.npz",
+       "boltz": DATA / "boltz_cmb_golden.npz"}
 NXS, XMAX = 4096, 20          # bench.py config 2
 NGAL = 1e-4                   # bench.py config 3, per z
 ELLS, ZSOURCE = np.geomspace(30, 3000, 60), 1100.0   # bench.py config 4
@@ -1145,9 +1167,152 @@ def write_emulator_golden():
                 f32_gate=np.asarray(10.0 * np.max(spread)))
 
 
+# the Boltzmann group's reduced grid (--config boltz_small): 6 k below the
+# grid's segment-C stability edge, and solve_perturbations' step counts
+BOLTZ_SMALL_KS = np.geomspace(1e-4, 0.1, 6)
+BOLTZ_SMALL_GRID = {"n_a": 300, "n_b_outer": 210, "n_b_inner": 4,
+                    "n_c_outer": 120, "n_c_inner": 11}
+BOLTZ_SMALL_COSMOS = {"massless": {}, "fluid": {"mnu": 0.06},
+                      "eh99": {"mnu": 0.06}}
+BOLTZ_SMALL_NREC = 4096      # the recombination table's rows
+BOLTZ_PARTS = {"boltz_small": ("massless", "fluid", "eh99"),
+               "boltz": ("cmb", "engine")}
+
+
+def boltz_small_part(name):
+    """One cosmology of --config boltz_small, in this process."""
+    import jax.numpy as jnp
+    from hmvec_tpu.models import background as jbg
+    from hmvec_tpu.models import boltz_engine as jbe
+    from hmvec_tpu.models import boltzlite as jbl
+    from hmvec_tpu.models import recomb as jrec
+    from hmvec_tpu.params import merge_params
+
+    p = merge_params(BOLTZ_SMALL_COSMOS[name])
+    # the recombination table at BOLTZ_SMALL_NREC rows, also inside
+    # matter_power_slices (module state of this process only)
+    full = jrec.recombination
+    jbe.recombination = lambda bg, **kw: full(bg, n=BOLTZ_SMALL_NREC, **kw)
+    opts = {k: v for k, v in BOLTZ_SMALL_GRID.items() if k != "n_c_inner"}
+    n_c = BOLTZ_SMALL_GRID["n_c_inner"]
+    zs = np.asarray(jbe.DEFAULT_Z_SLICES)
+
+    def slices(fluid, component="total"):
+        return np.asarray(jbe.matter_power_slices(
+            p, ks=BOLTZ_SMALL_KS, zs=zs, n_c_inner=n_c, solver_opts=opts,
+            massive_nu=fluid, component=component)[1])
+
+    if name == "eh99":
+        return {"eh99_slices": slices(False)}
+    fluid = name == "fluid"
+    bg = jbg.background(p)
+    rec = jbe.recombination(bg, massive_nu=fluid)
+    ctx = jbl.make_ctx(bg, rec, massive_nu=True)
+    sol = jbl.solve_perturbations(ctx, jnp.asarray(BOLTZ_SMALL_KS),
+                                  **BOLTZ_SMALL_GRID)
+    src = jbl.compute_sources(ctx, sol)
+    # every third stored x of the states keeps the file under 1 MB
+    out = {"xs": sol.xs, "states_every3": sol.states[:, ::3],
+           "zeta_unit": sol.zeta_unit,
+           "chi": src.chi, "s_t": src.s_t, "s_e": src.s_e, "s_p": src.s_p,
+           "chi_star": src.chi_star, "slices": slices(fluid)}
+    if fluid:
+        out["slices_cb"] = slices(True, "cb")
+    print(f"{name}: zeta_unit = {float(sol.zeta_unit)!r}, states finite "
+          f"{bool(np.isfinite(np.asarray(sol.states)).all())}")
+    return {f"{name}_{k}": np.asarray(v) for k, v in out.items()}
+
+
+def boltz_part(name, zs, ms, ks):
+    """One process of --config boltz: "cmb" -> the arrays of
+    boltz_cmb_golden.npz; "engine" -> those of boltz_engine_golden.npz
+    and boltz_class_golden.npz (the README build reads the engine's
+    cached solve)."""
+    import jax.numpy as jnp
+    import hmvec_tpu as hm
+    from hmvec_tpu.models import background as jbg
+    from hmvec_tpu.models import boltz_engine as jbe
+    from hmvec_tpu.models import recomb as jrec
+    from hmvec_tpu.models.cosmology import Cosmology
+    from hmvec_tpu.params import merge_params
+
+    p = merge_params({})
+    bg = jbg.background(p)
+    if name == "cmb":
+        out = Cosmology().get_cmb_cls(approx=True)
+        rec = jrec.recombination(bg)
+        arrays = {k: np.asarray(out[k]) for k in
+                  ("total", "unlensed_scalar", "lens_potential")}
+        arrays.update({f"rec_{k}": np.asarray(getattr(rec, k))[::4]
+                       for k in ("xs", "xe", "tau", "tau_x", "gvis", "eta")})
+        arrays["rec_eta0"] = np.asarray(rec.eta0)
+        arrays["lmax"] = np.asarray(3000)
+        print(f"cmb: TT[100] = {arrays['total'][100, 0]!r}")
+        return {"cmb": arrays}
+    eng = jbe.BoltzEngine()
+    rs, zd = jbe.rs_drag_integral()
+    plin = np.asarray(eng.plin(bg, jnp.asarray(zs), jnp.asarray(ks)))
+    engine = dict(zs=zs, ks=ks, ks_t=eng.ks_t, p0_t=eng.p0_t,
+                  ks_b=np.exp(eng._lnk_b), lnratio=eng._lnratio,
+                  graft_ratio=np.asarray(eng._graft_ratio), plin=plin,
+                  rs_drag=np.asarray(rs), z_drag=np.asarray(zd))
+    print(f"engine: plin[0, 0] = {plin[0, 0]!r}, r_s = {rs!r}")
+    ngal = np.full(zs.size, NGAL)
+    hcos = hm.HaloModel(zs, ks, ms=ms, params=BENCH_OVERRIDES,
+                        engine="boltz")
+    hcos.add_battaglia_profile("e", family="AGN")
+    hcos.add_battaglia_pres_profile("y")
+    hcos.add_hod("g", ngal=ngal)
+    spectra = {k: np.asarray(hcos.get_power(*names))
+               for k, names in CLASS_SPECTRA.items()}
+    print(f"class: pmm[0, 0] = {spectra['pmm'][0, 0]!r}")
+    klass = dict(zs=zs, ms=ms, ks=ks, ngal=ngal,
+                 param_names=np.asarray(list(BENCH_OVERRIDES)),
+                 param_values=np.asarray(list(BENCH_OVERRIDES.values()),
+                                         dtype=np.float64), **spectra)
+    return {"engine": engine, "class": klass}
+
+
+def write_boltz_golden(config):
+    """Run each part of ``config`` in a process of its own (XLA:CPU
+    crashes natively on large scan programs once a process holds many)
+    side by side, and write the config's files."""
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [(part, subprocess.Popen(
+            [sys.executable, __file__, "--config", config, "--part", part,
+             "--part-out", os.path.join(tmp, part + ".npz")]))
+            for part in BOLTZ_PARTS[config]]
+        for part, proc in procs:
+            if proc.wait() != 0:
+                raise SystemExit(f"part {part} failed ({proc.returncode})")
+        parts = {part: dict(np.load(os.path.join(tmp, part + ".npz")))
+                 for part in BOLTZ_PARTS[config]}
+    if config == "boltz_small":
+        arrays = {k: v for part in parts.values() for k, v in part.items()}
+        arrays.update(ks=BOLTZ_SMALL_KS, n_rec=np.asarray(BOLTZ_SMALL_NREC),
+                      z_slices=np.asarray(
+            (0.0, 0.5, 1.0, 2.0, 3.0, 5.0, 8.0, 12.0, 20.0)),
+            grid_names=np.asarray(list(BOLTZ_SMALL_GRID)),
+            grid_values=np.asarray(list(BOLTZ_SMALL_GRID.values())))
+        return {OUT[config]: arrays}
+    files = {"cmb": OUT[config], "engine": DATA / "boltz_engine_golden.npz",
+             "class": DATA / "boltz_class_golden.npz"}
+    out = {}
+    for part in parts.values():
+        for key in {k.split("/", 1)[0] for k in part}:
+            out[files[key]] = {k.split("/", 1)[1]: v for k, v in part.items()
+                               if k.startswith(key + "/")}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(OUT), default="1")
+    ap.add_argument("--part", help=argparse.SUPPRESS)
+    ap.add_argument("--part-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, str(REPO))
@@ -1157,6 +1322,23 @@ def main():
     from hmvec_tpu import pipeline as jpl
 
     zs, ms, ks = config1_grids()
+    if args.part:
+        # one part of a boltz config, in the process write_boltz_golden
+        # started for it
+        if args.config == "boltz_small":
+            arrays = boltz_small_part(args.part)
+        else:
+            arrays = {f"{f}/{k}": v for f, a in
+                      boltz_part(args.part, zs, ms, ks).items()
+                      for k, v in a.items()}
+        np.savez(args.part_out, **arrays)
+        return
+    if args.config in BOLTZ_PARTS:
+        for path, arrays in write_boltz_golden(args.config).items():
+            np.savez_compressed(path, **arrays)
+            print(f"wrote {path.relative_to(REPO)} "
+                  f"({path.stat().st_size} bytes)")
+        return
     path = OUT[args.config]
     path.parent.mkdir(parents=True, exist_ok=True)
     if args.config == "b":
