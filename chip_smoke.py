@@ -135,6 +135,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import functools
+import importlib.util
 import json
 import math
 import pathlib
@@ -389,6 +391,31 @@ def kernel_name(symbol: str) -> str:
     for kind, val in re.findall(r"L([ib])(\d+)E", m.group(3) or ""):
         args.append(val if kind == "i" else ("false", "true")[int(val)])
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+
+def ptxas_resources(log: str) -> dict:
+    """Each kernel's registers, stack, spills and static shared memory as
+    ``nvcc -Xptxas -v`` reports them in a build log: {kernel: {"registers",
+    "stack_bytes", "spill_store_bytes", "spill_load_bytes",
+    "smem_bytes"}}."""
+    out, kern = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kern = kernel_name(m.group(1))
+            out[kern] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and kern:
+            out[kern].update(zip(("stack_bytes", "spill_store_bytes",
+                                  "spill_load_bytes"), map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kern:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[kern].update(registers=int(m.group(1)),
+                             smem_bytes=int(smem.group(1)) if smem else 0)
+    return out
 
 
 def sass_counts(text: str) -> dict:
@@ -1294,13 +1321,25 @@ class F64Ops(TorchDispatchMode):
 
 
 def hierarchy_work(bk, xtab, ks, n_outer, n_inner, store):
-    """(bytes, float64 operations, operations of one row's steps) of one
-    hierarchy_rk4 call on these inputs.  The operations: the plain
-    version's own count (F64Ops) of each right-hand side (tight-coupling
-    or full, chosen per row and sub-point by the table as the kernel
-    chooses), of the slaving after a tight-coupled step and of the RK4
-    combination, calibrated on one row and summed over the rows and
-    sub-points of this call."""
+    """(bytes, float64 operations, the serial operations of its longest
+    row) of one hierarchy_rk4 call on these inputs.  The operations: the
+    plain version's own count (F64Ops) of each right-hand side
+    (tight-coupling or full, chosen per row and sub-point by the table as
+    the kernel chooses), of the slaving after a tight-coupled step and of
+    the RK4 combination, calibrated on one row and summed over the rows
+    and sub-points of this call.  The serial operations: the kernel runs a
+    row on one warp, every lane issuing the same instructions (each
+    component's derivative through one template, the shared quantities on
+    every lane), so a row's chain is one lane's program.  Its float64
+    operations (a division one) of each piece of a step are counted by
+    F64Ops on the emulation of that program
+    (tools/emulate_torch_boltz_lanes.py, lane_op_counts: a full or a
+    tight-coupling right-hand side, one sub-point's coefficients, three
+    per step, the RK4 combinations, the slaving after a tight-coupled
+    step), summed over the row's steps as the table chooses each piece,
+    and the longest row's sum returned; the once-a-chunk coefficient
+    passes (the block's and the warp's, one thread or lane a sub-point)
+    are off the chain and not counted."""
     dev = ks.device
     c = bk.Consts(1.0, 1.0, 1.0, 1.0, 1.0,
                   h0m_d=torch.ones((), dtype=torch.float64, device=dev))
@@ -1332,10 +1371,26 @@ def hierarchy_work(bk, xtab, ks, n_outer, n_inner, store):
     steps = n_outer * n_inner
     ops = (n_tc * per["tc"] + n_full * per["full"] + tc[:, 2, :].sum()
            * per["slave"] + steps * kk.size * per["rk"])
-    row_ops = ops / kk.size
+    lane = lane_op_counts()
+    n_tc_row = tc[:, [0, 1, 1, 2], :].sum((0, 1))
+    row_ops = float((n_tc_row * lane["tc"] + (4 * steps - n_tc_row)
+                     * lane["full"] + tc[:, 2, :].sum(0) * lane["slave"]
+                     + steps * (3 * lane["coefs"] + lane["rk"])).max())
     nbytes = 8 * (xtab.numel() + 2 * kk.size + 5 + kk.size * bk.NSTATE
                   * (2 + (n_outer if store else 0)))
     return int(nbytes), {"f64": int(ops)}, float(row_ops)
+
+
+@functools.lru_cache(maxsize=None)
+def lane_op_counts() -> dict:
+    """One lane's float64 operations of each piece of a hierarchy_rk4 step
+    (tools/emulate_torch_boltz_lanes.py, counted by F64Ops)."""
+    spec = importlib.util.spec_from_file_location(
+        "emulate_torch_boltz_lanes",
+        ROOT / "tools" / "emulate_torch_boltz_lanes.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.lane_op_counts(F64Ops)
 
 
 def hierarchy_vs_plain(bk, args):
@@ -1403,7 +1458,10 @@ def phase_boltz(dev, card, counts, wrappers, sass):
     # reads the flag and saha_next and does no arithmetic; a Peebles step
     # reads its three sub-points' 7 columns and does the plain version's
     # count of one Peebles step (counted on the first step that is Peebles
-    # at all three sub-points); x_e0 read, x_e written
+    # at all three sub-points); x_e0 read, x_e written.  The serial floor:
+    # one thread integrates the Peebles runs and nothing else (the staging
+    # warps write the Saha steps beside it), so its chain is the Peebles
+    # steps' operations, at one a cycle
     flags = (tab[:, :, 6] != 0.0).cpu().numpy()
     peebles = int((~flags[:, 0]).sum())
     partial = int((~flags[:, 0] & flags[:, 1:].any(1)).sum())
@@ -1428,8 +1486,8 @@ def phase_boltz(dev, card, counts, wrappers, sass):
           f"(CUDA events, median of 5), plain version {plain6!r} ms (host "
           f"clock, one call); bound {b6[0]!r} ms by {b6[1]} ({n6} bytes, "
           f"{ops6} float64 operations: {step_ops6} a Peebles step by the "
-          f"plain version's count); issue floor of its one thread "
-          f"{floor6!r} ms (those operations at one a cycle at "
+          f"plain version's count); serial floor of its integrating "
+          f"thread {floor6!r} ms (those operations at one a cycle at "
           f"{f_sm / 1e6:.0f} MHz); section {time.perf_counter() - t_sec:.1f}"
           f" s ({card})")
 
@@ -1474,9 +1532,9 @@ def phase_boltz(dev, card, counts, wrappers, sass):
           f"{GATE_BOLTZ_SOLVE}), zeta_unit {e_zeta!r}; {ms7!r} ms (CUDA "
           f"events, sum of the launches' medians of 3), plain version "
           f"{plain7!r} ms (host clock); bound {b7[0]!r} ms by {b7[1]} ({n7} "
-          f"bytes, {ops7} float64 operations); issue floor of one thread "
-          f"{floor7!r} ms; section {time.perf_counter() - t_sec:.1f} s "
-          f"({card})")
+          f"bytes, {ops7} float64 operations); serial floor (the longest "
+          f"row's lane program at one operation a cycle) {floor7!r} ms; "
+          f"section {time.perf_counter() - t_sec:.1f} s ({card})")
 
     # the k = 0.5 row of the default grid at segment_c_inner_steps' count:
     # finite, and bounded at late times (the kernel only)
@@ -1628,10 +1686,15 @@ def phase_boltz(dev, card, counts, wrappers, sass):
           f"launches {launches['boltz_class']}")
     stats["class_build"] = entry_stats("boltz", {"class_build": build}, dev,
                                        card, n=1)["class_build"]
+    from hmvec_tpu_torch.kernels import _build
+
+    res = ptxas_resources(_build.build_info.get("log", ""))
     for name in ("recomb_rk4_kernel", "hierarchy_rk4_kernel"):
+        row = rows[name.replace("_kernel", "")]
         if name in sass:
-            rows[name.replace("_kernel", "")]["sass_body"] = dict(
-                sass[name]["body"])
+            row["sass_body"] = dict(sass[name]["body"])
+        row.update(res.get(name, {}))
+        print(f"[boltz] {name}: ptxas {res.get(name)} ({card})")
     del hm, eng
     torch.cuda.empty_cache()
     print(f"[boltz] the phase's wall time {time.perf_counter() - t_phase:.1f}"

@@ -9,8 +9,9 @@ At first use, ``load_library()``:
    arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c``, all
    started together, and links the objects with ``nvcc -shared`` into
    ``hmvec_tpu_torch/build/<hash of sources and flags>/libhmvec_kernels.so``
-   (git ignores ``build/``); a library that already exists for the same
-   hash is loaded as it is;
+   (git ignores ``build/``), the compilers' output (ptxas's registers and
+   spills) beside it in ``build.log``; a library that already exists for
+   the same hash is loaded as it is, its ``build.log`` read back;
 3. loads the library with ``ctypes`` and declares every function's
    argument and return types (``c_void_p`` for each pointer and the
    stream).
@@ -206,9 +207,11 @@ def _build(nvcc: str) -> pathlib.Path:
     h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     lib_path = out_dir / LIB_NAME
+    log_path = out_dir / "build.log"
     if lib_path.exists():
         build_info.update(path=str(lib_path), seconds=0.0, cached=True,
-                          log="")
+                          log=log_path.read_text() if log_path.exists()
+                          else "")
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "sici_coeffs.cuh").write_text(header)
@@ -232,6 +235,7 @@ def _build(nvcc: str) -> pathlib.Path:
                 if rc != 0:
                     raise RuntimeError(f"nvcc failed ({rc}):\n"
                                        f"{' '.join(cmd)}\n{log}")
+        log_path.write_text("".join(logs))
         os.replace(tmp, lib_path)
     finally:
         shutil.rmtree(tmp_dir, ignore_errors=True)

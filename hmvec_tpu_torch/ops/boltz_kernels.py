@@ -442,8 +442,9 @@ def recomb_rk4(tab, saha_next, xe0, dx: float):
     """x_e (batch, nsteps + 1) from the tables of ``recomb.recomb_tables``
     with a leading batch axis -- tab (batch, nsteps, 3, 7), saha_next
     (batch, nsteps), xe0 (batch,) -- and the step dx: one launch of the
-    kernel on the card (one thread a cosmology), the plain version on the
-    CPU."""
+    kernel on the card (one block a cosmology: the Saha steps written in
+    parallel, one thread integrating the Peebles runs), the plain version
+    on the CPU."""
     dev = _check({"tab": tab, "saha_next": saha_next, "xe0": xe0})
     if tab.dim() != 4 or tab.shape[2:] != (3, len(RECCOLS)):
         raise ValueError(f"tab must be (batch, nsteps, 3, {len(RECCOLS)}), "
@@ -480,8 +481,8 @@ def hierarchy_rk4(xtab, ks, consts, s0, dx: float, n_outer: int,
     3, len(XCOLS)) of ``boltzlite._x_table`` and consts (5,) =
     (H0/c, Omega_gamma, Omega_nu, Omega_b, Omega_c): (s_end (rows,
     NSTATE), the state after each outer block (rows, n_outer, NSTATE) if
-    ``store`` else None).  One launch of the kernel on the card (one
-    thread a k), the plain version on the CPU."""
+    ``store`` else None).  One launch of the kernel on the card (a warp a
+    k, a lane a state component), the plain version on the CPU."""
     dev = _check({"xtab": xtab, "ks": ks, "consts": consts, "s0": s0})
     nsteps = n_outer * n_inner
     if xtab.shape != (nsteps, 3, len(XCOLS)):

@@ -466,39 +466,109 @@ def test_kernel_wrappers_check_their_inputs():
                          0.01, 2, 3)
 
 
+# The card cases, each held against the plain version on the same card
+# tensors at 1e-12 of a row's largest value.  K6 (recomb_rk4, a block a
+# cosmology, 128-step staging windows): "n4096" the Fermi-Dirac
+# background's table; "batch3" three cosmologies in one launch (n =
+# 4,096); "synthetic" 600 steps of the n = 4,096 table from inside its
+# Peebles era (the first step Peebles), its flags rewritten into Saha runs
+# between Peebles runs (80 steps, 1, 50) and two Peebles steps whose later
+# sub-point is flagged Saha.  K7 (hierarchy_rk4, a warp a k, four k a
+# block, 32-step staging chunks): (rows, k_max, x_start, dx, n_outer,
+# n_inner, store); "grid" is segments A and B of the reduced grid for 8 k
+# (the state carried from A to B), "full" starts after recombination.
+K6_CASES = ("n4096", "batch3", "synthetic")
+K7_CASES = {
+    "grid": None,
+    "one_row": (1, 0.1, -18.0, 8.8 / 1500, 4, 10, True),
+    "rows7_steps35": (7, 0.5, -18.0, 8.8 / 1500, 7, 5, True),
+    "rows193_full": (193, 0.1, -5.0, 0.001, 6, 6, True),
+    "rows300_nostore": (300, 0.5, -18.0, 8.8 / 1500, 5, 8, False),
+    "n_outer1": (16, 0.5, -18.0, 8.8 / 1500, 1, 70, True),
+}
+
+
+def _k6_case(name):
+    """recomb_rk4's arguments on the card for one K6 case."""
+    if name == "n4096":
+        return _kernel_inputs("cuda")[1]
+    if name == "batch3":
+        cosmos = ({}, {"mnu": 0.06}, {"ombh2": 0.024, "omch2": 0.11})
+        xs = trec._linspace(-18.0, 0.0, N_REC, "cuda")
+        dx = xs[1] - xs[0]
+        tabs = [trec.recomb_tables(tbg.background(tmerge(p), "cuda"), xs, dx,
+                                   massive_nu="mnu" in p) for p in cosmos]
+        return tuple(torch.stack([t[i] for t in tabs]).contiguous()
+                     for i in range(3)) + (float(dx),)
+    tab, sn, xe0, dx = _kernel_inputs("cuda")[1]
+    first = int(torch.nonzero(tab[0, :, 0, 6] == 0.0)[0])
+    i0 = first + 50
+    xe = bk.recomb_rk4_plain(tab, sn, xe0, dx)
+    tab = tab[:, i0:i0 + 600].clone()
+    for lo, hi in ((100, 180), (300, 301), (400, 450)):
+        tab[0, lo:hi, :, 6] = 1.0
+    tab[0, 250, 1, 6] = 1.0
+    tab[0, 260, 2, 6] = 1.0
+    assert bool((tab[0, :, 0, 6] == 0.0)[0])
+    return (tab, sn[:, i0:i0 + 600].contiguous(), xe[:, i0].contiguous(), dx)
+
+
+def _k7_run(ks, s0, ctx, x_start, dx, n_outer, n_inner, store):
+    """One hierarchy_rk4 launch and its plain version: (end, kept) of each
+    (kept None where not stored)."""
+    i = torch.arange(n_outer, dtype=torch.float64, device="cuda")
+    j = torch.arange(n_inner, dtype=torch.float64, device="cuda")
+    x = ((x_start + i * (n_inner * dx))[:, None] + j * dx).reshape(-1)
+    xtab = tbl._x_table(ctx, trec.rk4_subpoints(x, dx)).contiguous()
+    consts = torch.stack([ctx.h0m, ctx.omg, ctx.omnu, ctx.omb, ctx.omc])
+    args = (xtab, ks, consts, s0, dx, n_outer, n_inner, store)
+    before = bk.hierarchy_rk4.launches
+    got = bk.hierarchy_rk4(*args)
+    assert bk.hierarchy_rk4.launches == before + 1
+    return got, bk.hierarchy_rk4_plain(*args)
+
+
 @pytest.mark.gpu
-def test_kernels_on_the_card_match_their_plain_versions():
-    """recomb_rk4 at n = 4,096 with the Fermi-Dirac background and
-    hierarchy_rk4 through segments A and B of the CPU tests' reduced
-    grid for 8 k, on the card against the plain versions on the same card
-    tensors: the kernels keep every multiply and add unfused
-    (-fmad=false), so they agree to the last bit or nearly (gate 1e-12
-    of a row's largest value)."""
+@pytest.mark.parametrize("case", [f"k6-{c}" for c in K6_CASES]
+                         + [f"k7-{c}" for c in K7_CASES])
+def test_kernels_on_the_card_match_their_plain_versions(case):
+    """recomb_rk4 and hierarchy_rk4 on the card against their plain
+    versions on the same card tensors (the Fermi-Dirac background): the
+    kernels keep every multiply and add unfused (-fmad=false), so they
+    agree to the last bit or nearly (gate 1e-12 of a row's largest value),
+    for K7 the end state and every stored outer point."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    bg, args = _kernel_inputs("cuda")
-    before = bk.recomb_rk4.launches
-    got = bk.recomb_rk4(*args)
-    assert bk.recomb_rk4.launches == before + 1
-    want = bk.recomb_rk4_plain(*args)
-    assert bool(torch.isfinite(got).all())
-    assert _close(got.cpu(), want.cpu().numpy()) <= 1e-12
-    rec = trec.recombination(bg)
-    ctx = tbl.make_ctx(bg, rec)
-    ks = torch.as_tensor(np.geomspace(1e-4, 0.1, 8), device="cuda")
-    s0 = tbl._initial_state(ctx, ks, torch.tensor(-18.0, device="cuda",
-                                                  dtype=torch.float64))
-    for x_start, dx, n_outer, n_inner in ((-18.0, 8.8 / 300, 30, 10),
-                                          (-9.2, 0.005, 40, 4)):
-        i = torch.arange(n_outer, dtype=torch.float64, device="cuda")
-        j = torch.arange(n_inner, dtype=torch.float64, device="cuda")
-        x = ((x_start + i * (n_inner * dx))[:, None] + j * dx).reshape(-1)
-        xtab = tbl._x_table(ctx, trec.rk4_subpoints(x, dx)).contiguous()
-        consts = torch.stack([ctx.h0m, ctx.omg, ctx.omnu, ctx.omb, ctx.omc])
-        end_k, kept_k = bk.hierarchy_rk4(xtab, ks, consts, s0, dx, n_outer,
-                                         n_inner, True)
-        end_p, kept_p = bk.hierarchy_rk4_plain(xtab, ks, consts, s0, dx,
-                                               n_outer, n_inner, True)
-        assert bool(torch.isfinite(kept_k).all())
-        assert _close(kept_k.cpu(), kept_p.cpu().numpy()) <= 1e-12
+    kernel, case = case.split("-", 1)
+    if kernel == "k6":
+        args = _k6_case(case)
+        before = bk.recomb_rk4.launches
+        got = bk.recomb_rk4(*args)
+        assert bk.recomb_rk4.launches == before + 1
+        want = bk.recomb_rk4_plain(*args)
+        assert bool(torch.isfinite(got).all())
+        assert _close(got.cpu(), want.cpu().numpy()) <= 1e-12
+        return
+    bg, _ = _kernel_inputs("cuda")
+    ctx = tbl.make_ctx(bg, trec.recombination(bg))
+    t = lambda v: torch.tensor(v, dtype=torch.float64, device="cuda")  # noqa: E731
+    if K7_CASES[case] is None:
+        ks = torch.as_tensor(np.geomspace(1e-4, 0.1, 8), device="cuda")
+        segs = ((-18.0, 8.8 / 300, 30, 10, True), (-9.2, 0.005, 40, 4, True))
+        s0 = tbl._initial_state(ctx, ks, t(-18.0))
+    else:
+        rows, k_max, *seg = K7_CASES[case]
+        ks = torch.as_tensor(np.geomspace(1e-4, k_max, rows), device="cuda")
+        segs = (tuple(seg),)
+        s0 = tbl._initial_state(ctx, ks, t(seg[0])).contiguous()
+    for x_start, dx, n_outer, n_inner, store in segs:
+        (end_k, kept_k), (end_p, kept_p) = _k7_run(
+            ks, s0, ctx, x_start, dx, n_outer, n_inner, store)
+        assert bool(torch.isfinite(end_k).all())
+        assert _close(end_k.cpu(), end_p.cpu().numpy()) <= 1e-12
+        if store:
+            assert kept_k.shape == (ks.numel(), n_outer, bk.NSTATE)
+            assert _close(kept_k.cpu(), kept_p.cpu().numpy()) <= 1e-12
+        else:
+            assert kept_k is None and kept_p is None
         s0 = end_k
