@@ -99,7 +99,17 @@ tests' golden file) against their plain versions, keeps the k = 0.5 row
 of the default grid finite, and drives Cosmology().get_cmb_cls(approx=
 True) at lmax 3,000, BoltzEngine() and the README example on
 engine="boltz" against their golden files (one recomb_rk4 and four
-hierarchy_rk4 launches a solve; B1 once and B4a twice a build).
+hierarchy_rk4 launches a solve; B1 once and B4a twice a build).  The
+sharded phase drives the multi-device layer (hmvec_tpu_torch.parallel.
+sharding) on a mesh of four slots on cuda:0 and, where more cards are
+visible, on a mesh of all of them, each entry point against its unsharded
+counterpart: the mass-sharded Pmm, two Fisher steps through the psum,
+data-parallel batches (bN, bNf, the exact tier, the fast electron tier),
+the galaxy x electron spectra and the matter bispectrum against the class
+API, the bin-sharded four-bin kSZ survey, the k-sharded Boltzmann solve
+(bit for bit) and l-sharded projection on get_cmb_cls()'s grid, and the
+data-parallel emulator fit; with each call's latency beside the unsharded
+call's and every kernel at the shard shapes.
 
 It differentiates both paths, and times the kernels, at one cosmology's
 shapes and at the batches', and the end-to-end calls.
@@ -268,6 +278,17 @@ GATE_FS_BATCH = 1e-12
 # against JAX's at the file's gate (ten times the spread of the two on the
 # CPU); the Jacobian by jacfwd against central differences, 1e-6 of its
 # largest element; the exact-tier training set 1e-7
+# the multi-device layer against its unsharded counterparts on the card:
+# the mass-sharded sums reassociate (the plain Pmm and the Fisher step at
+# the JAX package's own sharded-vs-unsharded gates, tests/test_pipeline.py;
+# the galaxy x electron spectra and the bispectrum at _sharded_suite.py's
+# 1e-9); the batch, bin, k and l shards run the same per-row programs
+# (1e-12, C_l 1e-12 of a spectrum's largest value; the solve bit for bit)
+GATE_SHARD_PMM = 1e-10
+GATE_SHARD_FISHER = 1e-8
+GATE_SHARD_GE = 1e-9
+GATE_SHARD_CLS = 1e-12
+SHARD_NXS = 4096
 GATE_EM_ROWS = 1e-10
 GATE_EM_FIT64 = 1e-9
 GATE_EM_JAC_FD = 1e-6
@@ -311,25 +332,26 @@ E_PATHS = {"electron_plain": {"fast": False}, "electron_fast": {"fast": True}}
 KERNEL_ROWS = (
     ("nfw_uk_fast", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:321",
      ("fast", "electron_fast", "b16", "bN", "hod_fast", "limber_fast",
-      "class", "extensions")),
+      "class", "extensions", "sharded_bN", "sharded_electron_fast")),
     ("nfw_uk_exact", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:800",
-     ("exact", "ode_exact", "b16_exact")),
+     ("exact", "ode_exact", "b16_exact", "sharded_b16_exact")),
     ("nfw_contract", "nfw_kernels", "hmvec_tpu/ops/pallas_kernels.py:388",
-     ("fused", "ode_fused", "bNf")),
+     ("fused", "ode_fused", "bNf", "sharded_bNf")),
     ("pair_lerp_f64", "resample_kernels",
      "hmvec_tpu/ops/pallas_resample.py:110",
      ("electron_plain", "electron_plain_b2", "ksz", "ksz_survey",
-      "ksz_b16", "class", "class_ksz", "extensions")),
+      "ksz_b16", "class", "class_ksz", "extensions",
+      "sharded_galaxy_electron", "sharded_survey")),
     ("pair_lerp_f32", "resample_kernels",
      "hmvec_tpu/ops/pallas_resample.py:110",
-     ("electron_fast", "electron_fast_b2")),
+     ("electron_fast", "electron_fast_b2", "sharded_electron_fast")),
     ("recomb_rk4", "boltz_kernels",
      "no Pallas counterpart: the lax.scan of hmvec_tpu/models/recomb.py:190",
-     ("boltz_cmb", "boltz_engine", "boltz_class")),
+     ("boltz_cmb", "boltz_engine", "boltz_class", "sharded_solve")),
     ("hierarchy_rk4", "boltz_kernels",
      "no Pallas counterpart: the lax.scan / fori_loop of "
      "hmvec_tpu/models/boltzlite.py:540-553, vmapped at :624",
-     ("boltz_cmb", "boltz_engine", "boltz_class")),
+     ("boltz_cmb", "boltz_engine", "boltz_class", "sharded_solve")),
 )
 SOURCE = {"nfw_kernels": "hmvec_tpu_torch/csrc/nfw_kernels.cu",
           "resample_kernels": "hmvec_tpu_torch/csrc/resample_kernels.cu",
@@ -1122,7 +1144,7 @@ def phase_emulator(dev, card, counts, wrappers):
     """examples/emulator_pk.py on the card: the training set by vmapped
     make_pmm_fn chunks, a float64 fit from JAX's initial net, the float32
     fit, jacfwd through the emulator, against the golden file.  Returns
-    (launches, stats)."""
+    (launches, stats, what the sharded phase fits again)."""
     from hmvec_tpu_torch import pipeline as pl
     from hmvec_tpu_torch.models import emulator as tem
 
@@ -1243,12 +1265,15 @@ def phase_emulator(dev, card, counts, wrappers):
     t_fit = (time.perf_counter() - t0) * 1e3
     stats[f"fit_emulator float32 ({steps} steps, with its training set)"] = {
         "ms": t_fit}
+    keep = {"target": target, "lo": lo, "hi": hi, "init": init, "fit": fit,
+            "steps": steps, "em": em32, "info": info32,
+            "val": ge["val_thetas"], "ms": t_fit}
     print(f"[time] emulator fit_emulator float32 ({steps} steps, training "
           f"set included): {t_fit!r} ms (host clock to synchronize, one "
           f"call) ({card})")
     print(f"[emulator] the phase's wall time "
           f"{time.perf_counter() - t_phase:.1f} s (host clock)")
-    return launches, stats
+    return launches, stats, keep
 
 
 def phase_checkpoint(hm, build, dev, card, counts):
@@ -1702,6 +1727,390 @@ def phase_boltz(dev, card, counts, wrappers, sass):
     return launches, stats, rows
 
 
+def mesh_ms(fn, mesh, n=5, warmup=1) -> float:
+    """Median host time of one call of fn that ends when every card of the
+    mesh has finished (host_ms for a mesh of several cards)."""
+    def sync():
+        for d in mesh.distinct():
+            torch.cuda.synchronize(d)
+
+    for _ in range(warmup):
+        fn()
+    sync()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_sharded(mesh, ref, card, counts, wrappers, kernel_rows=None):
+    """The multi-device layer (parallel/sharding.py) on ``mesh``, each
+    entry point held against its unsharded counterpart on the card (the
+    outputs of earlier phases where they exist) with the launch counts set
+    to 0 just before it and read just after: the mass-sharded Pmm (config
+    1, plain), two Fisher steps (config 4's ells), data-parallel batches
+    (bN and bNf at B = 128, the exact tier at B = 16, the fast electron
+    tier at B = 4), the galaxy x electron spectra and the matter
+    bispectrum (config 1's grid, config 3's ngal), the four-bin kSZ
+    survey, the k-sharded Boltzmann solve on get_cmb_cls()'s grid and the
+    l-sharded projection, and the data-parallel emulator fit; each
+    sharded call's latency beside the unsharded call's.  With
+    ``kernel_rows`` (a dict), each kernel's launches at the shard shapes,
+    recorded from these calls, are timed into it with their bounds.
+    Returns (launches by entry point, stats)."""
+    from hmvec_tpu_torch import HaloModel
+    from hmvec_tpu_torch import pipeline as pl
+    from hmvec_tpu_torch.models import background as bgmod
+    from hmvec_tpu_torch.models import boltzlite as tbl
+    from hmvec_tpu_torch.models import emulator as tem
+    from hmvec_tpu_torch.models import recomb as trec
+    from hmvec_tpu_torch.ops import nfw_kernels as nk
+    from hmvec_tpu_torch.ops import resample_kernels as rk
+    from hmvec_tpu_torch.params import merge_params
+    from hmvec_tpu_torch.parallel import sharding as tsh
+
+    t_phase = time.perf_counter()
+    dev, n = mesh.devices[0], mesh.size
+    tag = f"{n} slots on {', '.join(str(d) for d in mesh.distinct())}"
+    launches, stats, records = {}, {}, collections.defaultdict(list)
+
+    def entry(name, fn, want, record=()):
+        """fn with the counts set to 0 just before and read just after,
+        the inputs of the kernels in ``record`` kept."""
+        for d in mesh.distinct():
+            torch.cuda.synchronize(d)
+        with contextlib.ExitStack() as stack:
+            recs = {r: stack.enter_context(recorded(*RECORD[r]))
+                    for r in record}
+            counts.reset()
+            out = fn()
+            for d in mesh.distinct():
+                torch.cuda.synchronize(d)
+            launches[name] = counts.read()
+        for r, calls in recs.items():
+            records[r] += calls
+        w = {k: want.get(k, 0) for k in wrappers}
+        check(launches[name] == w, f"sharded {name} on {tag}: launches "
+              f"{launches[name]}, expected {w}")
+        return out
+
+    t_item = [time.perf_counter()]
+
+    def timed(name, sharded, unsharded, n_t=5):
+        stats[name] = {"ms": mesh_ms(sharded, mesh, n=n_t),
+                       "unsharded_ms": mesh_ms(unsharded, mesh, n=n_t),
+                       "launches": launches[name]}
+        print(f"[sharded] {name} on {tag}: {stats[name]['ms']!r} ms, "
+              f"unsharded {stats[name]['unsharded_ms']!r} ms (host clock to "
+              f"the mesh's synchronize, median of {n_t}); kernel launches "
+              f"{launches[name]}; section "
+              f"{time.perf_counter() - t_item[0]:.1f} s ({card})")
+        t_item[0] = time.perf_counter()
+
+    RECORD = {"nfw_uk": (nk, "_launch_nfw_uk"),
+              "nfw_contract": (nk, "_launch_nfw_contract"),
+              "pair_lerp": (rk, "_launch"),
+              "hierarchy_rk4": (tbl, "hierarchy_rk4")}
+    zs, ks_np, ms = ref.zs, ref.ks_np, ref.ms
+
+    # 1. Pmm, config 1, plain, the mass axis over the slots
+    spmm = tsh.make_sharded_pmm_fn(zs, ks_np, ms, mesh)
+    got = entry("pmm", lambda: spmm(ref.cosmos[0]), {})
+    e_g = float(np.max(np.abs(got.cpu().numpy() / ref.g["pmm"][0] - 1.0)))
+    e_u = rel_max(got, ref.pmm_plain)
+    check(e_g <= GATE_SHARD_PMM and e_u <= GATE_SHARD_PMM,
+          f"sharded pmm: {e_g!r} vs golden, {e_u!r} vs make_pmm_fn")
+    print(f"[sharded] pmm (config 1, plain) on {tag}: max rel err vs the "
+          f"golden {e_g!r}, vs make_pmm_fn on the card {e_u!r} (gate "
+          f"{GATE_SHARD_PMM})")
+    timed("pmm", lambda: spmm(ref.cosmos[0]),
+          lambda: ref.fns["plain"](ref.cosmos[0]))
+
+    # 2. two Fisher steps at config 4's ells against the unsharded step
+    ells = ref.gl["ells"]
+    step, model = tsh.make_fisher_step_fn(zs, ks_np, ms, ells, mesh)
+    step_u, model_u = tsh._fisher_step(ref.fns["plain"], zs, ks_np, ells,
+                                       ("omch2", "As"), 1e-3, dev)
+    theta0 = torch.tensor([1.04, 1.08], dtype=torch.float64, device=dev)
+
+    def two_steps(step=step, model=model):
+        data = model(torch.ones(2, dtype=torch.float64, device=dev))
+        t1, l0 = step(theta0, data)
+        t2, l1 = step(t1, data)
+        return torch.stack([l0, l1]), torch.stack([t1, t2])
+
+    losses, thetas = entry("fisher", two_steps, {})
+    losses_u, thetas_u = two_steps(step_u, model_u)
+    e = max(rel_max(losses, losses_u), rel_max(thetas, thetas_u))
+    check(bool(torch.isfinite(losses).all()) and losses[1] <= losses[0]
+          and e <= GATE_SHARD_FISHER, f"sharded Fisher steps: losses "
+          f"{losses.tolist()}, {e!r} vs the unsharded step")
+    print(f"[sharded] two Fisher steps (config 4's {ells.size} ells) on "
+          f"{tag}: losses {losses.tolist()}, theta and loss vs the unsharded "
+          f"autograd step {e!r} (gate {GATE_SHARD_FISHER})")
+    timed("fisher", two_steps, lambda: two_steps(step_u, model_u), n_t=3)
+
+    # 3. data-parallel batches against make_batched_fn on one card
+    theta_e = ref.gb["theta_b16"][[0, 5, 10, 15]]
+    batches = {
+        "bN": (*ref.batch["bN"], "nfw_uk_fast", "nfw_uk"),
+        "bNf": (*ref.batch["bNf"], "nfw_contract", "nfw_contract"),
+        "b16_exact": (*ref.batch["b16_exact"], "nfw_uk_exact", "nfw_uk"),
+        "electron_fast": (ref.efns["electron_fast"], theta_e,
+                          pl.make_batched_fn(ref.efns["electron_fast"],
+                                             ref.names_b)(theta_e),
+                          "pair_lerp_f32", "pair_lerp"),
+    }
+    for line, (fn1, theta, want, kernel, rec) in batches.items():
+        sb = tsh.make_sharded_batched_fn(fn1, ref.names_b, mesh)
+        counts_want = {kernel: n}
+        if line == "electron_fast":
+            counts_want["nfw_uk_fast"] = n
+        got = entry(line, lambda: sb(theta), counts_want,
+                    record=(rec,) if line != "electron_fast" else
+                    ("pair_lerp", "nfw_uk"))
+        e_row = max(rel_max(g_, w_) for g_, w_ in zip(
+            got if isinstance(got, tuple) else (got,),
+            want if isinstance(want, tuple) else (want,)))
+        check(e_row <= GATE_BATCH_VS_SINGLE, f"sharded {line}: {e_row!r}")
+        msg = ""
+        if line in ("bN", "bNf"):
+            rows_g = ref.gb["rows_bN"]
+            e_gold = rel_max(got[torch.as_tensor(rows_g, device=dev)],
+                             torch.as_tensor(ref.gb["pmm_bN"], device=dev))
+            check(e_gold <= 1e-5, f"sharded {line} rows vs golden: "
+                  f"{e_gold!r}")
+            msg = f", rows {rows_g.tolist()} vs golden {e_gold!r} (gate 1e-5)"
+        print(f"[sharded] {line} (B = {len(theta)}) on {tag}: every row vs "
+              f"make_batched_fn on one card {e_row!r} (gate "
+              f"{GATE_BATCH_VS_SINGLE}){msg}")
+        ub = pl.make_batched_fn(fn1, ref.names_b)
+        timed(line, lambda: sb(theta), lambda: ub(theta))
+        del got, sb
+    torch.cuda.empty_cache()
+
+    # 4. Pgg, Pge, Pee with the mass axis sharded, against the class API;
+    # 6. the bispectrum with the quadratic-bias term
+    def build():
+        hm = HaloModel(zs, ks_np, ms=ms, device=dev)
+        hm.add_battaglia_profile("e", family="AGN", nxs=SHARD_NXS, xmax=20.0)
+        hm.add_hod("g", ngal=ref.gh["ngal"])
+        return hm
+
+    hm = build()
+    kq = np.geomspace(5e-3, 2.0, 10)
+    sge = tsh.make_sharded_galaxy_electron_fn(zs, ks_np, ms, ref.gh["ngal"],
+                                              mesh, nxs=SHARD_NXS, xmax=20.0)
+    got = entry("galaxy_electron", lambda: sge({}), {"pair_lerp_f64": n},
+                record=("pair_lerp",))
+    e = max(rel_max(g_, hm.get_power(*names)) for g_, names in zip(
+        got, (("g",), ("g", "e"), ("e",))))
+    check(e <= GATE_SHARD_GE, f"sharded galaxy x electron: {e!r}")
+    print(f"[sharded] Pgg, Pge, Pee ({zs.size} x {ms.size} x {ks_np.size}, "
+          f"nxs {SHARD_NXS}) on {tag}: vs HaloModel on the card {e!r} (gate "
+          f"{GATE_SHARD_GE})")
+    timed("galaxy_electron", lambda: sge({}), lambda: [
+        h.get_power(*names) for h in [build()]
+        for names in (("g",), ("g", "e"), ("e",))])
+    sbis = tsh.make_sharded_matter_bispectrum_fn(
+        zs, ks_np, ms, kq, 1.3 * kq, 1.8 * kq, mesh, include_b2=True)
+    got = entry("bispectrum", lambda: sbis({}), {})
+    want = hm.get_bispectrum(kq, 1.3 * kq, 1.8 * kq, include_b2=True)
+    e = rel_max(got, want)
+    check(e <= GATE_SHARD_GE, f"sharded bispectrum: {e!r}")
+    print(f"[sharded] the matter bispectrum with b2 (config 1's grid, 10 "
+          f"triangles) on {tag}: vs HaloModel.get_bispectrum {e!r} (gate "
+          f"{GATE_SHARD_GE})")
+    timed("bispectrum", lambda: sbis({}), lambda: HaloModel(
+        zs, ks_np, ms=ms, device=dev).get_bispectrum(
+        kq, 1.3 * kq, 1.8 * kq, include_b2=True))
+    del hm, got, want
+    torch.cuda.empty_cache()
+
+    # 5. the four-bin kSZ survey, a bin a slot
+    gk = ref.gk
+    ssv = tsh.make_sharded_ksz_survey_fn(
+        gk["zcents"].size, mesh, ms=gk["ms"], nxs=int(gk["survey_nxs"]),
+        xmax=float(gk["xmax"]), growth="closed", **ref.kcfg)
+    args = (gk["zcents"], gk["vols_gpc3"], gk["ngals"], ref.cls_k)
+    bs = np.linspace(1.5, 3.0, gk["zcents"].size)
+    ov = ref.cosmos_k[0]
+
+    def both(fn):
+        return fn(ov, *args), fn(ov, *args, bs=bs)
+
+    got = entry("survey", lambda: both(ssv),
+                {"pair_lerp_f64": 2 * gk["zcents"].size}, record=("pair_lerp",))
+    want = both(ref.survey_fn)
+    e = max(rel_max(g_, w_) for gs_, ws_ in zip(got, want)
+            for g_, w_ in zip(gs_, ws_))
+    check(e <= GATE_KSZ, f"sharded survey: {e!r}")
+    print(f"[sharded] the four-bin kSZ survey, with and without bs, on "
+          f"{tag}: vs make_ksz_survey_fn(4) {e!r} (gate {GATE_KSZ})")
+    timed("survey", lambda: ssv(ov, *args), lambda: ref.survey_fn(ov, *args),
+          n_t=3)
+
+    # 7. the Boltzmann hierarchy over k on get_cmb_cls()'s grid (lmax
+    # 3,000 solves at 3,400), then the Bessel projection over its l nodes
+    bg = bgmod.background(merge_params({}), dev)
+    lpad = 3400
+
+    def solve():
+        ctx = tbl.make_ctx(bg, trec.recombination(bg))
+        ks, _, n_c = tbl._cls_grid(lpad, float(ctx.eta0), float(bg.H0))
+        mk = tsh.make_mesh(devices=mesh.devices, axis_name="k")
+        return ctx, ks, n_c, tsh.sharded_solve_perturbations(
+            ctx, ks, mk, n_c_inner=n_c)
+
+    ctx, ks_b, n_c, sol = entry(
+        "solve", solve, {"recomb_rk4": 1, "hierarchy_rk4": 3 * n + 1},
+        record=("hierarchy_rk4",))
+    sol_u = tbl.solve_perturbations(ctx, ks_b, n_c_inner=n_c)
+    check(torch.equal(sol.states, sol_u.states.to(sol.states.device))
+          and torch.equal(sol.xs, sol_u.xs)
+          and torch.equal(sol.zeta_unit, sol_u.zeta_unit),
+          "the k-sharded solve equals the unsharded one bit for bit")
+    print(f"[sharded] sharded_solve_perturbations ({ks_b.size} k, padded to "
+          f"a multiple of {n}, n_c_inner {n_c}) on {tag}: states "
+          f"{tuple(sol.states.shape)}, x grid and zeta_unit equal to the "
+          f"unsharded solve bit for bit")
+    mk = tsh.make_mesh(devices=mesh.devices, axis_name="k")
+    timed("solve", lambda: tsh.sharded_solve_perturbations(
+        ctx, ks_b, mk, n_c_inner=n_c),
+        lambda: tbl.solve_perturbations(ctx, ks_b, n_c_inner=n_c), n_t=3)
+    src = tbl.compute_sources(ctx, sol_u)
+    _, ks_fine, _ = tbl._cls_grid(lpad, float(ctx.eta0), float(bg.H0))
+    l_nodes = tbl.default_l_nodes(lpad)
+    got = entry("cls", lambda: tsh.sharded_cls_from_sources(
+        src, bg, l_nodes, ks_fine, mk), {})
+    want = tbl.cls_from_sources(src, bg, l_nodes, ks_fine)
+    e = max(to_max(got[k], want[k]) for k in ("tt", "ee", "te"))
+    check(e <= GATE_SHARD_CLS, f"sharded C_l: {e!r}")
+    print(f"[sharded] sharded_cls_from_sources ({l_nodes.size} l nodes to "
+          f"{lpad}, {ks_fine.size} fine k) on {tag}: vs cls_from_sources "
+          f"{e!r} of each spectrum's largest value (gate "
+          f"{GATE_SHARD_CLS}), bit for bit "
+          f"{all(torch.equal(got[k], want[k]) for k in ('tt', 'ee', 'te'))}")
+    timed("cls", lambda: tsh.sharded_cls_from_sources(
+        src, bg, l_nodes, ks_fine, mk),
+        lambda: tbl.cls_from_sources(src, bg, l_nodes, ks_fine), n_t=3)
+    del sol, sol_u, src, got, want
+    torch.cuda.empty_cache()
+
+    # 8. the data-parallel emulator fit against the emulator phase's fit
+    em = ref.emulator
+    t0 = time.perf_counter()
+    em_s, info_s = entry("fit", lambda: tem.fit_emulator(
+        em["target"], em["lo"], em["hi"], steps=em["steps"],
+        init_net=em["init"], mesh=mesh, **em["fit"]), {})
+    for d in mesh.distinct():
+        torch.cuda.synchronize(d)
+    t_fit = (time.perf_counter() - t0) * 1e3
+    e_loss = abs(float(info_s["losses"][-1]) / float(em["info"]["losses"][-1])
+                 - 1.0)
+    with torch.no_grad():
+        e_pred = rel_max(em_s(em["val"]), em["em"](em["val"]))
+    check(e_loss <= 1e-3 and e_pred <= 2e-3,
+          f"sharded fit: final loss {e_loss!r}, predictions {e_pred!r}")
+    stats["fit"] = {"ms": t_fit, "unsharded_ms": em["ms"],
+                    "launches": launches["fit"]}
+    print(f"[sharded] fit_emulator(mesh=) ({em['steps']} float32 steps, "
+          f"n_train {em['fit']['n_train']}) on {tag}: final loss vs the "
+          f"unsharded fit {e_loss!r} (gate 1e-3), held-out predictions "
+          f"{e_pred!r} (gate 2e-3); {t_fit!r} ms, one call with its training "
+          f"set (host clock; the unsharded fit {em['ms']!r} ms) ({card})")
+
+    if kernel_rows is not None:
+        t0 = time.perf_counter()
+        shard_kernel_rows(records, launches, kernel_rows, card)
+        print(f"[sharded] the kernels at the shard shapes: section "
+              f"{time.perf_counter() - t0:.1f} s")
+    print(f"[sharded] the phase on {tag}: "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    return launches, stats
+
+
+def shard_kernel_rows(records, launches, rows, card):
+    """Each kernel at the shard shapes the sharded calls gave it (slot 0's
+    inputs of each call): its device time, bound and launches on the
+    sharded path, into rows[kernel]."""
+    from hmvec_tpu_torch.ops import boltz_kernels as bk
+    from hmvec_tpu_torch.ops import nfw_kernels as nk
+    from hmvec_tpu_torch.ops import resample_kernels as rk
+
+    def add(name, shape, t_ms, nbytes, ops, line):
+        b_ms, b_by = bound(nbytes, ops)
+        rows[name].append({"line": f"sharded {line}", "shape": shape,
+                           "ms": t_ms, "bound_ms": b_ms, "bound_by": b_by,
+                           "launches": launches[line][name]})
+        print(f"[time] {name} at the shard shape of sharded {line}, {shape}: "
+              f"{t_ms!r} ms, bound {b_ms!r} ms by {b_by}, time / bound "
+              f"{t_ms / b_ms!r}; {launches[line][name]} launches on the "
+              f"path ({card})")
+
+    seen = set()
+    for ks, s_, c_, tier in records["nfw_uk"]:
+        name = "nfw_uk_exact" if tier == "exact" else "nfw_uk_fast"
+        key = (name, s_.numel(), ks.numel())
+        if key in seen:
+            continue
+        seen.add(key)
+        line = "b16_exact" if tier == "exact" else (
+            "bN" if ks.numel() < 1001 else "electron_fast")
+        add(name, f"{s_.numel()} x {ks.numel()}",
+            device_ms(lambda: getattr(nk, name)(ks, s_, c_)),
+            8 * (ks.numel() + 2 * s_.numel())
+            + (8 if tier == "exact" else 4) * s_.numel() * ks.numel(),
+            nfw_ops(ks, s_, c_, tier), line)
+    ks, s_, c_, a_, b_ = records["nfw_contract"][0][:5]
+    ops = nfw_ops(ks, s_, c_, "fast")
+    ops["f64"] += 5 * s_.numel() * ks.numel() + 2 * 8 * s_.shape[0] * ks.numel()
+    add("nfw_contract", f"{s_.shape[0]} x {s_.shape[1]} x {ks.numel()}",
+        device_ms(lambda: nk.nfw_contract(ks, s_, c_, a_, b_)),
+        8 * (ks.numel() + 4 * s_.numel()) + 16 * s_.shape[0] * ks.numel(),
+        ops, "bNf")
+    for u, s_, ks, dkt in records["pair_lerp"]:
+        key = ("lerp", u.dtype, s_.numel(), u.shape[-1], ks.numel())
+        if key in seen:
+            continue
+        seen.add(key)
+        f64 = u.dtype == torch.float64
+        name = "pair_lerp_f64" if f64 else "pair_lerp_f32"
+        line = ("electron_fast" if not f64 else
+                "survey" if ks.numel() < 1001 else "galaxy_electron")
+        add(name, f"{s_.numel()} x {u.shape[-1]} kt -> {ks.numel()} k",
+            device_ms(lambda: getattr(rk, name)(u, s_, ks, dkt)),
+            *pair_lerp_work(u, s_, ks, dkt), line)
+    segs = []
+    n7, ops7 = 0, 0
+    for a in records["hierarchy_rk4"]:
+        t_k = event_ms(lambda a=a: bk.hierarchy_rk4(*a), n=3, warmup=1)
+        nb, ops, _ = hierarchy_work(bk, *a[:2], *a[5:8])
+        n7, ops7 = n7 + nb, ops7 + ops["f64"]
+        segs.append({"rows": int(a[1].numel()), "steps": a[5] * a[6],
+                     "ms": t_k})
+    b_ms, b_by = bound(n7, {"f64": ops7})
+    t_sum = sum(s["ms"] for s in segs)
+    rows["hierarchy_rk4"].append({
+        "line": "sharded solve", "shape": f"{len(segs)} launches, rows "
+        f"{[s['rows'] for s in segs]}", "segments": segs, "ms": t_sum,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "launches": launches["solve"]["hierarchy_rk4"]})
+    print(f"[time] hierarchy_rk4 at the k-shard shapes of the sharded "
+          f"solve: {segs}; {t_sum!r} ms over the {len(segs)} launches (CUDA "
+          f"events, medians of 3), bound {b_ms!r} ms by {b_by} ({card})")
+
+
+def rel_max(got, want):
+    """Max |got / want - 1| over every element (tensors, want moved to
+    got's device)."""
+    return (got.double() / want.to(got.device).double() - 1.0).abs().max(
+        ).item()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2095,6 +2504,8 @@ def main() -> int:
         return (got.double() / want - 1.0).abs().max().item()
 
     batch_stats = {}
+    batch_keep = {}   # (fn, theta, float64 batch) of the lines the sharded
+    # phase serves again
     for line, (tkey, kw, gate, f32_out, kernel) in BATCH_LINES.items():
         theta_np = gb[f"theta_{tkey}"]
         nb = theta_np.shape[0]
@@ -2132,6 +2543,8 @@ def main() -> int:
                        for i, row in enumerate(theta_np.tolist()))
         check(e_single <= GATE_BATCH_VS_SINGLE,
               f"{line} vs single calls: {e_single!r}")
+        if line in ("bN", "bNf", "b16_exact"):
+            batch_keep[line] = (fn1, theta_np, out64)
         if line == "bNf":
             again = bfn(theta_np)
             check(torch.equal(again, out), "bNf repeats bit for bit")
@@ -3129,8 +3542,8 @@ def main() -> int:
         hm, lambda: HaloModel(zs, ks_np, ms=ms, params=cosmo_c, device=dev),
         dev, card, counts)
     launches["flatsky"], fs_stats = phase_flatsky(dev, card, counts)
-    launches["emulator"], em_stats = phase_emulator(dev, card, counts,
-                                                    wrappers)
+    launches["emulator"], em_stats, em_keep = phase_emulator(
+        dev, card, counts, wrappers)
 
     # B4a at the 4,000-row shapes beside the device time of an empty launch
     # (a one-element zero_ replayed in a CUDA graph): the electron path's
@@ -3381,6 +3794,33 @@ def main() -> int:
                                                           wrappers, sass)
     launches.update(boltz_launches)
 
+    # ---- phase 4l: the multi-device layer (parallel/sharding.py) --------
+    from hmvec_tpu_torch.parallel import sharding as tsh
+
+    ref = types.SimpleNamespace(
+        zs=zs, ks_np=ks_np, ms=ms, cosmos=cosmos, g=g, fns=fns,
+        pmm_plain=fns["plain"](cosmos[0]), gl=gl, gh=gh, gb=gb,
+        names_b=names_b, batch=batch_keep, efns=efns, gk=gk, kcfg=kcfg,
+        cls_k=cls_t, cosmos_k=cosmos_k, survey_fn=sfn, emulator=em_keep)
+    shard_rows = collections.defaultdict(list)
+    sh_launches, sharded_stats = phase_sharded(
+        tsh.make_mesh(devices=[dev] * 4), ref, card, counts, wrappers,
+        kernel_rows=shard_rows)
+    launches.update({f"sharded_{k}": v for k, v in sh_launches.items()})
+    check(torch.cuda.current_device() == dev.index,
+          "the sharded phase leaves the current device as it was")
+    if torch.cuda.device_count() > 1:
+        sh_all, stats_all = phase_sharded(tsh.make_mesh(), ref, card, counts,
+                                          wrappers)
+        launches.update({f"sharded_cards_{k}": v for k, v in sh_all.items()})
+        sharded_stats = {"4 slots on one card": sharded_stats,
+                         f"{torch.cuda.device_count()} cards": stats_all}
+        check(torch.cuda.current_device() == dev.index,
+              "the sharded phase on every card leaves the current device "
+              "as it was")
+    del ref, batch_keep, em_keep
+    torch.cuda.empty_cache()
+
     for name, _, _, paths in KERNEL_ROWS:
         for path in paths:
             check(launches[path][name] > 0, f"{name} launched on {path}")
@@ -3613,6 +4053,7 @@ def main() -> int:
         if name in boltz_rows:
             row.update({k: v for k, v in boltz_rows[name].items()
                         if k not in row})
+        row["sharded"] = shard_rows[name]
         kernels.append(row)
     check(all(math.isfinite(k["ms"]) and math.isfinite(k["plain_ms"])
               and math.isfinite(k["bound_ms"]) for k in kernels), "timings")
@@ -3628,6 +4069,7 @@ def main() -> int:
     print("[emulator] " + json.dumps(em_stats))
     print("[checkpoint] " + json.dumps(ck_stats))
     print("[boltz] " + json.dumps(boltz_stats))
+    print("[sharded] " + json.dumps(sharded_stats))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,6 +63,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -616,17 +618,18 @@ hierarchy_rk4_kernel(const double* __restrict__ xtab,
 
 extern "C" {
 
-// Each launch function sets `device`, launches on `stream` (PyTorch's
-// current stream), does not synchronise, and returns the cudaError_t of
-// the launch (0 on success).  Every array is contiguous float64.
+// Each launch function launches on `device` (and restores the caller's
+// current device before it returns) and on `stream` (PyTorch's current
+// stream), does not synchronise, and returns the cudaError_t of the launch
+// (0 on success).  Every array is contiguous float64.
 
 // x_e (batch, nsteps + 1) from tab (batch, nsteps, 3, 7), saha_next
 // (batch, nsteps) and xe0 (batch,): one block a cosmology.
 int hmvec_recomb_rk4(const double* tab, const double* saha_next,
                      const double* xe0, double dx, int nsteps, int batch,
                      double* xe, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const hmvec::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   recomb_rk4_kernel<<<batch, kRecThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       tab, saha_next, xe0, dx, nsteps, xe);
@@ -643,8 +646,8 @@ int hmvec_hierarchy_rk4(const double* xtab, const double* ks,
                         const double* consts, const double* s0, double dx,
                         int n_outer, int n_inner, int rows, double* s_out,
                         double* stored, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const hmvec::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   hierarchy_rk4_kernel<<<(rows + kHierWarps - 1) / kHierWarps,
                          kHierThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(

@@ -25,6 +25,7 @@
 
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
 #include "nfw_u.cuh"
 
 namespace {
@@ -162,8 +163,8 @@ dim3 contract_grid(int nz, int nk) {
 template <typename T>
 int launch_nfw_uk(const double* ks, const double* scales, const double* cs,
                   T* out, int nrows, int nk, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const hmvec::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   nfw_uk_kernel<T><<<uk_grid(nrows, nk), dim3(kUkK, kUkRows), 0,
                      static_cast<cudaStream_t>(stream)>>>(ks, scales, cs, out,
                                                           nrows, nk);
@@ -192,8 +193,8 @@ int hmvec_nfw_contract(const double* ks, const double* scales, const double* cs,
                        const double* a, const double* b, double* s1,
                        double* s2, int nz, int nm, int nk, int device,
                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const hmvec::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   nfw_contract_kernel<<<contract_grid(nz, nk), dim3(kContractK, kContractM),
                         0, static_cast<cudaStream_t>(stream)>>>(
       ks, scales, cs, a, b, s1, s2, nm, nk);
@@ -209,8 +210,8 @@ int hmvec_nfw_contract(const double* ks, const double* scales, const double* cs,
 // leaves -1 (and its error is cleared, so that no later launch reports
 // it).  Returns the cudaError_t of reading the attributes (0 on success).
 int hmvec_nfw_kernel_info(int which, int device, int nrows, int nk, int* info) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const hmvec::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const bool contract = which == 2;
   const void* fn = which == 0   ? reinterpret_cast<const void*>(nfw_uk_kernel<float>)
                    : which == 1 ? reinterpret_cast<const void*>(nfw_uk_kernel<double>)
@@ -218,7 +219,7 @@ int hmvec_nfw_kernel_info(int which, int device, int nrows, int nk, int* info) {
   const dim3 block = contract ? dim3(kContractK, kContractM) : dim3(kUkK, kUkRows);
   const dim3 grid = contract ? contract_grid(nrows, nk) : uk_grid(nrows, nk);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, fn);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = attr.numRegs;
   info[1] = static_cast<int>(attr.localSizeBytes);

@@ -68,6 +68,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // threads per block
@@ -231,8 +233,8 @@ int launch_pair_lerp(const T* u, const double* scales, const double* ks,
                      double dkt, double* out, int rows, int nkt, int nk,
                      int blocks, int rows_per_block, int device,
                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const hmvec::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (reinterpret_cast<std::uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
@@ -308,8 +310,8 @@ int hmvec_pair_lerp_f32(const float* u, const double* scales,
 // flat one for float32 (f32 != 0) or float64 storage, into *out; returns
 // the cudaError_t.
 int hmvec_pair_lerp_blocks_per_sm(int f32, int rows, int device, int* out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const hmvec::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   return f32 ? blocks_per_sm<float>(rows != 0, out)
              : blocks_per_sm<double>(rows != 0, out);
 }

@@ -390,6 +390,46 @@ def _segment(ctx, ks, s0, x_start, dx, n_outer, n_inner, store):
     return s_end, xs, kept
 
 
+_K_CAL = 2e-5   # the superhorizon mode of the curvature normalisation
+
+
+def _solve_ks(ctx: BoltzCtx, ks, n_a, n_b_outer, n_b_inner, n_c_outer,
+              n_c_inner, x0, calibrate: bool = False):
+    """The hierarchy for the rows ks (nk,) on ctx's device: (xs, states,
+    zeta_unit), one ``hierarchy_rk4`` launch a segment.  K7's rows are
+    independent, so any split of ks gives each row the same bits: the seam
+    that parallel.sharding maps over a mesh.  calibrate: the curvature
+    mode k = 2e-5 rides along as one more row through segments A and B
+    and ``_zeta_unit`` takes it on (zeta_unit; else None)."""
+    dev = ctx.h0m.device
+    xa, xb, dx_a, dx_b, dx_c = _segment_grid(
+        n_a, n_b_outer, n_b_inner, n_c_outer, n_c_inner, x0)
+    rows = ks
+    if calibrate:
+        rows = torch.cat([ks, torch.full((1,), _K_CAL, dtype=_F64,
+                                         device=dev)])
+    s = _initial_state(ctx, rows, torch.tensor(x0, dtype=_F64, device=dev))
+    s, _, _ = _segment(ctx, rows, s, x0, dx_a, 30, n_a // 30, False)
+    s, xs_b, st_b = _segment(ctx, rows, s, xa, dx_b, n_b_outer, n_b_inner,
+                             True)
+    nk = ks.numel()
+    _, xs_c, st_c = _segment(ctx, ks, s[:nk], xb, dx_c, n_c_outer,
+                             n_c_inner, True)
+    zeta = (_zeta_unit(ctx, rows[nk:], s[nk:], xb, dx_c) if calibrate
+            else None)
+    return (torch.cat([xs_b, xs_c]),
+            torch.cat([st_b[:nk], st_c], dim=1), zeta)
+
+
+def _zeta_unit(ctx: BoltzCtx, k_cal, s_b, xb, dx_c):
+    """Curvature normalisation: the superhorizon mode k_cal (1,), at its
+    state s_b (1, 34) at the end of segment B, carried into matter
+    domination (one launch): zeta = (5/3) Phi_MD per unit Phi_init."""
+    n_md = int(round((-2.3 - xb) / dx_c))
+    s_md, _, _ = _segment(ctx, k_cal, s_b, xb, dx_c, n_md, 1, False)
+    return (5.0 / 3.0) * s_md[0, I_PHI]
+
+
 @on_device_of_inputs
 def solve_perturbations(ctx: BoltzCtx, ks, n_a: int = 1500,
                         n_b_outer: int = 1050, n_b_inner: int = 4,
@@ -405,25 +445,10 @@ def solve_perturbations(ctx: BoltzCtx, ks, n_a: int = 1500,
     first part of C.  Explicit RK4 needs k (dx_c / Hp) below ~2.8; the
     measured edge of the default n_c_inner = 11 is 0.46-0.48/Mpc (see
     ``segment_c_inner_steps``)."""
-    dev = ctx.h0m.device
-    ks = torch.as_tensor(ks, dtype=_F64, device=dev).reshape(-1)
-    xa, xb, dx_a, dx_b, dx_c = _segment_grid(
-        n_a, n_b_outer, n_b_inner, n_c_outer, n_c_inner, x0)
-    rows = torch.cat([ks, torch.full((1,), 2e-5, dtype=_F64, device=dev)])
-    s = _initial_state(ctx, rows, torch.tensor(x0, dtype=_F64, device=dev))
-    s, _, _ = _segment(ctx, rows, s, x0, dx_a, 30, n_a // 30, False)
-    s, xs_b, st_b = _segment(ctx, rows, s, xa, dx_b, n_b_outer, n_b_inner,
-                             True)
-    _, xs_c, st_c = _segment(ctx, ks, s[:-1], xb, dx_c, n_c_outer,
-                             n_c_inner, True)
-    # curvature normalisation: the superhorizon mode in matter domination,
-    # zeta = (5/3) Phi_MD per unit Phi_init
-    n_md = int(round((-2.3 - xb) / dx_c))
-    s_md, _, _ = _segment(ctx, rows[-1:], s[-1:], xb, dx_c, n_md, 1, False)
-    return PerturbSolution(
-        ks=ks, xs=torch.cat([xs_b, xs_c]),
-        states=torch.cat([st_b[:-1], st_c], dim=1),
-        zeta_unit=(5.0 / 3.0) * s_md[0, I_PHI])
+    ks = torch.as_tensor(ks, dtype=_F64, device=ctx.h0m.device).reshape(-1)
+    xs, states, zeta = _solve_ks(ctx, ks, n_a, n_b_outer, n_b_inner,
+                                 n_c_outer, n_c_inner, x0, calibrate=True)
+    return PerturbSolution(ks=ks, xs=xs, states=states, zeta_unit=zeta)
 
 
 # --- sources --------------------------------------------------------------
@@ -607,15 +632,29 @@ def cls_from_sources(src: SourceTable, bg, ls, ks_fine,
     """Project sources to Theta_l/E_l and assemble raw C_l (muK^2) at the
     nodes ``ls``: {'ls', 'tt', 'ee', 'te'}; the late-time (x > -5) part
     of the LOS integral is damped above l ~ lmax_late."""
+    ks_fine, rows, shared = _projection_inputs(src, ls, ks_fine)
+    th_l, e_l = _project_l_rows(*rows, *shared, lmax_late)
+    return _assemble_cls(src, bg, ls, ks_fine, th_l, e_l)
+
+
+def _projection_inputs(src: SourceTable, ls, ks_fine):
+    """(ks_fine, rows, shared) of ``_project_l_rows``: the per-l rows
+    (tab, ls_arr, pref_e), which parallel.sharding splits over a mesh, and
+    the inputs every l shares (the weighted fine-k sources, the u-grid
+    gather indices and weights, the u floor, the late-time mask)."""
     ks_fine = torch.as_tensor(ks_fine, dtype=_F64, device=src.s_t.device)
     s_t_f = _catmull_rom_k(src.s_t, src.ks, ks_fine)
     s_e_f = _catmull_rom_k(src.s_e, src.ks, ks_fine)
     pp = _prep_projection(src, ls, ks_fine)
-    th_l, e_l = _project_l_rows(pp["tab"], pp["ls_arr"], pp["pref_e"],
-                                s_t_f * pp["wx"][None, :],
-                                s_e_f * pp["wx"][None, :], pp["u_i0"],
-                                pp["u_w"], pp["u_safe2"], pp["late"],
-                                lmax_late)
+    rows = (pp["tab"], pp["ls_arr"], pp["pref_e"])
+    shared = (s_t_f * pp["wx"][None, :], s_e_f * pp["wx"][None, :],
+              pp["u_i0"], pp["u_w"], pp["u_safe2"], pp["late"])
+    return ks_fine, rows, shared
+
+
+def _assemble_cls(src: SourceTable, bg, ls, ks_fine, th_l, e_l):
+    """{'ls', 'tt', 'ee', 'te'}: the projections th_l, e_l (nl, nkf)
+    against the primordial spectrum."""
     pw = _pzeta_wk(src, bg, ks_fine)
     t0_muk = bg.T_cmb_k * 1e6
     norm = 4.0 * math.pi * ipow(t0_muk, 2)
@@ -681,6 +720,24 @@ def segment_c_inner_steps(kmax, h0_kms, n_c_outer: int = 380,
     return max(floor, int(np.ceil(span / (n_c_outer * dx_c_max))))
 
 
+def _cls_grid(lmax, eta0, h0_kms, nk=None, nkf=None, kmax=None):
+    """(ks, ks_fine, n_c_inner) of ``compute_cls`` at lmax: the solve's
+    coarse k (quadratic in [2e-5, kmax]), the projection's fine k and the
+    segment-C inner step count, from the conformal age eta0 [Mpc] and H0
+    [km/s/Mpc]; None picks each from lmax as compute_cls does."""
+    kmin = 2e-5
+    if kmax is None:
+        kmax = min(0.5, max(0.22, 2.2 * lmax / eta0))
+    if nk is None:
+        nk = int(np.ceil(2.0 * (kmax - kmin) / 0.00525))
+    if nkf is None:
+        nkf = int(np.ceil((kmax - kmin) / 6.7e-5))
+    ii = np.linspace(0.0, 1.0, nk)
+    ks = kmin + (kmax - kmin) * ii**2
+    return (ks, np.linspace(kmin, 0.95 * kmax, nkf),
+            segment_c_inner_steps(kmax, h0_kms))
+
+
 def _fd_wanted(massive_nu, bg) -> bool:
     """The FD-consistent recombination background: the massive fluid is
     on and the cosmology has mnu > 0."""
@@ -710,24 +767,14 @@ def compute_cls(params=None, lmax: int = 1500, *, zre: float = 7.7,
     ctx = make_ctx(bg, rec, massive_nu=massive_nu)
     eta0 = float(rec.eta0)
 
-    kmin = 2e-5
-    if kmax is None:
-        kmax = min(0.5, max(0.22, 2.2 * lmax / eta0))
-    if nk is None:
-        nk = int(np.ceil(2.0 * (kmax - kmin) / 0.00525))
-    if nkf is None:
-        nkf = int(np.ceil((kmax - kmin) / 6.7e-5))
-    ii = np.linspace(0.0, 1.0, nk)
-    ks = kmin + (kmax - kmin) * ii**2
-
-    n_c_inner = segment_c_inner_steps(kmax, float(p["H0"]))
+    ks, ks_fine, n_c_inner = _cls_grid(lmax, eta0, float(p["H0"]),
+                                       nk=nk, nkf=nkf, kmax=kmax)
     sol = solve_perturbations(ctx, ks, n_c_inner=n_c_inner)
     src = compute_sources(ctx, sol)
 
     if l_nodes is None:
         l_nodes = default_l_nodes(lmax)
     l_nodes = np.asarray(l_nodes, dtype=np.int64)
-    ks_fine = np.linspace(kmin, 0.95 * kmax, nkf)
     cl = cls_from_sources(src, bg, l_nodes, ks_fine)
 
     ells = np.arange(2, lmax + 1, dtype=np.float64)

@@ -354,7 +354,7 @@ def pk_response_ssc(ks, pk):
     pk = tensor_or_f64(pk)
     ks = f64(ks, pk.device)
     lnk3p = torch.log(ks**3 * pk)
-    dlnk3p = gradient(lnk3p, torch.log(ks), dim=-1)
+    dlnk3p = gradient(lnk3p, torch.log(ks), axis=-1)
     return (68.0 / 21.0 - dlnk3p / 3.0) * pk
 
 

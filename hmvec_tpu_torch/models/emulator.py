@@ -19,8 +19,12 @@ Weights carry across packages: ``Emulator`` builds from a dict
 ``load_emulator`` reads the .npz that either package's ``save_emulator``
 writes, and ``fit_emulator(init_net=...)`` starts from a given net (the
 JAX package's ``_init_net`` output, for one).  Sampling is the same
-scrambled Sobol' draw (scipy.stats.qmc) as the JAX package's.  The
-data-parallel ``mesh=`` of the JAX package is not ported (ROADMAP A10).
+scrambled Sobol' draw (scipy.stats.qmc) as the JAX package's.  With
+``mesh=`` (a ``parallel.sharding.Mesh``) the fit is data-parallel: the
+training rows are sharded over the mesh's slots, each slot forms its share
+of the squared error with the net copied to its device, and the shares'
+psum on the mesh's first device gives the loss whose gradient each AdamW
+step takes there.
 """
 
 from __future__ import annotations
@@ -232,8 +236,10 @@ def fit_emulator(fn, lo, hi, n_train=1024, n_val=128, widths=(128, 128, 128),
     init_net: optional initial net, a dict {"W": [...], "b": [...]} in the
         JAX package's layout (its ``_init_net`` output carries a JAX-made
         start across); cast to ``dtype``; overrides ``key``.
-    mesh: refused -- the data-parallel fit over a TPU mesh is not ported
-        (ROADMAP A10).
+    mesh: optional ``parallel.sharding.Mesh``: the training rows are
+        sharded over its slots and the fit runs on its first device (the
+        training set is still generated on fn's device).  n_train is
+        truncated to a multiple of the mesh size.
 
     Returns (Emulator, info) with info["losses"] the per-step training MSE
     (standardized units, numpy, in ``dtype``) and, when n_val > 0,
@@ -241,9 +247,9 @@ def fit_emulator(fn, lo, hi, n_train=1024, n_val=128, widths=(128, 128, 128),
     the original (de-logged) output space.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "fit_emulator(mesh=): the data-parallel fit over a TPU mesh is "
-            "not ported (ROADMAP A10); fit on one card")
+        n_train = (n_train // mesh.size) * mesh.size
+        if n_train == 0:
+            raise ValueError("n_train smaller than the mesh")
     dev = torch.device(device if device is not None else
                        getattr(fn, "device", None) or "cuda")
     thetas = sample_params(lo, hi, n_train + n_val, seed=seed)
@@ -264,10 +270,22 @@ def fit_emulator(fn, lo, hi, n_train=1024, n_val=128, widths=(128, 128, 128),
     y_sd = Yf[:n_train].std(axis=0)
     y_sd = np.where(y_sd > 0, y_sd, 1.0)
 
-    X = torch.as_tensor(((thetas[:n_train] - x_mu) / x_sd), device=dev
-                        ).to(dtype)
-    Yt = torch.as_tensor(((Yf[:n_train] - y_mu) / y_sd), device=dev
-                         ).to(dtype)
+    X = torch.as_tensor((thetas[:n_train] - x_mu) / x_sd).to(dtype)
+    Yt = torch.as_tensor((Yf[:n_train] - y_mu) / y_sd).to(dtype)
+    if mesh is None:
+        X, Yt = X.to(dev), Yt.to(dev)
+    else:
+        dev = mesh.devices[0]
+        shards = list(zip(mesh.shard(X), mesh.shard(Yt)))
+
+    def loss_fn():
+        if mesh is None:
+            return torch.mean((mlp(X) - Yt) ** 2)
+        parts = []
+        for slot, (x, y) in zip(mesh.devices, shards):
+            net = {k: [w.to(slot) for w in mlp[k]] for k in ("W", "b")}
+            parts.append(torch.sum((_net_apply(net, x) - y) ** 2))
+        return mesh.psum(parts) / Yt.numel()
 
     sizes = (thetas.shape[1],) + tuple(int(w) for w in widths) \
         + (Yf.shape[1],)
@@ -290,7 +308,7 @@ def fit_emulator(fn, lo, hi, n_train=1024, n_val=128, widths=(128, 128, 128),
 
     losses = []
     for t in range(int(steps)):
-        loss = torch.mean((mlp(X) - Yt) ** 2)
+        loss = loss_fn()
         grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
             _adamw(params, grads, m, v, t + 1,

@@ -40,7 +40,7 @@ def lensing_window(bg, ezs, zs, dndz=None):
         integrand = ((chistar[None, :] - chis[:, None]) / chistar[None, :]
                      * dndzn[None, :])
         integrand = torch.where(zs[None, :] < ezs[:, None], 0.0, integrand)
-        integral = trapz(integrand, zs, dim=-1)
+        integral = trapz(integrand, zs, axis=-1)
     return 1.5 * bg.omm0 * H0**2 * (1.0 + ezs) * chis / H * integral
 
 
@@ -86,7 +86,7 @@ def limber_integral(ells, zs, ks, Pzks, gzs, Wz1s, Wz2s, hzs, chis):
                                 torch.atleast_2d(Pzks), gzs, kevals)
     if gzs.numel() == 1:
         return Pvals[:, 0] * prefactor[0]
-    return trapz(Pvals * prefactor[None, :], gzs, dim=-1)
+    return trapz(Pvals * prefactor[None, :], gzs, axis=-1)
 
 
 def C_kk(bg, ells, zs, ks, Pmm, lzs1=None, ldndz1=None, lzs2=None,

@@ -308,7 +308,7 @@ def nzm(sigma2, ms, fsigmaz, rho_matter0):
     """Halo number density n(z, m) = rho_m0 f(sigma) dln(sigma^-1)/dln m / m^2,
     with numpy's np.gradient stencil in ln m.  ``ms``: (nm,) tensor."""
     ln_sigma_inv = -0.5 * torch.log(sigma2)
-    dln_sigma_dlnm = gradient(ln_sigma_inv, torch.log(ms), dim=-1)
+    dln_sigma_dlnm = gradient(ln_sigma_inv, torch.log(ms), axis=-1)
     return rho_matter0 * fsigmaz * dln_sigma_dlnm / ms[None, :] ** 2
 
 

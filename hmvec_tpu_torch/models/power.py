@@ -230,12 +230,12 @@ def power_2halo(tracer1, tracer2, nzm, bh, ms, pzk_lin, rho_matter0,
 
 
 def power_total(tracer1, tracer2, nzm, bh, ms, ks, pzk_lin, rho_matter0,
-                kstar_damping=0.01):
-    """P_1h + P_2h, shape (nz, nk)."""
+                kstar_damping=0.01, b1_in=None, b2_in=None):
+    """P_1h + P_2h, shape (nz, nk); b1_in, b2_in as in ``power_2halo``."""
     return (power_1halo(tracer1, tracer2, nzm, ms, ks, rho_matter0,
                         kstar_damping)
             + power_2halo(tracer1, tracer2, nzm, bh, ms, pzk_lin,
-                          rho_matter0))
+                          rho_matter0, b1_in, b2_in))
 
 
 @on_device_of_inputs

@@ -9,21 +9,21 @@ import torch
 from ..utils.weights import on_device_of_inputs, simpson_weights, trapz_weights
 
 
-def _weighted(y, weights, dim):
+def _weighted(y, weights, axis):
     w = torch.as_tensor(np.asarray(weights), dtype=y.dtype, device=y.device)
-    return torch.movedim(y, dim, -1) @ w
+    return torch.movedim(y, axis, -1) @ w
 
 
-def trapz(y, x=None, *, weights=None, dim=-1):
-    """np.trapezoid along ``dim`` with a static (numpy) grid ``x``, or a
+def trapz(y, x=None, *, weights=None, axis=-1):
+    """np.trapezoid along ``axis`` with a static (numpy) grid ``x``, or a
     precomputed weight vector, or a 1-d tensor ``x`` on y's device (the
     JAX package's ``trapz_traced``: the pairwise form, differentiable in
     the grid)."""
     if weights is None and isinstance(x, torch.Tensor):
-        return trapz_traced(y, x, axis=dim)
+        return trapz_traced(y, x, axis=axis)
     if weights is None:
         weights = trapz_weights(np.asarray(x))
-    return _weighted(y, weights, dim)
+    return _weighted(y, weights, axis)
 
 
 def trapz_traced(y, x, axis=-1):
@@ -106,15 +106,15 @@ def interp(x, y, bounds_error=False, fill_value=0.0):
     return _eval
 
 
-def gradient(f, x, dim=-1):
-    """np.gradient(f, x, axis=dim) with numpy's default edge_order=1.
+def gradient(f, x, axis=-1):
+    """np.gradient(f, x, axis=axis) with numpy's default edge_order=1.
 
     Second-order central differences in the interior (nonuniform-aware),
     first-order one-sided at the edges: the stencil of
     hmvec_tpu.ops.quadrature.gradient, which the mass function's
     dln(sigma^-1)/dln m uses (mass_function.nzm).
     """
-    f = torch.movedim(f, dim, -1)
+    f = torch.movedim(f, axis, -1)
     x = torch.as_tensor(x, dtype=f.dtype, device=f.device)
     hd = x[1:-1] - x[:-2]   # backward spacing
     hs = x[2:] - x[1:-1]    # forward spacing
@@ -125,4 +125,4 @@ def gradient(f, x, dim=-1):
     left = (f[..., 1:2] - f[..., 0:1]) / (x[1] - x[0])
     right = (f[..., -1:] - f[..., -2:-1]) / (x[-1] - x[-2])
     out = torch.cat([left, interior, right], dim=-1)
-    return torch.movedim(out, -1, dim)
+    return torch.movedim(out, -1, axis)

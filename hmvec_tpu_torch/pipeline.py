@@ -37,6 +37,8 @@ batch.  Every ``make_*_fn`` takes ``engine=``, the linear-power engine
 
 from __future__ import annotations
 
+import functools
+import inspect
 import math
 from typing import NamedTuple
 
@@ -94,6 +96,26 @@ def _resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def _rebuildable(factory):
+    """Give each product of a ``make_*_fn`` factory a private
+    ``_on_device(device)``: the same factory's product, built with the
+    same arguments on another device.  parallel.sharding builds its
+    per-device replicas by it (``make_sharded_batched_fn``).  The factory
+    keeps its name, docstring and signature, and no ``__wrapped__``: that
+    marks the functions of ``on_device_of_inputs``."""
+
+    def build(*args, **kwargs):
+        fn = factory(*args, **kwargs)
+        fn._on_device = lambda device: build(*args,
+                                             **{**kwargs, "device": device})
+        return fn
+
+    functools.update_wrapper(build, factory)
+    del build.__wrapped__
+    build.__signature__ = inspect.signature(factory)
+    return build
 
 
 class _Grids:
@@ -159,7 +181,7 @@ class _StageOut(NamedTuple):
     nzm: torch.Tensor
     bh: torch.Tensor
     rho_m0: torch.Tensor
-    uk: object                 # u (nz, nm, nk), or (cs, rss)
+    uk: object                 # u (nz, nm, nk), or (cs, rss, sigma2)
     growth_table: object       # the call's GrowthTable, or None
 
 
@@ -167,7 +189,8 @@ def _stages(p, g: _Grids, mass_function, mdef, accuracy, engine,
             fast_nfw=False, growth_mode="closed", profile="uk"):
     """Background through mass function and the NFW stage; returns
     (bg, pzk, nzm, bh, rho_m0, uk, growth_table) or, for
-    profile='inputs', the NFW inputs (cs, rss) in place of uk.
+    profile='inputs', the NFW inputs and sigma^2 (cs, rss, sigma2) in
+    place of uk.
     growth_table is the call's one table ('ode'), else None."""
     bg = bgmod.background(p, g.device)
     zs, ks, ms = g.zs, g.ks, g.ms
@@ -199,7 +222,7 @@ def _stages(p, g: _Grids, mass_function, mdef, accuracy, engine,
     rvirs = prof.rvir_grid(ms, zs, mdef, rhocritz, rhomz, omz)
     rss = rvirs / cs
     if profile == "inputs":
-        return _StageOut(bg, pzk, nzm, bh, rho_m0, (cs, rss),
+        return _StageOut(bg, pzk, nzm, bh, rho_m0, (cs, rss, sigma2),
                          growth["growth_table"])
 
     if fast_nfw:
@@ -214,6 +237,7 @@ def _stages(p, g: _Grids, mass_function, mdef, accuracy, engine,
                      growth["growth_table"])
 
 
+@_rebuildable
 def make_pmm_fn(zs, ks, ms, *, device, mass_function: str = "sheth-torman",
                 mdef: str = "vir", accuracy: str = "medium", engine=None,
                 fast=False, growth: str = "auto",
@@ -267,6 +291,7 @@ def make_pmm_fn(zs, ks, ms, *, device, mass_function: str = "sheth-torman",
     return pmm
 
 
+@_rebuildable
 def make_lensing_cls_fn(zs, ks, ms, ells, zsource: float = 1100.0, *, device,
                         mass_function: str = "sheth-torman",
                         mdef: str = "vir", accuracy: str = "medium",
@@ -304,6 +329,7 @@ def make_lensing_cls_fn(zs, ks, ms, ells, zsource: float = 1100.0, *, device,
     return cls_fn
 
 
+@_rebuildable
 def make_hod_fn(zs, ks, ms, ngal, *, device,
                 mass_function: str = "sheth-torman", mdef: str = "vir",
                 accuracy: str = "medium", engine=None, fast=False,
@@ -398,6 +424,7 @@ def _electron_grid(overrides, defaults, nxs, xmax):
     return int(out[0]), float(out[1])
 
 
+@_rebuildable
 def make_electron_fn(zs, ks, ms, *, device, family: str = "AGN",
                      nxs: int | None = None, xmax: float | None = None,
                      mass_function: str = "sheth-torman", mdef: str = "vir",
@@ -486,7 +513,7 @@ def _contract_inputs(p, grids: _Grids, mass_function, mdef, accuracy,
     kernel's row inputs scales = r_s (1+z) and c, the mass-integral weights
     a = w n (m/rho)^2 and b = w n b_h (m/rho), all (nz, nm), and the
     u -> 1 consistency sum c_z = sum_m b."""
-    _, pzk, nzm, bh, rho_m0, (cs, rss), _ = _stages(
+    _, pzk, nzm, bh, rho_m0, (cs, rss, _), _ = _stages(
         p, grids, mass_function, mdef, accuracy, engine,
         growth_mode=growth_mode, profile="inputs")
     w_m = pwr.mass_weights(grids.ms)
@@ -577,6 +604,7 @@ def _ksz_large_scale(bg, p, zs1, kLs, mu, ks, Cls, sPge, sPgg, bgal, b_eff,
     return torch.sqrt(volume_gpc3 * 1e9 * snr2), nvv, d2vs
 
 
+@_rebuildable
 def make_ksz_snr_fn(z: float, volume_gpc3: float, ngal_mpc3: float, *,
                     device, kL_max: float = 0.1, num_kL_bins: int = 100,
                     kS_min: float = 0.1, kS_max: float = 10.0,
@@ -658,6 +686,7 @@ def make_ksz_snr_fn(z: float, volume_gpc3: float, ngal_mpc3: float, *,
     return fn
 
 
+@_rebuildable
 def make_ksz_survey_fn(num_bins: int, *, device, kL_max: float = 0.1,
                        num_kL_bins: int = 100, kS_min: float = 0.1,
                        kS_max: float = 10.0, num_kS_bins: int = 101,
@@ -770,6 +799,10 @@ def bind_args(fn, *args):
         return fn(overrides, *args)
 
     bound.device = getattr(fn, "device", None)
+    if hasattr(fn, "_on_device"):
+        bound._on_device = lambda device: bind_args(
+            fn._on_device(device), *(a.to(device) if isinstance(
+                a, torch.Tensor) else a for a in args))
     return bound
 
 

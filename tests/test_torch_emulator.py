@@ -7,11 +7,12 @@ standardized arrays, whose losses, predictions and Jacobian match the JAX
 fit's at 1e-10; an emulator that the JAX package saved, loaded by the
 port at 1e-12 (float64, element by element) and 1e-6 (float32, of each
 row's largest value: the float32 MLP's rounding is on the scale of its
-output); ``log_y`` and the ``mesh``
-refusal.  The checkpoints: JAX -> port and port -> JAX, get_power at
-1e-10, on the JAX suite's shared HaloModel shape (3 z, 80 m, 64 k), and a
-restore of a second cosmology's checkpoint giving that cosmology's
-spectra bit for bit.  The JAX side of each comparison runs under one
+output); ``log_y`` and a training set smaller than the ``mesh``
+refused (the sharded fit itself: tests/test_torch_sharding.py).  The
+checkpoints: JAX -> port and port -> JAX, get_power at 1e-10, on the JAX
+suite's shared HaloModel shape (3 z, 80 m, 64 k), and a restore of a
+second cosmology's checkpoint giving that cosmology's spectra bit for
+bit.  The JAX side of each comparison runs under one
 ``jax.jit`` (the fit is the JAX package's own, one scan).
 
 The card test (``-m gpu``) fits, restores and fetches on the card against
@@ -37,6 +38,7 @@ import hmvec_tpu_torch
 from hmvec_tpu_torch import pipeline as tpl
 from hmvec_tpu_torch.models import emulator as tem
 from hmvec_tpu_torch.models import halo_model as thm
+from hmvec_tpu_torch.parallel.sharding import make_mesh
 from hmvec_tpu_torch.utils import checkpoint as tck
 from hmvec_tpu_torch.utils import profiling as tprof
 
@@ -216,8 +218,9 @@ def test_an_emulator_from_the_jax_layout_and_its_refusals():
     assert _rel(tem._net_apply(net_t, T(x[None, :])),
                 jax.jit(jem._net_apply)(em.net, jnp.asarray(x[None, :]))) \
         <= 1e-12
-    with pytest.raises(NotImplementedError, match="A10"):
-        tem.fit_emulator(_smooth_t, LO, HI, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="smaller than the mesh"):
+        tem.fit_emulator(_smooth_t, LO, HI, n_train=4, mesh=make_mesh(
+            devices=["cpu"] * 8), device="cpu")
     with pytest.raises(ValueError, match="positive"):
         tem.fit_emulator(lambda th: _smooth_t(th) - 3.0, LO, HI, n_train=8,
                          n_val=0, steps=1, log_y=True, device="cpu")

@@ -121,7 +121,7 @@ def test_trapz_on_a_tensor_grid_is_trapz_traced():
     got = trapz(torch.as_tensor(y), torch.as_tensor(x))
     assert _rel(got, trapz_traced(jnp.asarray(y), jnp.asarray(x))) <= 1e-13
     assert _rel(got, trapz(torch.as_tensor(y), x)) <= 1e-12   # numpy grid
-    got0 = trapz(torch.as_tensor(y.T.copy()), torch.as_tensor(x), dim=0)
+    got0 = trapz(torch.as_tensor(y.T.copy()), torch.as_tensor(x), axis=0)
     assert torch.allclose(got0, got, rtol=1e-14)
 
 

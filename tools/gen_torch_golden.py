@@ -170,11 +170,24 @@ BoltzEngine()'s tables and its plin at config 1's 20 z x 1001 k ->
 boltz_engine_golden.npz; the README example built with engine="boltz"
 (config c's spectra) -> boltz_class_golden.npz.  Two processes (~10 min).
 
+--config sharding: the JAX references of tests/test_torch_sharding.py
+that compile slowly, from hmvec_tpu.parallel.sharding on 8 virtual CPU
+devices: two make_fisher_step_fn steps on tests/test_pipeline.py's grid
+(ells geomspace(30, 1000, 8), theta (1.04, 1.08), data at the fiducial),
+make_sharded_ksz_survey_fn over 8 bins at tests/test_ksz_survey_fused.py's
+config with and without bs, make_sharded_batched_fn over 8 cosmologies,
+make_sharded_galaxy_electron_fn and make_sharded_matter_bispectrum_fn
+(include_b2) at tests/_sharded_suite.py's sizes; and the unsharded
+Boltzmann solve and
+projection at tests/_sharded_suite.py's tiny grid (recombination at
+n = 4,096), the JAX sharded ones never being compiled (they crash XLA's
+cache) -> hmvec_tpu_torch/data/sharding_cpu_golden.npz (~1 min).
+
 The machine with the GPU has no JAX, so chip_smoke.py compares the port
 against these files.  Each run writes only its own file.
 
 Run from the repository root:
-    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x|v|rsd_nonlimber|lensing|projfield|flatsky|emulator|boltz_small|boltz]
+    JAX_PLATFORMS=cpu python tools/gen_torch_golden.py [--config 2|1w|3|4|b|5|m|c|x|v|rsd_nonlimber|lensing|projfield|flatsky|emulator|boltz_small|boltz|sharding]
 """
 
 from __future__ import annotations
@@ -205,7 +218,8 @@ OUT = {"1": DATA / "pmm_config1_golden.npz",
        "flatsky": DATA / "flatsky_qe_golden.npz",
        "emulator": DATA / "emulator_pk_golden.npz",
        "boltz_small": DATA / "boltz_small_golden.npz",
-       "boltz": DATA / "boltz_cmb_golden.npz"}
+       "boltz": DATA / "boltz_cmb_golden.npz",
+       "sharding": DATA / "sharding_cpu_golden.npz"}
 NXS, XMAX = 4096, 20          # bench.py config 2
 NGAL = 1e-4                   # bench.py config 3, per z
 ELLS, ZSOURCE = np.geomspace(30, 3000, 60), 1100.0   # bench.py config 4
@@ -1308,6 +1322,89 @@ def write_boltz_golden(config):
     return out
 
 
+# tests/test_torch_sharding.py: test_pipeline.py's grid and Fisher step,
+# test_ksz_survey_fused.py's sharded survey, _sharded_suite.py's Boltzmann
+# grid
+SHARD_PMM = {"zs": np.linspace(0.1, 2.0, 4), "ks": np.geomspace(1e-4, 100, 128),
+             "ms": np.geomspace(2e10, 1e17, 64)}
+SHARD_FISHER = {"ells": np.geomspace(30, 1000, 8),
+                "theta0": np.array([1.04, 1.08]), "lr": 1e-3}
+SHARD_SURVEY = {"zcents": np.linspace(0.3, 1.0, 8),
+                "vols": np.linspace(5.0, 12.0, 8), "ngals": np.full(8, 1e-4),
+                "bs": np.linspace(1.5, 2.5, 8)}
+SHARD_SURVEY_CFG = dict(num_kL_bins=6, num_kS_bins=7, num_mu_bins=6,
+                        ms=np.geomspace(1e10, 1e16, 24), nxs=128, xmax=10)
+SHARD_BOLTZ = {"ks": np.geomspace(2e-4, 0.02, 10),
+               "ls": np.array([4, 9, 20, 40, 70]),
+               "ks_fine": np.linspace(2e-4, 0.95 * 0.02, 300),
+               "n_rec": 4096}
+SHARD_BOLTZ_GRID = dict(n_a=200, n_b_outer=80, n_b_inner=2, n_c_outer=60,
+                        n_c_inner=3)
+SHARD_SUITE = {"zs": np.linspace(0.2, 1.4, 3), "ks": np.geomspace(1e-3, 10, 60),
+               "ms": np.geomspace(1e11, 1e16, 64), "ngal": np.full(3, 1e-4),
+               "nxs": 512, "xmax": 15.0, "kq": np.geomspace(5e-3, 2.0, 10)}
+SHARD_BATCH = {"zs": np.linspace(0.1, 2.0, 3), "ks": np.geomspace(1e-3, 10, 64),
+               "ms": np.geomspace(2e10, 1e17, 32),
+               "theta": np.column_stack([np.linspace(0.11, 0.13, 8),
+                                         np.linspace(2.0e-9, 2.4e-9, 8)])}
+
+
+def write_sharding_golden():
+    """The slow JAX references of tests/test_torch_sharding.py."""
+    import jax
+    import jax.numpy as jnp
+    from hmvec_tpu.models import background as jbg
+    from hmvec_tpu.models import boltzlite as jbl
+    from hmvec_tpu.models import recomb as jrec
+    from hmvec_tpu.params import merge_params
+    from hmvec_tpu.parallel import sharding as jsh
+
+    assert len(jax.devices()) == 8, "needs 8 virtual CPU devices"
+    mesh = jsh.make_mesh(8)
+    out = {}
+    step, model = jsh.make_fisher_step_fn(
+        SHARD_PMM["zs"], SHARD_PMM["ks"], SHARD_PMM["ms"],
+        SHARD_FISHER["ells"], mesh, lr=SHARD_FISHER["lr"])
+    data = jax.jit(model)(jnp.asarray([1.0, 1.0]))
+    theta1, loss0 = step(jnp.asarray(SHARD_FISHER["theta0"]), data)
+    theta2, loss1 = step(theta1, data)
+    out.update(fisher_data=data, fisher_theta1=theta1, fisher_loss0=loss0,
+               fisher_theta2=theta2, fisher_loss1=loss1)
+    survey = jax.jit(jsh.make_sharded_ksz_survey_fn(8, mesh,
+                                                    **SHARD_SURVEY_CFG))
+    cls = 1e-5 * np.ones(10000)
+    args = (SHARD_SURVEY["zcents"], SHARD_SURVEY["vols"],
+            SHARD_SURVEY["ngals"], cls)
+    out["survey_total"], out["survey_snrs"], out["survey_bgals"] = \
+        survey({}, *args)
+    _, out["survey_snrs_bs"], _ = survey({}, *args, bs=SHARD_SURVEY["bs"])
+    from hmvec_tpu import pipeline as jpl
+    bfn = jpl.make_pmm_fn(SHARD_BATCH["zs"], SHARD_BATCH["ks"],
+                          SHARD_BATCH["ms"], jit=False)
+    out["batch"] = jax.jit(jsh.make_sharded_batched_fn(
+        bfn, ("omch2", "As"), mesh))(SHARD_BATCH["theta"])
+    su = SHARD_SUITE
+    out["pgg"], out["pge"], out["pee"] = jax.jit(
+        jsh.make_sharded_galaxy_electron_fn(
+            su["zs"], su["ks"], su["ms"], su["ngal"], mesh, nxs=su["nxs"],
+            xmax=su["xmax"]))({})
+    kq = su["kq"]
+    out["bispectrum"] = jax.jit(jsh.make_sharded_matter_bispectrum_fn(
+        su["zs"], su["ks"], su["ms"], kq, 1.3 * kq, 1.8 * kq, mesh,
+        include_b2=True))({})
+    bg = jbg.background(merge_params({}))
+    ctx = jbl.make_ctx(bg, jrec.recombination(bg, n=SHARD_BOLTZ["n_rec"]))
+    sol = jbl.solve_perturbations(ctx, jnp.asarray(SHARD_BOLTZ["ks"]),
+                                  **SHARD_BOLTZ_GRID)
+    src = jbl.compute_sources(ctx, sol)
+    cl = jbl.cls_from_sources(src, bg, SHARD_BOLTZ["ls"],
+                              jnp.asarray(SHARD_BOLTZ["ks_fine"]))
+    out.update(boltz_states=sol.states, boltz_xs=sol.xs,
+               boltz_zeta_unit=sol.zeta_unit,
+               **{f"boltz_cl_{k}": cl[k] for k in ("tt", "ee", "te")})
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(OUT), default="1")
@@ -1315,6 +1412,9 @@ def main():
     ap.add_argument("--part-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    if args.config == "sharding":
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                                   "--xla_force_host_platform_device_count=8")
     sys.path.insert(0, str(REPO))
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -1347,7 +1447,7 @@ def main():
         print(f"wrote {path.relative_to(REPO)} ({path.stat().st_size} bytes)")
         return
     if args.config in ("5", "m", "c", "x", "v", "rsd_nonlimber", "lensing",
-                       "projfield", "flatsky", "emulator"):
+                       "projfield", "flatsky", "emulator", "sharding"):
         if args.config == "5":
             arrays = write_ksz_golden(jpl, jnp)
         elif args.config == "c":
@@ -1366,6 +1466,8 @@ def main():
             arrays = write_flatsky_golden()
         elif args.config == "emulator":
             arrays = write_emulator_golden()
+        elif args.config == "sharding":
+            arrays = write_sharding_golden()
         else:
             arrays = dict(zs=zs, ms=ms, ks=ks,
                           **write_massfn_golden(jpl, jnp, zs, ms, ks))
