@@ -53,6 +53,7 @@ from ..models.hod import build_hod
 from ..models.mass_conversion import mdelta_from_mdelta
 from ..ops.sine_transform import generic_profile_fft
 from ..params import battaglia_defaults, merge_params, to_torch_params
+from ..utils.profiling import span
 from ..utils.weights import mass_weights
 
 __all__ = ["Mesh", "make_mesh", "make_sharded_pmm_fn",
@@ -412,12 +413,18 @@ def make_sharded_batched_fn(fn, param_names, mesh: Mesh,
         _replica(fn, dev), names, base))
 
     def batched(theta):
-        theta = _f64(theta)
-        if theta.shape[0] % nd:
-            raise ValueError(f"mesh size {nd} must divide the batch "
-                             f"(got batch {theta.shape[0]})")
-        return mesh.all_gather([serve[dev](rows) for dev, rows in
-                                zip(mesh.devices, mesh.shard(theta))])
+        with span("hmvec.call"):
+            theta = _f64(theta)
+            if theta.shape[0] % nd:
+                raise ValueError(f"mesh size {nd} must divide the batch "
+                                 f"(got batch {theta.shape[0]})")
+            parts = []
+            for i, (dev, rows) in enumerate(zip(mesh.devices,
+                                                mesh.shard(theta))):
+                # the one host thread's issue of slot i's share
+                with span(f"hmvec.shard.issue:{i}"):
+                    parts.append(serve[dev](rows))
+            return mesh.all_gather(parts)
 
     return batched
 

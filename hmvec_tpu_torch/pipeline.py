@@ -58,6 +58,7 @@ from .ops.nfw_kernels import nfw_contract, nfw_uk
 from .ops.quadrature import trapz
 from .ops.sine_transform import generic_profile_fft, profile_table
 from .params import battaglia_defaults, merge_params, to_torch_params
+from .utils.profiling import span
 from .utils.weights import catmull_taps_nonuniform, simpson_weights
 
 _F64 = torch.float64
@@ -172,7 +173,8 @@ class _Grids:
         if self.taps is None:
             return y
         tap_i, tap_w = self.taps
-        return sum(y[..., tap_i[j]] * tap_w[j] for j in range(4))
+        with span("hmvec.stages.fill"):
+            return sum(y[..., tap_i[j]] * tap_w[j] for j in range(4))
 
 
 class _StageOut(NamedTuple):
@@ -192,49 +194,52 @@ def _stages(p, g: _Grids, mass_function, mdef, accuracy, engine,
     profile='inputs', the NFW inputs and sigma^2 (cs, rss, sigma2) in
     place of uk.
     growth_table is the call's one table ('ode'), else None."""
-    bg = bgmod.background(p, g.device)
-    zs, ks, ms = g.zs, g.ks, g.ms
-    # one growth table per call, shared by every linear spectrum
-    growth = {"growth_mode": growth_mode,
-              "growth_table": (bgmod.growth_table(bg)
-                               if growth_mode == "ode" else None)}
+    with span("hmvec.stages"):
+        bg = bgmod.background(p, g.device)
+        zs, ks, ms = g.zs, g.ks, g.ms
+        # one growth table per call, shared by every linear spectrum
+        growth = {"growth_mode": growth_mode,
+                  "growth_table": (bgmod.growth_table(bg)
+                                   if growth_mode == "ode" else None)}
 
-    # linear power on the target grid
-    if accuracy == "low":
-        pzk = lpm.plin_approx(bg, zs, ks, **growth)
-    else:
-        pzk = engine.pzk_grid(bg, zs, ks, **growth)
+        # linear power on the target grid and on sigma^2's
+        ks_s2, kw = g.sigma2_grid(p)
+        with span("hmvec.stages.linear_power"):
+            if accuracy == "low":
+                pzk = lpm.plin_approx(bg, zs, ks, **growth)
+            else:
+                pzk = engine.pzk_grid(bg, zs, ks, **growth)
+            spzk = engine.plin(bg, zs, ks_s2, accuracy=accuracy, **growth)
 
-    # sigma^2 -> mass function
-    ks_s2, kw = g.sigma2_grid(p)
-    spzk = engine.plin(bg, zs, ks_s2, accuracy=accuracy, **growth)
-    rho_m0 = bgmod.rho_matter_z(bg, 0.0)
-    R = mfm.R_from_M(ms, rho_m0, delta=1.0)
-    sigma2 = lpm.sigma2_weighted(R, spzk, ks_s2, kw, p["Wkr_taylor_switch"])
-    nzm, bh = mfm.mass_function_grid(sigma2, zs, ms, rho_m0,
-                                     mass_function, p)
+        # sigma^2 -> mass function
+        rho_m0 = bgmod.rho_matter_z(bg, 0.0)
+        R = mfm.R_from_M(ms, rho_m0, delta=1.0)
+        sigma2 = lpm.sigma2_weighted(R, spzk, ks_s2, kw,
+                                     p["Wkr_taylor_switch"])
+        nzm, bh = mfm.mass_function_grid(sigma2, zs, ms, rho_m0,
+                                         mass_function, p)
 
-    # concentration, r_vir and the NFW profile
-    omz = bgmod.omz(bg, zs)
-    rhocritz = bgmod.rho_critical_z(bg, zs)
-    rhomz = bgmod.rho_matter_z(bg, zs)
-    cs = prof.concentration_duffy(ms, zs, mdef, p, p["H0"] / 100.0)
-    rvirs = prof.rvir_grid(ms, zs, mdef, rhocritz, rhomz, omz)
-    rss = rvirs / cs
-    if profile == "inputs":
-        return _StageOut(bg, pzk, nzm, bh, rho_m0, (cs, rss, sigma2),
+        # concentration, r_vir and the NFW profile
+        omz = bgmod.omz(bg, zs)
+        rhocritz = bgmod.rho_critical_z(bg, zs)
+        rhomz = bgmod.rho_matter_z(bg, zs)
+        cs = prof.concentration_duffy(ms, zs, mdef, p, p["H0"] / 100.0)
+        rvirs = prof.rvir_grid(ms, zs, mdef, rhocritz, rhomz, omz)
+        rss = rvirs / cs
+        if profile == "inputs":
+            return _StageOut(bg, pzk, nzm, bh, rho_m0, (cs, rss, sigma2),
+                             growth["growth_table"])
+
+        if fast_nfw:
+            nz, nm = cs.shape
+            scales = (rss * (1.0 + zs)[:, None]).reshape(-1)
+            tier = "exact" if fast_nfw == "exact" else "fast"
+            uk = nfw_uk(g.kq, scales, cs.reshape(-1), tier=tier)
+            uk = uk.reshape(nz, nm, -1).to(_F64)
+        else:
+            uk = prof.nfw_uk_analytic(g.kq, zs, cs, rss)
+        return _StageOut(bg, pzk, nzm, bh, rho_m0, g.resample(uk),
                          growth["growth_table"])
-
-    if fast_nfw:
-        nz, nm = cs.shape
-        scales = (rss * (1.0 + zs)[:, None]).reshape(-1)
-        tier = "exact" if fast_nfw == "exact" else "fast"
-        uk = nfw_uk(g.kq, scales, cs.reshape(-1), tier=tier)
-        uk = uk.reshape(nz, nm, -1).to(_F64)
-    else:
-        uk = prof.nfw_uk_analytic(g.kq, zs, cs, rss)
-    return _StageOut(bg, pzk, nzm, bh, rho_m0, g.resample(uk),
-                     growth["growth_table"])
 
 
 @_rebuildable
@@ -284,8 +289,9 @@ def make_pmm_fn(zs, ks, ms, *, device, mass_function: str = "sheth-torman",
             p, grids, mass_function, mdef, accuracy, engine,
             fast_nfw=fast, growth_mode=_growth_mode_from(ov, growth))
         tr = pwr.MatterTracer(uk=uk)
-        return pwr.power_total(tr, tr, nzm, bh, grids.ms, grids.ks, pzk,
-                               rho_m0, p["kstar_damping"])
+        with span("hmvec.power"):
+            return pwr.power_total(tr, tr, nzm, bh, grids.ms, grids.ks, pzk,
+                                   rho_m0, p["kstar_damping"])
 
     pmm.device = dev
     return pmm
@@ -516,12 +522,13 @@ def _contract_inputs(p, grids: _Grids, mass_function, mdef, accuracy,
     _, pzk, nzm, bh, rho_m0, (cs, rss, _), _ = _stages(
         p, grids, mass_function, mdef, accuracy, engine,
         growth_mode=growth_mode, profile="inputs")
-    w_m = pwr.mass_weights(grids.ms)
-    mfac = grids.ms[None, :] / rho_m0
-    a_zm = w_m[None, :] * nzm * mfac**2
-    b_zm = w_m[None, :] * nzm * bh * mfac
-    scales = rss * (1.0 + grids.zs)[:, None]
-    return pzk, scales, cs, a_zm, b_zm, b_zm.sum(dim=1)
+    with span("hmvec.power"):
+        w_m = pwr.mass_weights(grids.ms)
+        mfac = grids.ms[None, :] / rho_m0
+        a_zm = w_m[None, :] * nzm * mfac**2
+        b_zm = w_m[None, :] * nzm * bh * mfac
+        scales = rss * (1.0 + grids.zs)[:, None]
+        return pzk, scales, cs, a_zm, b_zm, b_zm.sum(dim=1)
 
 
 def _make_pmm_fused_fn(grids: _Grids, mass_function, mdef, accuracy, engine,
@@ -541,11 +548,13 @@ def _make_pmm_fused_fn(grids: _Grids, mass_function, mdef, accuracy, engine,
         pzk, scales, cs, a_zm, b_zm, c_z = _contract_inputs(
             p, grids, mass_function, mdef, accuracy, engine,
             _growth_mode_from(ov, growth))
-        s1, s2 = nfw_contract(grids.kq, scales, cs, a_zm, b_zm)
-        s1, s2 = grids.resample(s1), grids.resample(s2)
-        damping = 1.0 - torch.exp(-((grids.ks / p["kstar_damping"]) ** 2))
-        e = s2 + 1.0 - c_z[:, None]
-        return s1 * damping[None, :] + pzk * e**2
+        with span("hmvec.power"):
+            s1, s2 = nfw_contract(grids.kq, scales, cs, a_zm, b_zm)
+            s1, s2 = grids.resample(s1), grids.resample(s2)
+            damping = 1.0 - torch.exp(
+                -((grids.ks / p["kstar_damping"]) ** 2))
+            e = s2 + 1.0 - c_z[:, None]
+            return s1 * damping[None, :] + pzk * e**2
 
     pmm.device = grids.device
     return pmm
@@ -851,16 +860,17 @@ def make_batched_fn(fn, param_names, base: dict | None = None,
         return out.to(out_dtype)
 
     def batched(theta):
-        if isinstance(theta, dict):
-            theta = torch.stack(
-                [torch.as_tensor(theta[k], dtype=_F64, device=dev)
-                 for k in names], dim=-1)
-        else:
-            theta = torch.as_tensor(theta, device=dev).to(_F64)
-        if theta.dim() != 2 or theta.shape[1] != len(names):
-            raise ValueError(f"theta must be (B, {len(names)}), got "
-                             f"{tuple(theta.shape)}")
-        return torch.func.vmap(one)(theta)
+        with span("hmvec.call"):
+            if isinstance(theta, dict):
+                theta = torch.stack(
+                    [torch.as_tensor(theta[k], dtype=_F64, device=dev)
+                     for k in names], dim=-1)
+            else:
+                theta = torch.as_tensor(theta, device=dev).to(_F64)
+            if theta.dim() != 2 or theta.shape[1] != len(names):
+                raise ValueError(f"theta must be (B, {len(names)}), got "
+                                 f"{tuple(theta.shape)}")
+            return torch.func.vmap(one)(theta)
 
     return batched
 

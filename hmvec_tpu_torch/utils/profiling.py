@@ -2,8 +2,9 @@
 
 A synchronized timer (a CUDA call returns before the card finishes, so a
 host clock measures the work only up to a ``torch.cuda.synchronize()`` or
-a copy to the host) and a ``torch.profiler`` trace context, the
-counterpart of the JAX package's ``xla_trace``.
+a copy to the host), a ``torch.profiler`` trace context, the
+counterpart of the JAX package's ``xla_trace``, and the named spans of the
+serving path that such a trace records.
 """
 
 from __future__ import annotations
@@ -82,3 +83,19 @@ def torch_trace(logdir: str):
     with profile(activities=acts,
                  on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
         yield prof
+
+
+# what span() returns while no profiler records: one shared, empty context
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program (``hmvec.call``, ``hmvec.stages``, ...)
+    for a profiler to record: ``record_function(name)`` while a profiler
+    records, so the range shares the clock of the card's activity in the
+    same trace; otherwise one shared empty context, at the cost of one
+    check.  The ranges nest; a reader assigns each kernel to the innermost
+    ``hmvec.`` range open when it was launched."""
+    if torch.autograd._profiler_enabled():
+        return torch.autograd.profiler.record_function(name)
+    return _NO_SPAN
