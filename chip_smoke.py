@@ -124,7 +124,9 @@ kernel against its plain version: the NFW kernels at config 1 and on
 adversarial rows, among them inputs that put x and (1+c)x on the Si/Ci
 domain edges inside single warps; the contraction also against itself on
 a second call (bit for bit) and at 70,000 redshifts, more than a grid's
-y dimension holds.  With the NFW kernels' device times it
+y dimension holds; the serving path's Catmull-Rom fill (F1) bit for bit
+at the bN line's u cube, the bNf line's sums and edge shapes, and timed
+there.  With the NFW kernels' device times it
 prints each one's bare launch (its ctypes call into preallocated outputs)
 beside the wrapper call.
 
@@ -324,6 +326,9 @@ BATCH_LINES = {
     "bNf": ("bN", {"fused_serving": True, **SERVING}, 1e-5, True,
             "nfw_contract"),
 }
+# launches of the Catmull-Rom fill (F1) per batched call of a line: the u
+# cube (bN), the two mass sums (bNf); none where u(k) is not thinned
+FILLS = {"bN": 1, "bNf": 2}
 PATHS = {"plain": {"fast": False}, "exact": {"fast": "exact"},
          "fast": {"fast": True}, "fused": {"fused_serving": True}}
 E_PATHS = {"electron_plain": {"fast": False}, "electron_fast": {"fast": True}}
@@ -352,6 +357,10 @@ KERNEL_ROWS = (
      "no Pallas counterpart: the lax.scan / fori_loop of "
      "hmvec_tpu/models/boltzlite.py:540-553, vmapped at :624",
      ("boltz_cmb", "boltz_engine", "boltz_class", "sharded_solve")),
+    ("catmull_fill", "resample_kernels",
+     "no Pallas counterpart: the jnp gathers of hmvec_tpu/pipeline.py:147 "
+     "and :249",
+     ("bN", "bNf", "sharded_bN", "sharded_bNf")),
 )
 SOURCE = {"nfw_kernels": "hmvec_tpu_torch/csrc/nfw_kernels.cu",
           "resample_kernels": "hmvec_tpu_torch/csrc/resample_kernels.cu",
@@ -405,7 +414,8 @@ def kernel_name(symbol: str) -> str:
     (nfw_uk_kernel<float>, nfw_contract_kernel, pair_lerp_kernel<double,
     2, 2, true>, ...); other symbols as they are."""
     m = re.search(r"(nfw_uk_kernel|nfw_contract_kernel|pair_lerp_rows_kernel"
-                  r"|pair_lerp_kernel|recomb_rk4_kernel|hierarchy_rk4_kernel)"
+                  r"|pair_lerp_kernel|recomb_rk4_kernel|hierarchy_rk4_kernel"
+                  r"|catmull_fill_kernel)"
                   r"(?:I([fd])((?:L[ib]\d+E)*)E)?", symbol)
     if not m:
         return symbol
@@ -611,6 +621,15 @@ def pair_lerp_work(u, scales, ks, dkt) -> tuple[int, dict]:
     nbytes = (n_read * u.element_size() + 8 * rows + 8 * ks.numel()
               + 8 * rows * ks.numel())
     return nbytes, {"f64": 2 * p.numel() + 5 * int(win.sum().item())}
+
+
+def fill_work(y, tap_i) -> tuple[int, dict]:
+    """(bytes, operations) of one Catmull-Rom fill (F1) of y (..., nkq) by
+    taps (4, nk): y read once, the int32 and float64 taps, the float64
+    output written once; a multiply and an add per tap and output."""
+    rows, nk = y.numel() // y.shape[-1], tap_i.shape[1]
+    return (y.numel() * y.element_size() + 12 * tap_i.numel()
+            + 8 * rows * nk, {"f64": 8 * rows * nk})
 
 
 def close_err(got, want):
@@ -1813,6 +1832,7 @@ def phase_sharded(mesh, ref, card, counts, wrappers, kernel_rows=None):
     RECORD = {"nfw_uk": (nk, "_launch_nfw_uk"),
               "nfw_contract": (nk, "_launch_nfw_contract"),
               "pair_lerp": (rk, "_launch"),
+              "catmull_fill": (rk, "_launch_fill"),
               "hierarchy_rk4": (tbl, "hierarchy_rk4")}
     zs, ks_np, ms = ref.zs, ref.ks_np, ref.ms
 
@@ -1866,11 +1886,12 @@ def phase_sharded(mesh, ref, card, counts, wrappers, kernel_rows=None):
     }
     for line, (fn1, theta, want, kernel, rec) in batches.items():
         sb = tsh.make_sharded_batched_fn(fn1, ref.names_b, mesh)
-        counts_want = {kernel: n}
+        counts_want = {kernel: n, "catmull_fill": n * FILLS.get(line, 0)}
         if line == "electron_fast":
             counts_want["nfw_uk_fast"] = n
         got = entry(line, lambda: sb(theta), counts_want,
-                    record=(rec,) if line != "electron_fast" else
+                    record=(rec, "catmull_fill") if line in FILLS else
+                    (rec,) if line != "electron_fast" else
                     ("pair_lerp", "nfw_uk"))
         e_row = max(rel_max(g_, w_) for g_, w_ in zip(
             got if isinstance(got, tuple) else (got,),
@@ -2084,6 +2105,15 @@ def shard_kernel_rows(records, launches, rows, card):
         add(name, f"{s_.numel()} x {u.shape[-1]} kt -> {ks.numel()} k",
             device_ms(lambda: getattr(rk, name)(u, s_, ks, dkt)),
             *pair_lerp_work(u, s_, ks, dkt), line)
+    for y, tap_i, tap_w in records["catmull_fill"]:
+        key = ("fill", y.dtype, y.numel())
+        if key in seen:
+            continue
+        seen.add(key)
+        rows_y, nk = y.numel() // y.shape[-1], tap_i.shape[1]
+        add("catmull_fill", f"{rows_y} x {y.shape[-1]} -> {nk} ({y.dtype})",
+            device_ms(lambda: rk.catmull_fill(y, tap_i, tap_w)),
+            *fill_work(y, tap_i), "bN" if y.dtype == torch.float32 else "bNf")
     segs = []
     n7, ops7 = 0, 0
     for a in records["hierarchy_rk4"]:
@@ -2337,6 +2367,88 @@ def main() -> int:
               f"2,049 (offsets past 2^31): equal bit for bit, one launch "
               f"each")
 
+    # the serving path's Catmull-Rom fill (F1) on the serving taps at the
+    # shapes of the bN line's u cube (B x nz x nm rows, float32) and of one
+    # of the bNf line's two sums (B x nz rows, float64), bit for bit, one
+    # launch each, then timed with its bound
+    n_batch = np.load(GOLDEN_B)["theta_bN"].shape[0]
+    grids_s = pl._Grids(zs, ks_np, ms, merge_params(),
+                        SERVING["uk_subsample"], dev)
+    tap_i, tap_w = grids_s.taps
+    nkq = grids_s.kq.numel()
+    gen_f = torch.Generator(device=dev).manual_seed(20)
+
+    def fill_equal(y, i_, w_):
+        n0 = wrappers["catmull_fill"].launches
+        got = wrappers["catmull_fill"](y, i_, w_)
+        torch.cuda.synchronize()
+        want = rk.catmull_fill_plain(y, i_, w_)
+        return (wrappers["catmull_fill"].launches == n0 + int(y.numel() > 0)
+                and got.dtype == torch.float64 and got.shape == want.shape
+                and torch.equal(got.view(torch.int64),
+                                want.view(torch.int64)))
+
+    fill_rows = []
+    for line, rows_f, dtype in (("bN", n_batch * zs.size * ms.size,
+                                 torch.float32),
+                                ("bNf", n_batch * zs.size, torch.float64)):
+        y = torch.rand((rows_f, nkq), generator=gen_f, device=dev).to(dtype)
+        check(fill_equal(y, tap_i, tap_w), f"catmull_fill at {line}'s shape "
+              f"{tuple(y.shape)} ({dtype}): one launch, bit for bit")
+        torch.cuda.empty_cache()
+        t_k = device_ms(lambda: rk.catmull_fill(y, tap_i, tap_w))
+        t_p = device_ms(lambda: rk.catmull_fill_plain(y, tap_i, tap_w),
+                        calls=2, replays=2)
+        nbytes, ops = fill_work(y, tap_i)
+        b_ms, b_by = bound(nbytes, ops)
+        shape = f"{rows_f} x {nkq} -> {tap_i.shape[1]} ({dtype})"
+        fill_rows.append({"line": line, "shape": shape, "max_err": 0.0,
+                          "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                          "bound_by": b_by})
+        print(f"[kernel] catmull_fill vs catmull_fill_plain at {line}'s "
+              f"shape {shape}: equal bit for bit; {t_k!r} ms, plain version "
+              f"{t_p!r} ms (device time, CUDA-graph replays), bound "
+              f"{b_ms!r} ms by {b_by} ({nbytes} bytes), time / bound "
+              f"{t_k / b_ms!r} ({card})")
+        del y
+        torch.cuda.empty_cache()
+    # the edges: 0 and 1 row, rows not a multiple of a block's 4, a batch
+    # of rows, nk not a multiple of the block and over one column tile of
+    # 1,024, rows of y off a 16-byte boundary, and nkq whose 4 rows are
+    # more than a block stages (the gathers then read device memory)
+    fill_cases = [((0, nkq), tap_i, tap_w), ((1, nkq), tap_i, tap_w),
+                  ((4001, nkq), tap_i, tap_w), ((3, 7, nkq), tap_i, tap_w)]
+    for nk_e, nkq_e, rows_e in ((257, 100, 9), (2049, 37, 13),
+                                (1001, 8000, 11), (2049, 16000, 5)):
+        i_e = torch.randint(0, nkq_e, (4, nk_e), generator=gen_f, device=dev)
+        w_e = torch.randn((4, nk_e), generator=gen_f, dtype=torch.float64,
+                          device=dev)
+        fill_cases.append(((rows_e, nkq_e), i_e.to(torch.int32), w_e))
+    for dtype in (torch.float32, torch.float64):
+        for shape, i_e, w_e in fill_cases:
+            y = torch.randn(shape, generator=gen_f, device=dev).to(dtype)
+            check(fill_equal(y, i_e, w_e), f"catmull_fill on {shape} -> "
+                  f"{i_e.shape[1]} ({dtype}): one launch, bit for bit")
+        y = torch.randn((6 * nkq + 1,), generator=gen_f,
+                        device=dev).to(dtype)[1:].view(6, nkq)
+        check(y.data_ptr() % 16 != 0 and fill_equal(y, tap_i, tap_w),
+              f"catmull_fill on rows off a 16-byte boundary ({dtype})")
+        y_v = torch.rand((5, 3, nkq), generator=gen_f, device=dev).to(dtype)
+        n0 = wrappers["catmull_fill"].launches
+        got = torch.func.vmap(
+            lambda a: wrappers["catmull_fill"](a, tap_i, tap_w))(y_v)
+        torch.cuda.synchronize()
+        check(wrappers["catmull_fill"].launches == n0 + 1 and torch.equal(
+            got, rk.catmull_fill_plain(y_v, tap_i, tap_w)),
+            f"catmull_fill under vmap ({dtype}): one launch, bit for bit")
+    print(f"[kernel] catmull_fill vs catmull_fill_plain on "
+          f"{len(fill_cases) + 2} edge cases a storage type (0, 1, 4,001 "
+          f"rows, a (3, 7) batch, nk 257-2,049, nkq 37-16,000, rows off a "
+          f"16-byte boundary, a vmapped call over 5): equal bit for bit, one "
+          f"launch each")
+    del grids_s, fill_cases, y, y_v, got
+    torch.cuda.empty_cache()
+
     # ---- phase 3: both main paths at full width vs the golden files -----
     def reset_counts():
         for w in wrappers.values():
@@ -2525,9 +2637,10 @@ def main() -> int:
               and out.dtype == (torch.float32 if f32_out else torch.float64)
               and bool(torch.isfinite(out).all()), f"{line} output")
         want_kernels = {name: int(name == kernel) for name in wrappers}
+        want_kernels["catmull_fill"] = FILLS.get(line, 0)
         check(launches[line] == want_kernels,
-              f"{line}: one launch of {kernel} for the whole batch, got "
-              f"{launches[line]}")
+              f"{line}: one launch of {kernel} and {FILLS.get(line, 0)} of "
+              f"catmull_fill for the whole batch, got {launches[line]}")
         rows_g = gb[f"rows_{tkey}"]
         want = torch.as_tensor(gb[f"pmm_{tkey}"], device=dev)
         e_gold = rel_rows(out[torch.as_tensor(rows_g, device=dev)], want)
@@ -4021,6 +4134,12 @@ def main() -> int:
               f"call (host clock to synchronize, median of 10), peak "
               f"{peak:.1f} MiB allocated ({card})")
 
+    # the fill, timed in phase 2 at the bN line's shape (and bNf's)
+    times["catmull_fill"] = (fill_rows[0]["ms"], fill_rows[0]["plain_ms"])
+    bounds["catmull_fill"] = (fill_rows[0]["bound_ms"],
+                              fill_rows[0]["bound_by"])
+    err["catmull_fill"] = 0.0
+    batch_rows["catmull_fill"] = fill_rows
     # the Boltzmann group's kernels, timed in their phase (phase 4k)
     for name, row in boltz_rows.items():
         times[name] = (row["ms"], row["plain_ms"])

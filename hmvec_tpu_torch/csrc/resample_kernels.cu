@@ -62,7 +62,47 @@
 // touched window of u in shared memory was not tried: the window, 16-29%
 // of a row on average at the 4,000-row tables, holds more bytes than the
 // 32-byte sectors that the gathers read.
+//
+// The same file holds the Catmull-Rom fill of the serving path
+// (hmvec_tpu_torch/pipeline.py: _Grids.resample), catmull_fill_kernel<T>.
+// It replaces no TPU kernel (the JAX package fills with jnp gathers): it
+// takes the place of four gathers, four multiplies and four adds over the
+// fast tier's float64 (B, z, m, k) u cube.  For each row b of y (rows,
+// nkq) and target column j of nk, with the four taps (tap_i, tap_w), each
+// (4, nk), made once per grid:
+//   out[b, j] = (((0 + y[b, i0] w0) + y[b, i1] w1) + y[b, i2] w2)
+//               + y[b, i3] w3
+// in float64, in that order, each product and sum rounded on its own
+// (__dmul_rn, __dadd_rn: no FMA), as the plain version
+// (resample_kernels.catmull_fill_plain) computes it, so the two agree bit
+// for bit.  T is y's storage (float: B1's u, widened exactly as it is
+// read; double: the fused tier's sums).
+//
+// What bounds it: device memory.  It has to read y once and write the
+// float64 output once (at the fast cell's 512,000 x 589 -> 1,001 from
+// float32, 1.21 GB and 4.10 GB: 1.58 ms at 3.35 TB/s), against 8 float64
+// operations an output.  So:
+// - a block takes kFillRows consecutive rows of y, one contiguous span,
+//   and copies it into shared memory by cp.async (16-byte pieces where
+//   the span is 16-byte aligned), so that the four gathers read shared
+//   memory; while the copy is in flight each thread loads the taps of its
+//   kFillCols columns j, j + 256, ... into registers, for every row of
+//   the block (above 1,024 columns, tiles on gridDim.y); the other
+//   resident blocks' copies and stores cover its own.  Where the span would take more than the 48 KB a block has
+//   without opting in (nkq over 3,072 float32 or 1,536 float64), the
+//   gathers read y in device memory instead, through L1: the four taps of
+//   a warp's 32 columns fall in a few neighbouring sectors of a row.
+//   Slower at the fast cell's shape (PERF.md, the F1 findings): a one-wave
+//   grid striding over the rows with two stages in flight (2.04 ms against
+//   1.81), plain loads into shared memory (1.98), each column's taps
+//   loaded after the copy (2.07);
+// - each store of a warp writes 32 consecutive float64 of a row, with
+//   the streaming hint (st.global.cs): the output does not fit in L2 and
+//   is not read again by this kernel;
+// - row and output offsets are 64-bit (B = 512 on one card gives 2.05 G
+//   outputs).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -276,6 +316,119 @@ int blocks_per_sm(bool rows, int* out) {
                  out, pair_lerp_kernel<T, true>, kThreads, 0));
 }
 
+constexpr int kFillRows = 4;   // rows of y a block
+constexpr int kFillCols = 4;   // columns a thread: 1,024 a column tile
+constexpr int kFillStagedBytes = 48 * 1024;  // the most a block stages
+
+// Starts the copy of n elements of y at src into shared memory at dst
+// (16-byte aligned) by cp.async: in 16-byte pieces where src is 16-byte
+// aligned, the rest element by element.
+template <typename T>
+__device__ __forceinline__ void copy_async(const T* src, T* dst, int n) {
+  int done = 0;
+  if (reinterpret_cast<std::uintptr_t>(src) % 16 == 0) {
+    constexpr int kPer = 16 / sizeof(T);
+    const int pieces = n / kPer;
+    for (int v = threadIdx.x; v < pieces; v += kThreads) {
+      __pipeline_memcpy_async(dst + v * kPer, src + v * kPer, 16);
+    }
+    done = pieces * kPer;
+  }
+  for (int e = done + threadIdx.x; e < n; e += kThreads) {
+    __pipeline_memcpy_async(dst + e, src + e, sizeof(T));
+  }
+  __pipeline_commit();
+}
+
+// The fill of nr rows of y at src (rows of nkq: shared memory or device
+// memory) into out, the first of those rows' outputs, by the taps of the
+// thread's columns col.
+template <typename T>
+__device__ __forceinline__ void fill_rows(const T* src, int nr, int nkq,
+                                          const int (&col)[kFillCols],
+                                          const int (&idx)[kFillCols][4],
+                                          const double (&w)[kFillCols][4],
+                                          double* __restrict__ out, int nk) {
+  for (int r = 0; r < nr; ++r) {
+    const T* row = src + r * nkq;
+#pragma unroll
+    for (int c = 0; c < kFillCols; ++c) {
+      if (col[c] < nk) {
+        double acc = 0.0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc = __dadd_rn(acc, __dmul_rn(static_cast<double>(row[idx[c][q]]),
+                                         w[c][q]));
+        }
+        __stcs(out + static_cast<long long>(r) * nk + col[c], acc);
+      }
+    }
+  }
+}
+
+// Block (x, y) fills rows [x kFillRows, x kFillRows + nr) in column tile y,
+// from a copy of the rows in shared memory where `staged`.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    catmull_fill_kernel(const T* __restrict__ y,
+                        const int* __restrict__ tap_i,
+                        const double* __restrict__ tap_w,
+                        double* __restrict__ out, long long rows, int nkq,
+                        int nk, int staged) {
+  extern __shared__ __align__(16) unsigned char fill_smem[];
+  const long long r0 = static_cast<long long>(blockIdx.x) * kFillRows;
+  const int nr = static_cast<int>(
+      min(static_cast<long long>(kFillRows), rows - r0));
+  const T* src = y + r0 * nkq;
+  double* dst = out + r0 * nk;
+  T* stage = reinterpret_cast<T*>(fill_smem);
+  if (staged) copy_async(src, stage, nr * nkq);
+  int col[kFillCols], idx[kFillCols][4];
+  double w[kFillCols][4];
+#pragma unroll
+  for (int c = 0; c < kFillCols; ++c) {
+    col[c] = (static_cast<int>(blockIdx.y) * kFillCols + c) * kThreads +
+             static_cast<int>(threadIdx.x);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      // an index outside [0, nkq) (the taps' contract) reads the row's
+      // nearest end, never past the rows
+      idx[c][q] = col[c] < nk
+                      ? min(max(__ldg(tap_i + q * nk + col[c]), 0), nkq - 1)
+                      : 0;
+      w[c][q] = col[c] < nk ? __ldg(tap_w + q * nk + col[c]) : 0.0;
+    }
+  }
+  if (staged) {
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    fill_rows(static_cast<const T*>(stage), nr, nkq, col, idx, w, dst, nk);
+  } else {
+    fill_rows(src, nr, nkq, col, idx, w, dst, nk);
+  }
+}
+
+template <typename T>
+int launch_catmull_fill(const T* y, const int* tap_i, const double* tap_w,
+                        double* out, long long rows, int nkq, int nk,
+                        int device, void* stream) {
+  const hmvec::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  if (rows <= 0 || nk <= 0) return static_cast<int>(cudaSuccess);
+  const long long blocks = (rows + kFillRows - 1) / kFillRows;
+  const int tiles = (nk + kFillCols * kThreads - 1) / (kFillCols * kThreads);
+  if (nkq < 1 || blocks > 0x7fffffffLL || tiles > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t span = static_cast<size_t>(kFillRows) * nkq * sizeof(T);
+  const int staged = span <= kFillStagedBytes;
+  catmull_fill_kernel<T>
+      <<<dim3(static_cast<unsigned>(blocks), tiles), kThreads,
+         staged ? span : 0, static_cast<cudaStream_t>(stream)>>>(
+          y, tap_i, tap_w, out, rows, nkq, nk, staged);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -314,6 +467,24 @@ int hmvec_pair_lerp_blocks_per_sm(int f32, int rows, int device, int* out) {
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   return f32 ? blocks_per_sm<float>(rows != 0, out)
              : blocks_per_sm<double>(rows != 0, out);
+}
+
+// The Catmull-Rom fill of y (rows, nkq), float32 or float64, into out
+// (rows, nk) float64 by the taps tap_i (4, nk) int32, every index in [0,
+// nkq), and tap_w (4, nk) float64, all contiguous: a block of 256 threads
+// for each 4 rows and 1,024 columns; returns the cudaError_t.
+int hmvec_catmull_fill_f32(const float* y, const int* tap_i,
+                           const double* tap_w, double* out, long long rows,
+                           int nkq, int nk, int device, void* stream) {
+  return launch_catmull_fill<float>(y, tap_i, tap_w, out, rows, nkq, nk,
+                                    device, stream);
+}
+
+int hmvec_catmull_fill_f64(const double* y, const int* tap_i,
+                           const double* tap_w, double* out, long long rows,
+                           int nkq, int nk, int device, void* stream) {
+  return launch_catmull_fill<double>(y, tap_i, tap_w, out, rows, nkq, nk,
+                                     device, stream);
 }
 
 }  // extern "C"

@@ -269,6 +269,10 @@ def _declare(lib):
     fn = lib.hmvec_pair_lerp_blocks_per_sm
     fn.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     fn.restype = i
+    for name in ("hmvec_catmull_fill_f32", "hmvec_catmull_fill_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, p]
+        fn.restype = i
     return lib
 
 

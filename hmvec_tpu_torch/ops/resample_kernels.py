@@ -23,6 +23,13 @@ Both wrappers are differentiable in u and scales, in reverse and forward
 mode, through a ``torch.autograd.Function`` whose backward and jvp
 recompute the plain version's derivative (the kernel has none of its own,
 as the JAX package's ``_pair_lerp_tpu_jvp`` falls back to gathers).
+
+``catmull_fill(y, tap_i, tap_w)`` is the serving path's Catmull-Rom fill
+(pipeline._Grids.resample): y (..., nkq), float32 or float64, filled onto
+nk targets by four taps, float64 (..., nk).  On the card it is one
+hand-written kernel of the same file, bit-equal to ``catmull_fill_plain``;
+it ports no TPU kernel (the JAX package fills with jnp gathers).  Its
+launches count in ``catmull_fill.launches``.
 """
 
 from __future__ import annotations
@@ -272,3 +279,108 @@ def pair_lerp(u, scales, ks, dkt):
     if isinstance(u, torch.Tensor) and u.dtype == torch.float32:
         return pair_lerp_f32(u, scales, ks, dkt)
     return pair_lerp_f64(u, scales, ks, dkt)
+
+
+def catmull_fill_plain(y, tap_i, tap_w):
+    """The fill of y (..., nkq) by the taps tap_i (4, nk) and tap_w (4, nk):
+    sum_j y[..., tap_i[j]] tap_w[j] in float64, as four gathers, four
+    multiplies and four adds; (..., nk)."""
+    return sum(y[..., tap_i[j]].to(_F64) * tap_w[j] for j in range(4))
+
+
+def _check_fill(y, tap_i, tap_w):
+    """Validate types, shapes and devices; raises on what the kernel does
+    not take (``_CatmullFill.forward`` checks contiguity)."""
+    for name, t in (("y", y), ("tap_i", tap_i), ("tap_w", tap_w)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if y.dtype not in (torch.float32, _F64):
+        raise TypeError(f"y must be float32 or float64, got {y.dtype}")
+    if tap_i.dtype != torch.int32:
+        raise TypeError(f"tap_i must be int32, got {tap_i.dtype}")
+    if tap_w.dtype != _F64:
+        raise TypeError(f"tap_w must be float64, got {tap_w.dtype}")
+    if tap_i.dim() != 2 or tap_i.shape[0] != 4 \
+            or tap_w.shape != tap_i.shape:
+        raise ValueError(f"tap_i and tap_w must both be (4, nk), got "
+                         f"{tuple(tap_i.shape)} and {tuple(tap_w.shape)}")
+    if y.dim() < 1 or y.shape[-1] < 1:
+        raise ValueError(f"y must be (..., nkq) with nkq >= 1, got shape "
+                         f"{tuple(y.shape)}")
+    for name, t in (("tap_i", tap_i), ("tap_w", tap_w)):
+        if t.device != y.device:
+            raise ValueError(f"{name} is on {t.device}, expected {y.device}")
+    if y.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {y.device}")
+
+
+def _launch_fill(y, tap_i, tap_w):
+    from ..kernels._build import load_library
+
+    nkq, nk = y.shape[-1], tap_i.shape[1]
+    rows = y.numel() // nkq
+    out = torch.empty((*y.shape[:-1], nk), dtype=_F64, device=y.device)
+    if rows == 0 or nk == 0:
+        return out
+    lib = load_library()
+    fn = (lib.hmvec_catmull_fill_f32 if y.dtype == torch.float32
+          else lib.hmvec_catmull_fill_f64)
+    err = fn(y.data_ptr(), tap_i.data_ptr(), tap_w.data_ptr(),
+             out.data_ptr(), rows, nkq, nk, y.device.index, _stream(y))
+    _raise_on_error(err, f"catmull_fill({y.dtype})")
+    catmull_fill.launches += 1
+    return out
+
+
+class _CatmullFill(torch.autograd.Function):
+    @staticmethod
+    def forward(y, tap_i, tap_w):
+        for name, t in (("y", y), ("tap_i", tap_i), ("tap_w", tap_w)):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if y.is_cuda:
+            return _launch_fill(y, tap_i, tap_w)
+        return catmull_fill_plain(y, tap_i, tap_w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        y, tap_i, tap_w = inputs
+        ctx.save_for_backward(y, tap_i, tap_w)
+        ctx.save_for_forward(tap_i, tap_w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        y, tap_i, tap_w = ctx.saved_tensors
+        _, vjp = torch.func.vjp(
+            lambda y_: catmull_fill_plain(y_, tap_i, tap_w), y.detach())
+        return vjp(grad)[0], None, None
+
+    @staticmethod
+    def jvp(ctx, t_y, _t_i, _t_w):
+        """The fill is linear in y: its tangent is the fill of t_y."""
+        tap_i, tap_w = ctx.saved_tensors
+        return _CatmullFill.apply(t_y.contiguous(), tap_i, tap_w)
+
+    @staticmethod
+    def vmap(info, in_dims, y, tap_i, tap_w):
+        """torch.func.vmap: the mapped dimension becomes one more leading
+        dimension of the rows, so the kernel runs once for the batch."""
+        y_bd, i_bd, w_bd = in_dims
+        if i_bd is not None or w_bd is not None:
+            raise NotImplementedError("catmull_fill under vmap takes one set "
+                                      "of taps for every mapped element")
+        return _CatmullFill.apply(y.movedim(y_bd, 0).contiguous(), tap_i,
+                                  tap_w), 0
+
+
+def catmull_fill(y, tap_i, tap_w):
+    """The Catmull-Rom fill of y (..., nkq), float32 or float64, by the
+    taps tap_i (4, nk) int32, each index in [0, nkq), and tap_w (4, nk)
+    float64: float64 (..., nk), bit-equal to ``catmull_fill_plain``.  y and
+    the taps contiguous, on one device; CUDA tensors launch the kernel,
+    CPU tensors compute catmull_fill_plain."""
+    _check_fill(y, tap_i, tap_w)
+    return _CatmullFill.apply(y, tap_i, tap_w)
+
+
+catmull_fill.launches = 0

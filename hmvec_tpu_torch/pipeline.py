@@ -56,6 +56,7 @@ from .models.hod import build_hod
 from .models.mass_conversion import mdelta_from_mdelta
 from .ops.nfw_kernels import nfw_contract, nfw_uk
 from .ops.quadrature import trapz
+from .ops.resample_kernels import catmull_fill
 from .ops.sine_transform import generic_profile_fft, profile_table
 from .params import battaglia_defaults, merge_params, to_torch_params
 from .utils.profiling import span
@@ -149,7 +150,8 @@ class _Grids:
             tap_i, tap_w = catmull_taps_nonuniform(np.log(self.ks_np[sub]),
                                                    np.log(self.ks_np))
             self.kq = self.tensor(self.ks_np[sub])
-            self.taps = (torch.as_tensor(tap_i, device=device),
+            self.taps = (torch.as_tensor(tap_i, dtype=torch.int32,
+                                         device=device),
                          self.tensor(tap_w))
 
     def tensor(self, a):
@@ -169,12 +171,14 @@ class _Grids:
         return self._sigma2[key]
 
     def resample(self, y):
-        """Catmull-Rom fill-in of the thinned-k values y (..., nkq)."""
+        """Catmull-Rom fill-in of the thinned-k values y (..., nkq),
+        float32 or float64, as float64 (..., nk) (ops/resample_kernels.py
+        ``catmull_fill``, one kernel on the card); without a thinned grid
+        y as float64."""
         if self.taps is None:
-            return y
-        tap_i, tap_w = self.taps
+            return y.to(_F64)
         with span("hmvec.stages.fill"):
-            return sum(y[..., tap_i[j]] * tap_w[j] for j in range(4))
+            return catmull_fill(y, *self.taps)
 
 
 class _StageOut(NamedTuple):
@@ -235,7 +239,7 @@ def _stages(p, g: _Grids, mass_function, mdef, accuracy, engine,
             scales = (rss * (1.0 + zs)[:, None]).reshape(-1)
             tier = "exact" if fast_nfw == "exact" else "fast"
             uk = nfw_uk(g.kq, scales, cs.reshape(-1), tier=tier)
-            uk = uk.reshape(nz, nm, -1).to(_F64)
+            uk = uk.reshape(nz, nm, -1)
         else:
             uk = prof.nfw_uk_analytic(g.kq, zs, cs, rss)
         return _StageOut(bg, pzk, nzm, bh, rho_m0, g.resample(uk),

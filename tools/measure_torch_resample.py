@@ -3,6 +3,7 @@ a CUDA card, beside chip_smoke.py.
 
     python3 tools/measure_torch_resample.py --roots PARENT . . PARENT
     python3 tools/measure_torch_resample.py --sweep [--out sweep.json]
+    python3 tools/measure_torch_resample.py --fill [--out fill.json]
 
 The shapes are the main path's, made once on the card by this checkout
 from the golden files' grids at the bench cosmology: the electron path's
@@ -36,6 +37,17 @@ last touched entry.
     into a preallocated output, beside the geometry that
     resample_kernels.pair_lerp_geometry picks, and each kernel's
     registers and static SASS counts.
+
+--fill: the serving path's Catmull-Rom fill (catmull_fill, F1) alone, at
+    the fast cell's cube (512,000 x 589 -> 1,001, float32 y) and at one
+    fused-cell sum (10,240 x 589 -> 1,001, float64 y), on the serving taps
+    ((0.2, 4) on the README k grid), and at rows too wide to stage
+    (20,000 x 8,000 -> 1,001, float64 y, on random sorted taps): the
+    kernel checked bit for bit against catmull_fill_plain, then timed by
+    CUDA-graph replay (five samples of 200 calls) beside the plain version
+    (three samples of 10 calls) and the byte bound (y read once, the taps,
+    the float64 output written once, over 3.35 TB/s), and the fill
+    kernels' ptxas registers.
 
 Run from the repository root on a machine with a CUDA card.
 """
@@ -293,10 +305,70 @@ def sweep(inputs, cs_mod) -> dict:
     return report
 
 
+def time_fill(cs_mod) -> dict:
+    """The fill (F1) at the two serving shapes and at unstaged rows:
+    bit-equality, kernel and plain device times and the bound."""
+    sys.path.insert(0, str(ROOT))
+    from hmvec_tpu_torch import pipeline as pl
+    from hmvec_tpu_torch.kernels import _build
+    from hmvec_tpu_torch.ops import resample_kernels as rk
+    from hmvec_tpu_torch.params import merge_params
+
+    dev = torch.device("cuda", 0)
+    g = np.load(DATA / "pmm_config1_golden.npz")
+    grids = pl._Grids(None, g["ks"], g["ms"], merge_params(), (0.2, 4), dev)
+    serving = grids.taps
+    nk = serving[0].shape[1]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    wide_i = torch.randint(0, 8000, (4, nk), generator=gen, device=dev)
+    wide = (wide_i.sort(dim=1).values.to(torch.int32),
+            torch.randn((4, nk), generator=gen, dtype=torch.float64,
+                        device=dev))
+    report = {"ptxas": {
+        k: v for k, v in cs_mod.ptxas_resources(
+            _build.build_info.get("log", "")).items()
+        if k.startswith("catmull_fill")}}
+    for name, rows, nkq, dtype, (tap_i, tap_w) in (
+            ("fast_cube", 512000, grids.kq.shape[0], torch.float32, serving),
+            ("fused_sum", 10240, grids.kq.shape[0], torch.float64, serving),
+            ("unstaged", 20000, 8000, torch.float64, wide)):
+        y = torch.rand((rows, nkq), generator=gen, device=dev).to(dtype)
+        got = rk.catmull_fill(y, tap_i, tap_w)
+        want = rk.catmull_fill_plain(y, tap_i, tap_w)
+        torch.cuda.synchronize()
+        equal = torch.equal(got.view(torch.int64), want.view(torch.int64))
+        del got, want
+        nbytes = (y.numel() * y.element_size() + tap_i.numel() * 4
+                  + tap_w.numel() * 8 + rows * nk * 8)
+        bound_ms, bound_by = cs_mod.bound(nbytes, {"f64": 8 * rows * nk})
+        kernel = [cs_mod.device_ms(lambda: rk.catmull_fill(y, tap_i, tap_w),
+                                   **REPLAY) for _ in range(SAMPLES)]
+        plain = [cs_mod.device_ms(
+            lambda: rk.catmull_fill_plain(y, tap_i, tap_w), calls=5,
+            replays=2) for _ in range(3)]
+        med = statistics.median(kernel)
+        report[name] = {
+            "shape": f"{rows} x {nkq} -> {nk} ({dtype})", "equal": equal,
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_ms": kernel, "kernel_median_ms": med,
+            "time_over_bound": med / bound_ms, "plain_ms": plain,
+            "plain_median_ms": statistics.median(plain)}
+        print(f"[fill] {name} {report[name]['shape']}: bit-equal {equal}; "
+              f"kernel {med!r} ms ({kernel!r}), bound {bound_ms!r} ms by "
+              f"{bound_by} ({nbytes} bytes), time / bound {med / bound_ms!r}; "
+              f"plain {statistics.median(plain)!r} ms ({plain!r})")
+        del y
+        torch.cuda.empty_cache()
+    for kern, res in sorted(report["ptxas"].items()):
+        print(f"[ptxas] {kern}: {res}")
+    return report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--roots", nargs="+", type=pathlib.Path)
     parser.add_argument("--sweep", action="store_true")
+    parser.add_argument("--fill", action="store_true")
     parser.add_argument("--out", help="write the results as JSON here")
     parser.add_argument("--time-root", nargs=2, type=pathlib.Path,
                         help=argparse.SUPPRESS)
@@ -311,6 +383,13 @@ def main() -> int:
     cs_mod = _chip_smoke()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if args.fill:
+        results = {"card": cs_mod.card_line(), "fill": time_fill(cs_mod)}
+        print(results["card"])
+        if args.out:
+            pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            pathlib.Path(args.out).write_text(json.dumps(results, indent=1))
+        return 0
     inputs = make_inputs(dev)
     card = cs_mod.card_line()
     print(card)
