@@ -89,7 +89,7 @@ class Checker:
             slot = (len(kept) if self.offered < self.k
                     else int(self.rng.integers(self.offered + 1)))
             if slot < self.k:
-                item = (theta[row].copy(), np.array(host[row]))
+                item = (theta[row].copy(), row_of(host, row))
                 if slot == len(kept):
                     kept.append(item)
                 else:
@@ -98,6 +98,15 @@ class Checker:
 
     def rows(self):
         return [item for kept in self.kept for item in kept]
+
+
+def row_of(host, row):
+    """One row of a call's spectra on the host, as its own array: of an
+    entry that returns several spectra (a tuple of (B, ...) arrays) their
+    rows stacked, (leaves, ...), as the reference's ``spectra`` gives them."""
+    if isinstance(host, tuple):
+        return np.stack([leaf[row] for leaf in host])
+    return np.array(host[row])
 
 
 # the numbers compared, in the order compare() gives them, each with its
@@ -149,13 +158,17 @@ def run(bench: dict, cell_name: str, *, seed: int, seconds: float,
     if fault is not None:
         batched = fault(batched)
     out = batched(warm.next_batch())
-    # the spectra reach the host in one reused page-locked buffer, as a
-    # serving loop keeps one
-    host_buf = torch.empty(out.shape, dtype=out.dtype, pin_memory=on_card)
+    # the spectra reach the host in reused page-locked buffers, one for each
+    # tensor the call returns, as a serving loop keeps them
+    several = isinstance(out, tuple)
+    host_bufs = [torch.empty(o.shape, dtype=o.dtype, pin_memory=on_card)
+                 for o in (out if several else (out,))]
+    host_views = tuple(b.numpy() for b in host_bufs)
 
     def to_host(result):
-        host_buf.copy_(result)
-        return host_buf.numpy()
+        for buf, leaf in zip(host_bufs, result if several else (result,)):
+            buf.copy_(leaf)
+        return host_views if several else host_views[0]
 
     to_host(out)
     for _ in range(int(spec["warmup_calls"]) - 1):
@@ -219,7 +232,7 @@ def run(bench: dict, cell_name: str, *, seed: int, seconds: float,
         extra["breakdown"] = tr.breakdown()
 
     # the check, once the window has closed and the program's state is freed
-    del batched, out, host_buf
+    del batched, out, host_bufs, host_views
     if trace:
         del tr
     gc.unfreeze()

@@ -24,7 +24,6 @@ SPAN = "hmvec."
 CALL = "hmvec.call"
 STAGES = "hmvec.stages"
 LINEAR_POWER = "hmvec.stages.linear_power"
-FILL = "hmvec.stages.fill"
 POWER = "hmvec.power"
 SHARD = "hmvec.shard.issue:"
 # the CUDA runtime calls that hold the host until the card has caught up

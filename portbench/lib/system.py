@@ -24,7 +24,8 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64, None: None}
 
 
 def build(cfg: dict, param_names, devices):
-    """batched(theta (B, P) numpy) -> a tensor (B, ...) on devices[0]."""
+    """batched(theta (B, P) numpy) -> a tensor (B, ...) on devices[0], or
+    a tuple of them for an entry that returns several spectra."""
     mod_name, fn_name = cfg["entry"].rsplit(".", 1)
     factory = getattr(importlib.import_module(f"hmvec_tpu_torch.{mod_name}"),
                       fn_name)

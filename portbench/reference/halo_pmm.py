@@ -251,8 +251,9 @@ def halo_inputs(theta: dict, cfg: dict, dtype=np.float64):
     pzk = bg.plin(zs, ks, pivot)
 
     # sigma^2(z, m) on the configuration's k grid
-    ks2 = np.geomspace(fixed["sigma2_kmin"], fixed["sigma2_kmax"],
-                       opts["static_params"]["sigma2_numks"])
+    # the configuration's build-time overrides over its fixed parameters
+    numks = {**fixed, **opts.get("static_params", {})}["sigma2_numks"]
+    ks2 = np.geomspace(fixed["sigma2_kmin"], fixed["sigma2_kmax"], numks)
     kw = f(simpson_weights(ks2) * ks2**2 / (2.0 * np.pi**2))
     ks2 = f(ks2)
     rho_m0 = bg.rho_m(bg.f(0.0))

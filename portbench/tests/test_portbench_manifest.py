@@ -110,7 +110,8 @@ def test_a_full_check_fits_its_time():
 def test_nothing_loads_jax_or_the_jax_package():
     code = ("import sys; import portbench.lib.harness, portbench.lib.system, "
             "portbench.lib.trace, portbench.control, "
-            "portbench.reference.halo_pmm, hmvec_tpu_torch.pipeline, "
+            "portbench.reference.halo_pmm, portbench.reference.halo_electron, "
+            "hmvec_tpu_torch.pipeline, "
             "hmvec_tpu_torch.parallel.sharding; "
             "[portbench.lib.harness.load_module('metrics', m['name']) for k "
             "in ('end_to_end', 'per_layer') for m in "

@@ -18,7 +18,7 @@ from portbench.lib.trace import Trace, run_traced
 from hmvec_tpu_torch.utils.profiling import span
 
 NEW = ("call.host_syncs", "stages.host_ms", "stages.span_ms",
-       "linear_power.span_ms", "fill.span_ms", "power.span_ms",
+       "linear_power.span_ms", "power.span_ms",
        "stages.idle_pct", "shard.wait_other_pct")
 OLD = ("device_idle_pct", "launches_per_call", "host_issue_ms",
        "stages.device_ms", "power.device_ms", "nfw_uk_roofline",
@@ -132,13 +132,11 @@ def test_each_kernel_belongs_to_the_innermost_span_at_its_launch():
 @pytest.mark.parametrize("name, want_ms", [
     ("stages.span_ms", (1000 + 200 + 500 + 60) / 2 / 1e3),
     ("linear_power.span_ms", 200 / 2 / 1e3),
-    ("fill.span_ms", (500 + 60) / 2 / 1e3),
     ("power.span_ms", 300 / 2 / 1e3),
 ])
 def test_kernel_time_by_innermost_span(name, want_ms):
-    """Two calls; the fill inside the mass integrals counts in the stages
-    and in its own reader; the hand kernels, the copy and kernels of other
-    spans count in none."""
+    """Two calls; the fill inside the mass integrals counts in the stages;
+    the hand kernels, the copy and kernels of other spans count in none."""
     cpu, dev = _launches(LAUNCHED)
     assert read(name, _trace(cpu_ops=SPANS + cpu, device_ops=dev)) == \
         pytest.approx(want_ms, rel=1e-9)
